@@ -1,0 +1,416 @@
+#!/usr/bin/env python3
+"""Smoke test of horovod_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which ends the run with a non-zero exit if it fails:
+
+1. card    — the card's name and power limit, as nvidia-smi reports them;
+2. build   — nvcc builds the flash-attention kernels from
+             horovod_tpu_torch/csrc/ for sm_90a (timed);
+3. kernels — each kernel against its plain PyTorch version on the card, in
+             bf16, at small cases (ragged lengths, offsets, fully masked
+             rows, causal and not, head_dim 32/64/128) and at the flagship
+             training shape, elementwise and normwise; then each kernel,
+             its plain version and the library call (PyTorch's
+             scaled_dot_product_attention forward; its flash-attention
+             backward, dQ+dK+dV in one call) timed on the device (CUDA
+             graph replays between CUDA events) at the flagship shape
+             (8, 512, 8, 64) and at long context (1, 8192, 16, 64);
+4. train   — init() on CUDA (NCCL, world 1), the flagship transformer
+             (vocab 8192, d_model 512, 8 heads, d_ff 2048, 8 layers,
+             seq 512, bf16, batch 8) from the port's seeded init,
+             broadcast_parameters, DistributedOptimizer(AdamW), 5 steps on
+             one synthetic batch.  Before the steps, the loss and every
+             parameter's gradient through the kernels must match the plain
+             attention path's (HVD_TPU_FLASH=0) on the same weights and
+             batch.  Losses must be finite and fall, and every kernel must
+             launch once per layer per step.
+
+The last lines are the card line, a JSON line with one entry per kernel,
+and ``{"ok": true, "device": {...}}``.  Detailed numbers also go to
+chiprun_out/chip_smoke.json.  Without a CUDA device it exits non-zero and
+prints no result.
+"""
+
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16 FLOP/s.
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+# Parity tolerances against the plain version (bf16 inputs).  out and the
+# gradients as the reference's own kernel tests hold them
+# (tests/test_flash_attention.py); lse is fp32 on both sides and differs
+# only by the fast exp and the summation order.
+TOL_OUT = dict(atol=2e-2, rtol=1e-3)
+TOL_LSE = dict(atol=2e-3, rtol=1e-4)
+TOL_GRAD = dict(atol=5e-2, rtol=1e-2)
+# Those atol are near a typical element of the gradients at the flagship
+# shape, so each output is also held normwise: ||kernel - plain|| / ||plain||
+# (bf16 rounding of the outputs and of P, dS is ~2e-3 of that).
+TOL_REL = 1e-2
+# Step-0 loss and per-parameter gradients of the bf16 model, kernels vs the
+# plain attention path (HVD_TPU_FLASH=0) on the same weights and batch; the
+# gradients normwise, as above.
+TOL_LOSS = 1e-3
+TOL_MODEL_GRAD_REL = 2e-2
+
+KERNELS = {
+    "flash_fwd": "horovod_tpu/ops/flash_attention.py:97",
+    "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:205",
+    "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:255",
+}
+SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def rand_qkv(torch, b, sq, sk, h, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    mk = lambda s: torch.randn((b, s, h, d), generator=g).to("cuda",
+                                                            torch.bfloat16)
+    return mk(sq), mk(sk), mk(sk), mk(sq)
+
+
+def compare(torch, got, ref, tol):
+    """Assert ``got`` matches ``ref`` elementwise (``tol``) and normwise
+    (``TOL_REL``); returns (max abs err, normwise relative err)."""
+    torch.testing.assert_close(got, ref, **tol)
+    diff = got.float() - ref.float()
+    rel = (diff.norm() / ref.float().norm().clamp_min(1e-30)).item()
+    assert rel <= TOL_REL, f"normwise relative error {rel} > {TOL_REL}"
+    return diff.abs().max().item(), rel
+
+
+def check_case(torch, fa, q, k, v, do, causal, q_off, kv_off):
+    """Each kernel vs its plain version on the same inputs; returns
+    {kernel: (max abs err, normwise relative err)}, dK/dV's the larger."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    args = (causal, scale, q_off, kv_off)
+    o_k, lse_k = fa.flash_fwd(q, k, v, *args)
+    o_p, lse_p = fa.attention_with_lse_plain(q, k, v, *args)
+    torch.cuda.synchronize()
+    errs = {"flash_fwd": compare(torch, o_k, o_p, TOL_OUT)}
+    torch.testing.assert_close(lse_k, lse_p, **TOL_LSE)
+    dead = lse_p <= -1e29
+    assert torch.equal(dead, lse_k <= -1e29), "fully masked rows differ"
+    assert not o_k.transpose(1, 2)[dead].any(), "masked rows must be 0"
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2)
+    bargs = (do, lse_p, delta) + args
+    dq_k = fa.flash_bwd_dq(q, k, v, *bargs)
+    dq_p = fa.bwd_dq_plain(q, k, v, *bargs)
+    dk_k, dv_k = fa.flash_bwd_dkv(q, k, v, *bargs)
+    dk_p, dv_p = fa.bwd_dkv_plain(q, k, v, *bargs)
+    torch.cuda.synchronize()
+    errs["flash_bwd_dq"] = compare(torch, dq_k, dq_p, TOL_GRAD)
+    dk, dv = (compare(torch, dk_k, dk_p, TOL_GRAD),
+              compare(torch, dv_k, dv_p, TOL_GRAD))
+    errs["flash_bwd_dkv"] = (max(dk[0], dv[0]), max(dk[1], dv[1]))
+    return errs
+
+
+def fmt_errs(errs):
+    return ", ".join(f"{n} max abs {a:.3g} rel {r:.3g}"
+                     for n, (a, r) in errs.items())
+
+
+def time_ms(torch, fn, iters, reps=3):
+    """Device time (ms) of one call of ``fn``: ``iters`` calls captured in a
+    CUDA graph, replayed ``reps`` times between CUDA events, so the host's
+    per-call cost (Python, dispatch, ctypes) is not in the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture: cuBLAS, caches
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph
+    return ms
+
+
+def bounds(b, s, h, d):
+    """Least time (ms) for each kernel at a causal (b, s, h, d) self-
+    attention: bytes each input read once and each output written once over
+    HBM bandwidth, vs the unmasked (q, k) pairs' tensor-core FLOPs over the
+    bf16 peak; the larger wins."""
+    act = b * s * h * d * 2          # one bf16 (B, S, H, D) tensor
+    row = b * h * s * 4              # one fp32 (B, H, S) row statistic
+    pairs = b * h * s * (s + 1) // 2
+    work = {  # (bytes, flops): products of 2*d FLOPs per pair each
+        "flash_fwd": (3 * act + act + row, 2 * 2 * d * pairs),
+        "flash_bwd_dq": (4 * act + 2 * row + act, 3 * 2 * d * pairs),
+        "flash_bwd_dkv": (4 * act + 2 * row + 2 * act, 4 * 2 * d * pairs),
+    }
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def time_shape(torch, F, fa, b, s, h, d, iters, plain_iters):
+    """Times (ms) of each kernel, its plain version, and the library call:
+    SDPA for the forward; for both backward kernels PyTorch's flash-attention
+    backward, which computes dQ, dK and dV in one call."""
+    q, k, v, do = rand_qkv(torch, b, s, s, h, d, seed=7)
+    scale = 1.0 / math.sqrt(d)
+    args = (True, scale, 0, 0)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    bargs = (do, lse, delta) + args
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    aten = torch.ops.aten
+    lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lfwd = aten._scaled_dot_product_flash_attention(lq, lk, lv, 0.0, True,
+                                                    False, scale=scale)
+
+    def library_bwd():
+        aten._scaled_dot_product_flash_attention_backward(
+            ldo, lq, lk, lv, lfwd[0], lfwd[1], lfwd[2], lfwd[3], lfwd[4],
+            lfwd[5], 0.0, True, lfwd[6], lfwd[7], scale=scale)
+
+    library_bwd_ms = time_ms(torch, library_bwd, iters)
+    res = {
+        "flash_fwd": (
+            time_ms(torch, lambda: fa.flash_fwd(q, k, v, *args), iters),
+            time_ms(torch, lambda: fa.attention_with_lse_plain(q, k, v, *args),
+                    plain_iters),
+            time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters)),
+        "flash_bwd_dq": (
+            time_ms(torch, lambda: fa.flash_bwd_dq(q, k, v, *bargs), iters),
+            time_ms(torch, lambda: fa.bwd_dq_plain(q, k, v, *bargs),
+                    plain_iters), library_bwd_ms),
+        "flash_bwd_dkv": (
+            time_ms(torch, lambda: fa.flash_bwd_dkv(q, k, v, *bargs), iters),
+            time_ms(torch, lambda: fa.bwd_dkv_plain(q, k, v, *bargs),
+                    plain_iters), library_bwd_ms),
+    }
+    # Forward + backward through autograd: the port's attention vs SDPA.
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def port_fb():
+        fa.flash_attention(qg, kg, vg, causal=True).backward(do)
+
+    def sdpa_fb():
+        F.scaled_dot_product_attention(
+            qg.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+            is_causal=True).backward(do.transpose(1, 2))
+
+    fb = {"port_fwd_bwd_ms": time_ms(torch, port_fb, iters),
+          "sdpa_fwd_bwd_ms": time_ms(torch, sdpa_fb, iters),
+          "port_bwd_ms": res["flash_bwd_dq"][0] + res["flash_bwd_dkv"][0],
+          "library_bwd_ms": library_bwd_ms}
+    return res, fb
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test runs on a "
+              "GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import torch.nn.functional as F
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    report = {}
+    # 1. card
+    card = card_line()
+    log(f"[card] {card}  ({torch.cuda.get_device_name(0)}, torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda})")
+
+    # 2. build
+    t0 = time.perf_counter()
+    lib_path = _build.build("flash_attention")
+    fa._library()
+    report["build_s"] = time.perf_counter() - t0
+    log(f"[build] {os.path.relpath(lib_path, ROOT)} in "
+        f"{report['build_s']:.1f} s")
+    with open(lib_path + ".log") as f:  # ptxas -v: registers and spills
+        for line in f:
+            kernel = re.search(r"(flash_\w+?_kernel)ILi(\d+)ELi(\d+)", line)
+            if kernel and "Compiling entry" in line:
+                log("[build] %s<%s,%s>:" % kernel.groups())
+            elif "registers" in line or "spill" in line:
+                log("[build]   " + line.strip())
+
+    # 3. kernels vs plain versions
+    small = [  # (b, sq, sk, h, d, causal, q_offset, kv_offset)
+        (2, 200, 200, 3, 64, True, 0, 0),
+        (2, 200, 200, 3, 64, False, 0, 0),
+        (1, 96, 160, 2, 32, True, 64, 0),
+        (1, 130, 70, 2, 128, True, 0, 100),   # rows < 100 fully masked
+        (2, 77, 77, 2, 128, False, 0, 0),
+        (1, 64, 64, 2, 32, True, 0, 64),      # every row fully masked
+    ]
+    for i, (b, sq, sk, h, d, causal, qo, ko) in enumerate(small):
+        q, k, v, do = rand_qkv(torch, b, sq, sk, h, d, seed=i)
+        errs = check_case(torch, fa, q, k, v, do, causal, qo, ko)
+        log(f"[kernels] case {(b, sq, sk, h, d)} causal={causal} "
+            f"offsets=({qo},{ko}): {fmt_errs(errs)}")
+    # The flagship shape, through strided q/k/v slices of a fused qkv.
+    g = torch.Generator().manual_seed(11)
+    qkv = torch.randn((8, 512, 8, 3, 64), generator=g).to("cuda",
+                                                          torch.bfloat16)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    do = torch.randn((8, 512, 8, 64), generator=g).to("cuda", torch.bfloat16)
+    main_errs = check_case(torch, fa, q, k, v, do, True, 0, 0)
+    log(f"[kernels] flagship (8, 512, 8, 64) strided qkv: "
+        f"{fmt_errs(main_errs)}")
+    bad = torch.zeros((1, 64, 2, 96), device="cuda", dtype=torch.bfloat16)
+    try:
+        fa.flash_fwd(bad, bad, bad, True, 0.1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("head_dim 96 must raise on a CUDA tensor")
+
+    timing = {}
+    for label, shape, iters, plain_iters in (
+            ("flagship", (8, 512, 8, 64), 50, 10),
+            ("long_context", (1, 8192, 16, 64), 10, 3)):
+        res, fb = time_shape(torch, F, fa, *shape, iters, plain_iters)
+        bnd = bounds(*shape)
+        timing[label] = {"shape": shape, "fwd_bwd": fb, "kernels": {
+            n: {"ms": r[0], "plain_ms": r[1], "library_ms": r[2],
+                "bound_ms": bnd[n][0], "bound_by": bnd[n][1]}
+            for n, r in res.items()}}
+        for n, r in timing[label]["kernels"].items():
+            log(f"[kernels] {label} {shape} {n}: {r['ms']:.4f} ms (bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
+                f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms")
+        log(f"[kernels] {label} fwd+bwd: port {fb['port_fwd_bwd_ms']:.4f} ms,"
+            f" sdpa {fb['sdpa_fwd_bwd_ms']:.4f} ms; bwd (dQ + dK/dV): port "
+            f"{fb['port_bwd_ms']:.4f} ms, library "
+            f"{fb['library_bwd_ms']:.4f} ms")
+    report["timing"] = timing
+    torch.cuda.synchronize()
+
+    # 4. the main path: 5 data-parallel training steps of the flagship
+    hvd.init()
+    cfg = tfm.TransformerConfig(vocab_size=8192, d_model=512, n_heads=8,
+                                d_ff=2048, n_layers=8, seq_len=512,
+                                dtype=torch.bfloat16)
+    par = tfm.ParallelConfig()
+    batch, n_steps = 8, 5
+    model = tfm.Transformer(cfg, par, seed=0)
+    hvd.broadcast_parameters(model.state_dict())
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=3e-4, weight_decay=1e-4))
+    tokens, labels = tfm.synthetic_batch(cfg, batch, seed=1)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = tfm.forward_loss(cfg, par, model, tokens, labels)
+        loss.backward()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    # Step 0's loss and gradients through the kernels (autograd Function,
+    # δ, the strided dQ/dK/dV into the fused qkv gradient) vs the plain
+    # attention path, on the same weights and batch.
+    kernel_loss, kernel_grads = loss_and_grads()
+    os.environ["HVD_TPU_FLASH"] = "0"
+    plain_loss, plain_grads = loss_and_grads()
+    del os.environ["HVD_TPU_FLASH"]
+    grad_rel = {n: ((kernel_grads[n] - g).norm()
+                    / g.norm().clamp_min(1e-30)).item()
+                for n, g in plain_grads.items()}
+    log(f"[train] step-0 loss: kernels {kernel_loss}, plain attention "
+        f"{plain_loss}; gradients, normwise relative difference: "
+        + ", ".join(f"{n} {r:.3g}" for n, r in grad_rel.items()))
+    assert abs(kernel_loss - plain_loss) <= TOL_LOSS, (kernel_loss,
+                                                       plain_loss)
+    for n, r in grad_rel.items():
+        assert r <= TOL_MODEL_GRAD_REL, (n, r)
+    del kernel_grads, plain_grads
+    step = tfm.make_train_step(cfg, par, model, opt)
+
+    fa.reset_launches()
+    losses, times = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        loss = step(tokens, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = dict(fa.launches)
+    log(f"[train] losses {losses}")
+    log(f"[train] kernel launches over {n_steps} steps: {launches}")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert abs(losses[0] - kernel_loss) <= TOL_LOSS, (losses[0], kernel_loss)
+    for n in KERNELS:
+        assert launches[n] == cfg.n_layers * n_steps, launches
+    step_s = sum(times[1:]) / (n_steps - 1)
+    tok_s = batch * cfg.seq_len / step_s
+    mfu = tfm.train_flops_per_seq(cfg) * batch / step_s / PEAK_BF16_FLOPS
+    log(f"[train] step {step_s * 1e3:.3f} ms (mean of steps 1-{n_steps - 1}; "
+        f"step 0 {times[0] * 1e3:.1f} ms), {tok_s:.0f} tokens/s, MFU "
+        f"{mfu:.4f} of 989 TFLOP/s bf16, on {card}")
+    report["train"] = {"losses": losses, "plain_step0_loss": plain_loss,
+                       "step0_grad_rel": grad_rel,
+                       "step_times_s": times, "step_s": step_s,
+                       "tokens_per_s": tok_s, "mfu": mfu,
+                       "launches": launches}
+    hvd.shutdown()
+
+    kernels = []
+    flag = timing["flagship"]["kernels"]
+    for name, replaces in KERNELS.items():
+        kernels.append(dict(name=name, route="cuda", source=SOURCE,
+                            replaces=replaces, launches=launches[name],
+                            max_abs_err=main_errs[name][0],
+                            rel_err=main_errs[name][1], **flag[name]))
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    report.update(card=card, device=device, kernels=kernels)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,160 @@
+"""init / shutdown / topology queries (port of horovod_tpu/core/basics.py).
+
+``init()`` resolves the process topology from the launcher's environment
+contract (``HOROVOD_RANK``/``SIZE``/``LOCAL_RANK``/..., reference
+gloo_run.py:64-75) and brings up ``torch.distributed``: NCCL on
+``cuda:local_rank`` by default, gloo when the caller asks for
+``device="cpu"``.  There is no mesh: the data-parallel group is the world.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from . import config as _cfg
+from .exceptions import NotInitializedError
+from .state import global_state
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def _cuda_or_raise(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} runs on a CUDA device unless device='cpu' is passed, "
+            "and no CUDA device is available")
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point computes on.  ``None`` means the device
+    ``init()`` chose, else the current CUDA device; with no CUDA device it
+    raises instead of carrying on quietly on the CPU."""
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            _cuda_or_raise("horovod_tpu_torch")
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
+    if global_state.initialized:
+        return global_state.device
+    _cuda_or_raise("horovod_tpu_torch")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def init(device: DeviceLike = None, init_method: Optional[str] = None) -> None:
+    """Initialize the runtime and the ``torch.distributed`` world.
+
+    Args:
+      device: ``None`` or ``"cuda"`` computes on ``cuda:local_rank`` over
+        NCCL; ``"cpu"`` computes on the CPU over gloo.
+      init_method: rendezvous URL for a world of more than one process
+        (``tcp://host:port``, ``file:///path``); default ``env://``, which
+        reads ``MASTER_ADDR``/``MASTER_PORT``.  A world of one needs none:
+        it rendezvouses through an in-process store.
+    """
+    if global_state.initialized:
+        return
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        _cuda_or_raise("horovod_tpu_torch.init()")
+
+    env_rank, env_size = _cfg.get_int(_cfg.RANK), _cfg.get_int(_cfg.SIZE)
+    if dist.is_initialized():
+        rank, size = dist.get_rank(), dist.get_world_size()
+        if env_rank is not None and (env_rank, env_size) != (rank, size):
+            raise RuntimeError(
+                f"torch.distributed world (rank {rank} of {size}) disagrees "
+                f"with the launcher environment (rank {env_rank} of "
+                f"{env_size})")
+    elif env_rank is not None and env_size is not None:
+        rank, size = env_rank, env_size
+    else:
+        rank, size = 0, 1
+    local_rank = _cfg.get_int(_cfg.LOCAL_RANK) or 0
+
+    if cpu:
+        dev, backend = torch.device("cpu"), "gloo"
+    else:
+        dev, backend = torch.device("cuda", local_rank), "nccl"
+        torch.cuda.set_device(dev)
+
+    owns = False
+    if not dist.is_initialized():
+        if size == 1 and init_method is None:
+            # In-process store: no port to collide with parallel workers.
+            dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                    world_size=1)
+        else:
+            dist.init_process_group(backend,
+                                    init_method=init_method or "env://",
+                                    rank=rank, world_size=size)
+        owns = True
+
+    global_state.rank = rank
+    global_state.size = size
+    global_state.local_rank = local_rank
+    global_state.local_size = _cfg.get_int(_cfg.LOCAL_SIZE) or 1
+    global_state.cross_rank = _cfg.get_int(_cfg.CROSS_RANK) or 0
+    global_state.cross_size = _cfg.get_int(_cfg.CROSS_SIZE) or 1
+    global_state.device = dev
+    global_state.owns_process_group = owns
+    global_state.initialized = True
+
+
+def shutdown() -> None:
+    """Tear down the runtime; destroys the process group ``init()`` made."""
+    if global_state.owns_process_group and dist.is_initialized():
+        dist.destroy_process_group()
+    global_state.reset()
+
+
+def is_initialized() -> bool:
+    return global_state.initialized
+
+
+def _check_init():
+    if not global_state.initialized:
+        raise NotInitializedError()
+
+
+def rank() -> int:
+    """Global rank of this process (one process per GPU)."""
+    _check_init()
+    return global_state.rank
+
+
+def size() -> int:
+    """Number of processes (GPUs) in the world."""
+    _check_init()
+    return global_state.size
+
+
+def local_rank() -> int:
+    _check_init()
+    return global_state.local_rank
+
+
+def local_size() -> int:
+    _check_init()
+    return global_state.local_size
+
+
+def cross_rank() -> int:
+    """Rank among hosts (one per node) — reference common.h:119-123."""
+    _check_init()
+    return global_state.cross_rank
+
+
+def cross_size() -> int:
+    _check_init()
+    return global_state.cross_size
+
+
+def device() -> torch.device:
+    """The device ``init()`` placed this process on."""
+    _check_init()
+    return global_state.device

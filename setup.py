@@ -24,8 +24,13 @@ setup(
     version="0.1.0",
     description=("TPU-native distributed training framework with the "
                  "capability set of Horovod"),
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
-    package_data={"horovod_tpu.native": ["libhvdtpu_core.so"]},
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch",
+                                    "horovod_tpu_torch.*"]),
+    # horovod_tpu_torch (the PyTorch/CUDA port) builds its kernels from
+    # csrc/*.cu with nvcc at first use, so the sources ship as data.
+    package_data={"horovod_tpu.native": ["libhvdtpu_core.so"],
+                  "horovod_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "optax", "cloudpickle"],
     entry_points={

@@ -171,3 +171,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-minute performance/regression tests "
         "(deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one "
+        "(horovod_tpu_torch's CUDA kernels have no CPU mode)")

@@ -1,0 +1,76 @@
+"""horovod_tpu_torch's CUDA kernels against their plain PyTorch versions,
+on the card (marker ``cuda``; each test skips without a GPU).  Imports
+neither JAX nor horovod_tpu, so it also runs where only PyTorch is
+installed:
+
+    python -m pytest --noconftest tests/torch_port/test_torch_port_cuda.py -q
+
+Tolerances (bf16 inputs): out atol 2e-2 rtol 1e-3 and gradients atol 5e-2
+rtol 1e-2, as the reference's kernel tests hold the Pallas kernels; lse is
+fp32 on both sides (atol 2e-3 rtol 1e-4: the fast exp and the summation
+order).  Those gradient atol are near a typical gradient element at the
+flagship shape, so every output is also held normwise:
+||kernel - plain|| / ||plain|| <= 1e-2.  The kernels round P and dS to
+bf16 before their tensor-core products; these bounds include that."""
+
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import flash_attention as fa
+
+CASES = [  # (b, sq, sk, h, d, causal, q_offset, kv_offset)
+    (2, 200, 200, 3, 64, True, 0, 0),
+    (2, 200, 200, 3, 64, False, 0, 0),
+    (1, 96, 160, 2, 32, True, 64, 0),
+    (1, 130, 70, 2, 128, True, 0, 100),   # rows < 100 see no key
+    (1, 64, 64, 2, 32, True, 0, 64),      # no row sees a key
+    (8, 512, 512, 8, 64, True, 0, 0),     # the flagship training shape
+]
+
+
+def assert_matches(got, ref, atol, rtol):
+    torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+    diff = (got.float() - ref.float()).norm()
+    assert diff <= 1e-2 * ref.float().norm(), "normwise relative error"
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_cuda_kernels_match_plain(cuda_device, case):
+    b, sq, sk, h, d, causal, qo, ko = case
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g).to(
+        cuda_device, torch.bfloat16) for s in (sq, sk, sk, sq))
+    args = (causal, d ** -0.5, qo, ko)
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    o_p, lse_p = fa.attention_with_lse_plain(q, k, v, *args)
+    assert_matches(o, o_p, atol=2e-2, rtol=1e-3)
+    torch.testing.assert_close(lse, lse_p, atol=2e-3, rtol=1e-4)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2)
+    bargs = (do, lse_p, delta) + args
+    assert_matches(fa.flash_bwd_dq(q, k, v, *bargs),
+                   fa.bwd_dq_plain(q, k, v, *bargs), atol=5e-2, rtol=1e-2)
+    for got, ref in zip(fa.flash_bwd_dkv(q, k, v, *bargs),
+                        fa.bwd_dkv_plain(q, k, v, *bargs)):
+        assert_matches(got, ref, atol=5e-2, rtol=1e-2)
+    torch.cuda.synchronize()
+    assert all(fa.launches[n] == before[n] + 1 for n in before)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_refuse_unsupported_inputs(cuda_device):
+    bad_d = torch.zeros((1, 64, 2, 96), device=cuda_device,
+                        dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(bad_d, bad_d, bad_d, True, 0.1)
+    f32 = torch.zeros((1, 64, 2, 64), device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_fwd(f32, f32, f32, True, 0.1)

@@ -1,0 +1,233 @@
+"""horovod_tpu_torch's data-parallel training step against horovod_tpu's.
+
+World 1 (gloo, ``device="cpu"``): ``DistributedOptimizer(AdamW)`` steps on
+the small flagship configuration track ``hvd.DistributedOptimizer(
+optax.adamw)`` on the same parameters and batch, fp32.  World 2 (two gloo
+processes): gradients are averaged, integer ``Average`` is floored, and
+the other reduce ops, scale factors, grouped reduction and broadcasts keep
+the reference's semantics."""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from jax.sharding import Mesh, PartitionSpec as P
+
+import horovod_tpu as hvd_jax
+import horovod_tpu_torch as hvd
+from horovod_tpu.compat import shard_map
+from horovod_tpu.models import transformer as tfm_jax
+from horovod_tpu_torch import convert
+from horovod_tpu_torch.models import transformer as tfm
+
+SMALL = dict(vocab_size=128, d_model=64, n_heads=4, d_ff=128, n_layers=2,
+             seq_len=64)
+LR, WD = 3e-4, 1e-4
+
+
+@pytest.fixture
+def world1():
+    hvd.init(device="cpu")
+    yield
+    hvd.shutdown()
+
+
+def _jax_train(params, tokens, labels, n_steps):
+    cfg = tfm_jax.TransformerConfig(dtype=jnp.float32, **SMALL)
+    tx = hvd_jax.DistributedOptimizer(optax.adamw(LR, weight_decay=WD))
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+
+    def step(p, s, tok, lab):
+        loss, g = jax.value_and_grad(tfm_jax.serial_forward_loss,
+                                     argnums=1)(cfg, p, tok, lab)
+        upd, s = tx.update(g, s, p)
+        return optax.apply_updates(p, upd), s, loss
+
+    step = jax.jit(shard_map(step, mesh=mesh, in_specs=(P(), P(), P(), P()),
+                             out_specs=(P(), P(), P()), check_vma=False))
+    state, losses = tx.init(params), []
+    tok, lab = jnp.asarray(tokens, jnp.int32), jnp.asarray(labels, jnp.int32)
+    for _ in range(n_steps):
+        params, state, loss = step(params, state, tok, lab)
+        losses.append(float(loss))
+    return params, losses
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_adamw_steps_track_optax(world1, n_steps):
+    cfg_j = tfm_jax.TransformerConfig(dtype=jnp.float32, **SMALL)
+    params = tfm_jax.init_params(jax.random.PRNGKey(0), cfg_j,
+                                 tfm_jax.ParallelConfig())
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, SMALL["vocab_size"], (2, SMALL["seq_len"]))
+    labels = np.roll(tokens, -1, axis=1)
+
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **SMALL)
+    par = tfm.ParallelConfig()
+    model = tfm.Transformer(cfg, par, device="cpu")
+    model.load_state_dict(convert.params_from_jax(params))
+    hvd.broadcast_parameters(model.state_dict())
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=LR, weight_decay=WD))
+    step = tfm.make_train_step(cfg, par, model, opt)
+    losses = [step(torch.from_numpy(tokens), torch.from_numpy(labels)).item()
+              for _ in range(n_steps)]
+
+    ref_params, ref_losses = _jax_train(params, tokens, labels, n_steps)
+    np.testing.assert_allclose(losses, ref_losses, atol=1e-5, rtol=0)
+    # Each step moves a weight by about lr (3e-4); Adam divides by |g|, so
+    # a weight whose gradient is near zero amplifies fp32 summation-order
+    # differences: 1e-5 is 3% of one step.
+    for name, ref in convert.params_from_jax(ref_params).items():
+        np.testing.assert_allclose(model.state_dict()[name].numpy(),
+                                   ref.numpy(), atol=1e-5, rtol=0,
+                                   err_msg=name)
+
+
+def test_backward_passes_per_step_matches_reference(world1):
+    """Two passes accumulate, the second communicates and updates; the
+    first leaves the parameters as they were (reference _AggState)."""
+    rng = np.random.default_rng(2)
+    w0 = rng.standard_normal((4, 3)).astype(np.float32)
+    grads = [rng.standard_normal((4, 3)).astype(np.float32)
+             for _ in range(4)]
+
+    tx = hvd_jax.DistributedOptimizer(optax.sgd(0.1, momentum=0.9),
+                                      backward_passes_per_step=2)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    upd = jax.jit(shard_map(lambda g, s, p: tx.update(g, s, p), mesh=mesh,
+                            in_specs=(P(), P(), P()), out_specs=(P(), P()),
+                            check_vma=False))
+    p_ref, state, ref_traj = jnp.asarray(w0), tx.init(jnp.asarray(w0)), []
+    for g in grads:
+        u, state = upd(jnp.asarray(g), state, p_ref)
+        p_ref = optax.apply_updates(p_ref, u)
+        ref_traj.append(np.asarray(p_ref))
+
+    w = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.1, momentum=0.9),
+                                   backward_passes_per_step=2)
+    for g, ref in zip(grads, ref_traj):
+        opt.zero_grad()
+        w.grad = torch.from_numpy(g.copy())
+        opt.step()
+        np.testing.assert_allclose(w.detach().numpy(), ref, atol=1e-6)
+
+
+def test_unported_options_raise(world1):
+    p = torch.nn.Parameter(torch.zeros(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), op=hvd.Adasum)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        hvd.allreduce(torch.zeros(2), compression="int8")
+    with pytest.raises(ValueError, match="backward_passes_per_step"):
+        hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
+                                 backward_passes_per_step=0)
+
+
+def test_world1_collectives_keep_dtype(world1):
+    x = torch.tensor([5, -5, 7], dtype=torch.int64)
+    out = hvd.allreduce(x)
+    assert out.dtype == torch.int64 and out.tolist() == [5, -5, 7]
+    f = torch.tensor([1.5, 2.5], dtype=torch.bfloat16)
+    assert hvd.allreduce(f, op=hvd.Sum, postscale_factor=2.0).tolist() == \
+        [3.0, 5.0]
+    assert hvd.broadcast(f).dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# Two gloo processes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    import torch.multiprocessing as mp
+    import _torch_port_workers as workers
+    out = tmp_path_factory.mktemp("two_ranks")
+    mp.start_processes(workers.two_rank_checks,
+                       args=(2, f"file://{out}/rendezvous", str(out)),
+                       nprocs=2, join=True, start_method="spawn")
+    return [json.load(open(os.path.join(out, f"rank{r}.json")))
+            for r in range(2)]
+
+
+def _same_on_both(two_ranks, key):
+    assert two_ranks[0][key] == two_ranks[1][key], key
+    return two_ranks[0][key]
+
+
+@pytest.mark.timeout(150)
+def test_two_ranks_topology(two_ranks):
+    for r, res in enumerate(two_ranks):
+        assert res["topology"] == [r, 2, r, 2, 0, 1]
+
+
+X = np.array([1.0, 2.0, 3.0])
+
+
+@pytest.mark.timeout(150)
+@pytest.mark.parametrize("key,expected", [
+    ("average", 1.5 * X), ("sum", 3 * X), ("min", X), ("max", 2 * X),
+    ("product", 2 * X * X), ("scaled_average", 1.5 * X * 2 * 0.25),
+    ("broadcast", 2 * X)])
+def test_two_ranks_float_ops(two_ranks, key, expected):
+    np.testing.assert_allclose(_same_on_both(two_ranks, key), expected)
+
+
+@pytest.mark.timeout(150)
+def test_two_ranks_integer_average_floors(two_ranks):
+    # sums [7, -3, 7] floor-divided by 2; the dtype stays int32.
+    assert _same_on_both(two_ranks, "int_average") == [[3, -2, 3],
+                                                       "torch.int32"]
+    # A fractional prescale goes through float: 1.5 + 2.0 -> 3 (truncated).
+    assert _same_on_both(two_ranks, "int_prescaled_sum") == [[3],
+                                                             "torch.int64"]
+    for r, res in enumerate(two_ranks):
+        assert res["input_untouched"] == (X * (r + 1)).tolist()
+
+
+@pytest.mark.timeout(150)
+def test_two_ranks_grouped_allreduce(two_ranks):
+    got = _same_on_both(two_ranks, "grouped")
+    np.testing.assert_allclose(got[0], 3 * X)
+    assert got[1] == [7, -3, 7]
+    np.testing.assert_allclose(np.ravel(got[2]), 30 * X)
+    np.testing.assert_allclose(
+        np.ravel(_same_on_both(two_ranks, "allreduce_gradients")["b"]),
+        3 * X)
+
+
+@pytest.mark.timeout(150)
+def test_two_ranks_optimizer_averages_gradients(two_ranks):
+    """Each rank's local gradient differs (rank r's data is r+1 times rank
+    0's); after step() both hold their mean, and the update is AdamW's on
+    that mean, from rank 0's broadcast weights."""
+    local = [res["local_grad"] for res in two_ranks]
+    assert local[0] != local[1]
+    synced = _same_on_both(two_ranks, "synced_grad")
+    for i, g in enumerate(synced):
+        np.testing.assert_allclose(
+            g, (np.array(local[0][i]) + np.array(local[1][i])) / 2,
+            rtol=1e-6)
+    init = _same_on_both(two_ranks, "params_after_broadcast")
+    ps = [torch.nn.Parameter(torch.tensor(w)) for w in init]
+    opt = torch.optim.AdamW(ps, lr=0.1, weight_decay=1e-4)
+    for p, g in zip(ps, synced):
+        p.grad = torch.tensor(g)
+    opt.step()
+    after = _same_on_both(two_ranks, "params_after_step")
+    for p, w in zip(ps, after):
+        np.testing.assert_allclose(p.detach().numpy(), w, rtol=1e-6)
+    _same_on_both(two_ranks, "params_after_steps")
+
+
+@pytest.mark.timeout(150)
+def test_two_ranks_broadcast_optimizer_state(two_ranks):
+    """Rank 1 perturbed its moments; the broadcast restored rank 0's."""
+    state = _same_on_both(two_ranks, "opt_state")
+    assert [s[2] for s in state] == [2.0, 2.0]
