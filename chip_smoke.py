@@ -9,9 +9,11 @@ Phases, each of which ends the run with a non-zero exit if it fails:
 2. build   — nvcc builds the flash-attention kernels from
              horovod_tpu_torch/csrc/ for sm_90a (timed);
 3. kernels — each kernel against its plain PyTorch version on the card, in
-             bf16, at small cases (ragged lengths, offsets, fully masked
-             rows, causal and not, head_dim 32/64/128) and at the flagship
-             training shape, elementwise and normwise; then each kernel,
+             bf16, at small cases (ragged lengths off the 128-row tiles,
+             Sq != Sk with offsets, fully masked rows, causal and not,
+             B*H above the SM count, head_dim 32/64/128, strided q/k/v
+             slices of a fused qkv) and at the flagship training shape,
+             elementwise and normwise; then each kernel,
              its plain version and the library call (PyTorch's
              scaled_dot_product_attention forward; its flash-attention
              backward, dQ+dK+dV in one call) timed on the device (CUDA
@@ -88,6 +90,14 @@ def rand_qkv(torch, b, sq, sk, h, d, seed):
     mk = lambda s: torch.randn((b, s, h, d), generator=g).to("cuda",
                                                             torch.bfloat16)
     return mk(sq), mk(sk), mk(sk), mk(sq)
+
+
+def fused_qkv(torch, b, s, h, d, seed):
+    """q, k, v as strided slices of one (b, s, h, 3, d) projection, and dO."""
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, s, h, 3, d), generator=g).to("cuda", torch.bfloat16)
+    do = torch.randn((b, s, h, d), generator=g).to("cuda", torch.bfloat16)
+    return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :], do
 
 
 def compare(torch, got, ref, tol):
@@ -265,11 +275,15 @@ def main() -> int:
         f"{report['build_s']:.1f} s")
     with open(lib_path + ".log") as f:  # ptxas -v: registers and spills
         for line in f:
-            kernel = re.search(r"(flash_\w+?_kernel)ILi(\d+)ELi(\d+)", line)
+            kernel = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
+                               r"ILi(\d+)ELi(\d+)", line)
             if kernel and "Compiling entry" in line:
                 log("[build] %s<%s,%s>:" % kernel.groups())
             elif "registers" in line or "spill" in line:
                 log("[build]   " + line.strip())
+            elif kernel and "C7512" in line:  # wgmma serialised by ptxas
+                log("[build] %s<%s,%s>: wgmma serialised (insufficient "
+                    "registers)" % kernel.groups())
 
     # 3. kernels vs plain versions
     small = [  # (b, sq, sk, h, d, causal, q_offset, kv_offset)
@@ -279,18 +293,26 @@ def main() -> int:
         (1, 130, 70, 2, 128, True, 0, 100),   # rows < 100 fully masked
         (2, 77, 77, 2, 128, False, 0, 0),
         (1, 64, 64, 2, 32, True, 0, 64),      # every row fully masked
+        # Lengths off the 128-row tiles (TMA zero fill, the score mask).
+        (1, 333, 333, 2, 64, True, 0, 0),
+        (2, 129, 129, 2, 128, False, 0, 0),
+        (1, 200, 333, 2, 64, True, 150, 20),  # Sq != Sk, both offsets
+        (1, 333, 129, 3, 32, True, 40, 250),
+        (5, 192, 192, 28, 64, True, 0, 0),    # B*H = 140 > 132 SMs
     ]
     for i, (b, sq, sk, h, d, causal, qo, ko) in enumerate(small):
         q, k, v, do = rand_qkv(torch, b, sq, sk, h, d, seed=i)
         errs = check_case(torch, fa, q, k, v, do, causal, qo, ko)
         log(f"[kernels] case {(b, sq, sk, h, d)} causal={causal} "
             f"offsets=({qo},{ko}): {fmt_errs(errs)}")
+    # Every head_dim through strided q/k/v slices of a fused qkv, as the
+    # model passes them (head_dim 128: two 64-column TMA boxes a row).
+    for d in (32, 64, 128):
+        q, k, v, do = fused_qkv(torch, 2, 200, 3, d, seed=d)
+        errs = check_case(torch, fa, q, k, v, do, True, 0, 0)
+        log(f"[kernels] fused qkv (2, 200, 3, {d}): {fmt_errs(errs)}")
     # The flagship shape, through strided q/k/v slices of a fused qkv.
-    g = torch.Generator().manual_seed(11)
-    qkv = torch.randn((8, 512, 8, 3, 64), generator=g).to("cuda",
-                                                          torch.bfloat16)
-    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
-    do = torch.randn((8, 512, 8, 64), generator=g).to("cuda", torch.bfloat16)
+    q, k, v, do = fused_qkv(torch, 8, 512, 8, 64, seed=11)
     main_errs = check_case(torch, fa, q, k, v, do, True, 0, 0)
     log(f"[kernels] flagship (8, 512, 8, 64) strided qkv: "
         f"{fmt_errs(main_errs)}")

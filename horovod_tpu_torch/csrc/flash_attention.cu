@@ -18,32 +18,59 @@
 // bytes (5-8 us at 3.35 TB/s).  At long context (S=8192) the work grows as
 // S^2 and the kernels become tensor-core bound (137 GFLOP forward).
 //
-// What the design does about it.  The TPU kernels carried m, l and the
-// accumulator in VMEM scratch across a sequential grid axis; blocks on a GPU
-// run in no order, so each block owns one 64-row tile and walks the other
-// sequence axis in an inner loop:
-//   * forward and dQ: one block per (64-query tile, b*h), looping over key
-//     tiles up to the causal diagonal (dead tiles are never loaded);
-//   * dK/dV: one block per (64-key tile, b*h), looping over query tiles from
-//     the diagonal on -- the reference's two-kernel split, so no atomics.
-// Four warps per block, each owning 16 rows.  Every product (Q K^T, P V,
-// dO V^T, dS K, P^T dO, dS^T Q) runs on the tensor cores as
-// mma.sync.m16n8k16 with bf16 inputs and fp32 accumulation; the score tile,
-// the running max/sum and the output accumulator stay in registers and
-// never touch device memory, which is what keeps the memory traffic at one
-// read of each input per tile.  P and dS are rounded to bf16 before their
-// products (the reference keeps them fp32); the tolerance this costs is
-// stated beside the tests.  Fragments come from padded shared memory with
-// ldmatrix (.trans where the product wants the tile transposed); the
-// streamed tiles are double buffered with cp.async, so the copy of the
-// next tile overlaps the products on this one; causal forward and dQ
-// blocks start the longest query tiles first.  Between the products the
-// kernels are bound by instruction issue, not by the tensor cores, so the
-// per-element work is kept to a multiply-add and one ex2 on the
-// special-function unit (scores in log2 units), and only tiles on the
-// causal diagonal or the ragged edge evaluate the mask.  wgmma, TMA and
-// warp specialisation are later work.
+// Common to all three.  The TPU kernels carried m, l and the accumulator in
+// VMEM scratch across a sequential grid axis; blocks on a GPU run in no
+// order, so each block owns a tile of rows and walks the other sequence
+// axis in an inner loop: forward and dQ over key tiles up to the causal
+// diagonal (dead tiles are never loaded), dK/dV over query tiles from the
+// diagonal on -- the reference's two-kernel split, so no atomics.  The
+// score tile, the running max/sum and the accumulators stay in registers
+// and never touch device memory, which keeps the memory traffic at one read
+// of each input per tile.  Scores are in log2 units, so a softmax element
+// costs one multiply-add and one ex2 on the special-function unit, and only
+// tiles on the causal diagonal or the ragged edge evaluate the mask.  P and
+// dS are rounded to bf16 before their products (the reference keeps them
+// fp32); the tolerance this costs is stated beside the tests.
+//
+// Forward and dK/dV: warp-specialised, on wgmma and TMA.  A block of four
+// warps that each issue mma.sync on their own 16 rows cannot reach the
+// tensor cores' rate on Hopper, re-reads every streamed tile from shared
+// memory once per warp, and spends the computing threads' registers and
+// issue slots on its loads.  So a block here is three warpgroups.  One
+// producer warpgroup gives its registers up (setmaxnreg.dec) and one of its
+// threads issues every copy as TMA (cp.async.bulk.tensor) into a ring of
+// shared-memory stages, each stage with a "full" mbarrier that the copy
+// completes and an "empty" one that the consumers release.  Two consumer
+// warpgroups take the registers (setmaxnreg.inc) and own 64 rows each, so
+// every streamed tile serves 128 rows.  Each product is a warpgroup-wide
+// wgmma.mma_async with fp32 accumulation: its shared operands are read
+// through descriptors of the 128-byte swizzle TMA wrote them with (64-byte
+// at head_dim 32; a 128-column row is two 64-column boxes), K-major for the
+// score products and MN-major (transposed) for the products over rows; P and
+// dS come from the score accumulator's registers as the A operand.
+//   * forward: 128 query rows a block, 128-key K/V stages (3 stages, 2 at
+//     head_dim 128); S = Q K^T, then O += P V.
+//   * dK/dV: 128 keys a block, loaded once; 64-query Q/dO stages (32 at
+//     head_dim 128, for registers), each carrying its lse and delta rows
+//     (1-D TMA boxes); S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+//     dK += dS^T Q.
+// TMA zero-fills rows past Sq/Sk, so the ragged edge needs no load masks,
+// only the score mask, which is a branch of its own so that other tiles do
+// not issue it.  Within a warpgroup the products and the softmax still run
+// one after the other, and both consumers wait on the same stage, so they
+// run in step: per 128-key forward tile a consumer thread issues 64 ex2
+// (512 special-function-unit cycles for the warpgroup) besides 512
+// tensor-core cycles of products, and the SM alternates between the two
+// instead of overlapping them.  That, not the copies, is what bounds the
+// forward and dK/dV at long context (PERF.md); staggering the consumers
+// (ping-pong) and pipelining within a warpgroup are the next steps.
+//
+// dQ is still the Ampere-style design: four warps of 16 rows each on
+// mma.sync.m16n8k16, fragments from padded shared memory with ldmatrix
+// (.trans where the product wants the tile transposed), K/V tiles double
+// buffered with cp.async, longest causal tiles first.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,8 +82,8 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kThreads = 128;  // four warps
-constexpr int kRows = 64;      // rows a block owns (16 per warp)
+constexpr int kThreads = 128;  // dQ: four warps
+constexpr int kRows = 64;      // dQ: rows a block owns (16 per warp)
 
 }  // namespace
 
@@ -98,6 +125,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
 // 2^x on the special-function unit; 2^(-huge) and 2^(-inf) are +0.
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -130,11 +159,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
 // Asynchronous global -> shared copies (cp.async); `bytes` 0 zero-fills.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(bytes));
 }
 
@@ -302,41 +326,368 @@ __device__ __forceinline__ void wait_tile(bool more) {
 }
 
 // ---------------------------------------------------------------------------
+// Hopper primitives: mbarriers, TMA, wgmma, register reallocation
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count));
+}
+
+// Arrive once, and expect `bytes` of TMA transactions in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Spin until the phase of the given parity has completed.  A fresh barrier
+// is in phase 0, so waiting on parity 1 passes at once.  A wait that lasts
+// seconds can only be a fault (a copy that never lands): trap, so the
+// launch fails with an error instead of hanging the process.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_addr(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const uint64_t start = global_ns();
+  while (!mbar_try_wait(addr, parity))
+    if (global_ns() - start > 20000000000ull) __trap();
+}
+
+// One TMA box of a rank-4 map, at coordinates (c0, c1, c2, c3), into shared
+// memory; its bytes complete on `bar`.  Elements outside the tensor are 0.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The same for a rank-1 map.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// wgmma runs asynchronously: fence before a product whose registers other
+// instructions wrote, commit the products issued, wait for all of them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving an access to an accumulator, or the end of
+// an A fragment's life, across the wgmma that owns it.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[n][e])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[n][e])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading byte offset
+// (not read by the swizzled layouts used here; 16 bytes), stride byte
+// offset between 8-row groups, and the swizzle (1: 128 bytes, 2: 64 bytes).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo,
+                                              uint32_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+
+// The products: wgmma.mma_async m64nNk16, bf16 in, fp32 accumulators laid
+// out per warp as mma.m16n8's C fragments (d[n] is columns 8n..8n+7 of the
+// warp's 16 rows), so a score accumulator converts to the A fragments of
+// the next product with acc_to_a.
+
+// D(64 x 128) (+)= A(64 x 16, shared) . B(128 x 16, shared)^T, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 64) (+)= A(64 x 16, shared) . B(64 x 16, shared)^T, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 32) (+)= A(64 x 16, shared) . B(32 x 16, shared)^T, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D(64 x 64) += A(64 x 16, registers) . B(16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D(64 x 32) += A(64 x 16, registers) . B(16 x 32, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// A tile of R rows x D bf16 columns as TMA writes it: NCH column chunks, each
+// one TMA box of [R rows][CW columns], rows ROWB bytes apart, swizzled within
+// each 8-row group (128-byte swizzle; 64-byte at head_dim 32, whose rows are
+// 64 bytes).  The descriptors address it as a wgmma operand.
+template <int D>
+struct Tile {
+  static constexpr int CW = D == 32 ? 32 : 64;
+  static constexpr int ROWB = 2 * CW;
+  static constexpr int NCH = D / CW;
+  static constexpr int KPC = CW / 16;  // k-steps of 16 columns per chunk
+  static constexpr uint32_t SWIZZLE = D == 32 ? 2 : 1;
+  static constexpr __host__ __device__ uint32_t bytes(int rows) {
+    return static_cast<uint32_t>(rows) * D * 2;
+  }
+  // K-major operand of a product over the columns: rows [r0, r0 + 64) (an
+  // A operand) or [0, rows) (B), columns [16 kk, 16 kk + 16).
+  static __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int rows,
+                                                    int r0, int kk) {
+    return smem_desc(tile + (kk / KPC) * rows * ROWB + r0 * ROWB + (kk % KPC) * 32,
+                     8 * ROWB, SWIZZLE);
+  }
+  // MN-major (transposed) B operand of a product over the rows: rows
+  // [16 kk, 16 kk + 16), the columns of chunk ch.
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int rows,
+                                                     int kk, int ch) {
+    return smem_desc(tile + ch * rows * ROWB + kk * 16 * ROWB, 8 * ROWB, SWIZZLE);
+  }
+};
+
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kWsThreads = 128 * (1 + kConsumers);  // and one producer
+constexpr int kWgRows = 64;                        // rows a consumer owns
+constexpr int kWsRows = kConsumers * kWgRows;      // rows a block owns
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kFwdBn = 128;  // keys per forward stage
+constexpr int kDkvStages = 3;
+
+__host__ __device__ constexpr int fwd_stages(int D) { return D == 128 ? 2 : 3; }
+__host__ __device__ constexpr int dkv_bq(int D) { return D == 128 ? 32 : 64; }
+// A dK/dV stage's lse (and delta) rows come in one 1-D TMA box.  A box must
+// start 16-byte aligned, so it starts at the row rounded down to 4 floats
+// and is 4 floats longer; each array is padded to 128 bytes in shared memory.
+__host__ __device__ constexpr int stat_box(int bq) { return bq + 4; }
+__host__ __device__ constexpr int stat_pad(int bq) { return (stat_box(bq) + 31) / 32 * 32; }
+
+// The warpgroup of this thread, broadcast from lane 0 so that the compiler
+// sees the producer/consumer branch as warp-uniform: setmaxnreg and wgmma
+// are .aligned instructions.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
+// Swizzled tiles want 1024-byte alignment; each launch adds the slack.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// The TMA maps of a launch, passed in kernel parameter space.
+struct FwdMaps {
+  CUtensorMap q, k, v;
+};
+struct DkvMaps {
+  CUtensorMap q, k, v, dout, lse, delta;
+};
+
+// ---------------------------------------------------------------------------
 // Forward: O = softmax(Q K^T * scale) V and lse, online over key tiles.
 // ---------------------------------------------------------------------------
 
 template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const FlashParams p) {
-  constexpr int LD = D + 8;  // padded rows: ldmatrix rows hit distinct banks
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ FwdMaps maps, const FlashParams p) {
+  using T = Tile<D>;
+  constexpr int S = fwd_stages(D);
   constexpr int NT = BN / 8;
   constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sKV = sQ + kRows * LD;  // [2 buffers][K tile, V tile]
+  typedef float Chunk[T::CW / 8][4];  // the accumulator columns of one chunk
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = aligned_smem(smem_raw);      // kWsRows x D
+  unsigned char* sKV = sQ + T::bytes(kWsRows);     // S stages of [K, V] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKV + S * 2 * T::bytes(BN));
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
 
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int warp = threadIdx.x / 32;
-  const Lane ln(threadIdx.x % 32);
-  const int g = ln.g, t = ln.t;
   // Causal work grows with the query tile: start the longest blocks first.
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
-  const bf16* K = static_cast<const bf16*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
-  const bf16* V = static_cast<const bf16*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWsRows;
+  const int nk = live_key_tiles(p, min(q0 + kWsRows, p.Sq) - 1, BN);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int q_last = min(q0 + kRows, p.Sq) - 1;
-  const int nk = live_key_tiles(p, q_last, BN);
-  auto load_kv = [&](int j) {
-    bf16* dst = sKV + (j & 1) * 2 * BN * LD;
-    load_tile<D, LD>(dst, K, p.k_stride[1], j * BN, p.Sk, BN);
-    load_tile<D, LD>(dst + BN * LD, V, p.v_stride[1], j * BN, p.Sk, BN);
-  };
-  load_tile<D, LD>(sQ, Q, p.q_stride[1], q0, p.Sq, kRows);
-  if (nk > 0) load_kv(0);
-  cp_async_commit();
+  if (warpgroup() == 0) {  // producer
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && nk > 0) {
+      mbar_expect_tx(q_full, T::bytes(kWsRows));
+      for (int ch = 0; ch < T::NCH; ++ch)
+        tma_load(sQ + ch * kWsRows * T::ROWB, &maps.q, q_full, ch * T::CW, q0, h, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % S;
+        mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        unsigned char* sK = sKV + s * 2 * T::bytes(BN);
+        mbar_expect_tx(&full[s], 2 * T::bytes(BN));
+        for (int ch = 0; ch < T::NCH; ++ch) {
+          tma_load(sK + ch * BN * T::ROWB, &maps.k, &full[s], ch * T::CW, j * BN, h,
+                   b);
+          tma_load(sK + T::bytes(BN) + ch * BN * T::ROWB, &maps.v, &full[s],
+                   ch * T::CW, j * BN, h, b);
+        }
+      }
+    }
+    return;
+  }
 
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  regs_inc<kConsumerRegs>();
+  const int c = warpgroup() - 1;  // consumer warpgroup
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qc = q0 + c * kWgRows;  // this warpgroup's first row
+  // Key tiles this warpgroup needs: the block's are for its last row.
+  const int nk_c =
+      qc < p.Sq ? live_key_tiles(p, min(qc + kWgRows, p.Sq) - 1, BN) : 0;
+  const int rows[2] = {qc + warp * 16 + g, qc + warp * 16 + g + 8};
   const float scale_log2 = p.scale * kLog2e;
   float m[2] = {kNegInf, kNegInf};  // running max, log2 units
   float l[2] = {0.f, 0.f};
@@ -346,84 +697,117 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
+  const uint32_t q_tile = smem_addr(sQ);
+  if (nk > 0) mbar_wait(q_full, 0);
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BN;
-    const bool more = j + 1 < nk;
-    if (more) {
-      load_kv(j + 1);
-      cp_async_commit();
-    }
-    wait_tile<1>(more);
-    const bf16* sK = sKV + (j & 1) * 2 * BN * LD;
-    const bf16* sV = sK + BN * LD;
+    const int s = j % S;
+    mbar_wait(&full[s], (j / S) & 1);
+    if (j < nk_c) {
+      const int k0 = j * BN;
+      const uint32_t k_tile = smem_addr(sKV + s * 2 * T::bytes(BN));
+      const uint32_t v_tile = k_tile + T::bytes(BN);
 
-    float s[NT][4];
-    qk_tile<D, LD, NT>(s, sQ, warp * 16, sK, ln);
+      float sc[NT][4];  // S = Q K^T
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, T::kmajor(q_tile, kWsRows, c * kWgRows, kk),
+                 T::kmajor(k_tile, BN, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(sc);
 
-    // Scores in log2 units; only tiles on the causal diagonal or the ragged
-    // key edge need the per-element mask.
-    float mx[2] = {kNegInf, kNegInf};
-    const bool edge = k0 + BN > p.Sk ||
-                      (p.causal && static_cast<long long>(p.kv_offset) + k0 +
-                                           BN - 1 >
-                                       static_cast<long long>(p.q_offset) + q0);
+      // Only tiles on the causal diagonal or the ragged key edge need the
+      // per-element mask; it is a branch of its own, so the other tiles do
+      // not issue it predicated off.  Masked scores become -inf.
+      const bool edge = k0 + BN > p.Sk ||
+                        (p.causal && static_cast<long long>(p.kv_offset) + k0 +
+                                             BN - 1 >
+                                         static_cast<long long>(p.q_offset) + qc);
+      if (edge) {
+        int kmax[2];  // the last key each of this thread's rows may see
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float x = s[n][e] * scale_log2;
-        if (edge) {
-          const int key = k0 + n * 8 + 2 * t + (e & 1);
-          bool ok = key < p.Sk;
+        for (int r = 0; r < 2; ++r) {
+          long long lim = p.Sk - 1;
           if (p.causal)
-            ok = ok && (static_cast<long long>(p.q_offset) + rows[r] >=
-                        static_cast<long long>(p.kv_offset) + key);
-          x = ok ? x : kNegInf;
+            lim = min(lim, static_cast<long long>(p.q_offset) + rows[r] - p.kv_offset);
+          kmax[r] = static_cast<int>(max(lim, -1ll));
         }
-        s[n][e] = x;
-        mx[r] = fmaxf(mx[r], x);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[n][e] = k0 + n * 8 + 2 * t + (e & 1) <= kmax[e >> 1] ? sc[n][e]
+                                                                     : neg_inf();
+      }
+      // Row max over four independent chains, then across the quad.
+      float mx4[4] = {neg_inf(), neg_inf(), neg_inf(), neg_inf()};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx4[(e >> 1) * 2 + (n & 1)] = fmaxf(mx4[(e >> 1) * 2 + (n & 1)], sc[n][e]);
+      float mx[2] = {fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3])};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      // In log2 units, P = 2^(S scale log2e - m): one FFMA and one ex2 an
+      // element.  While a row has seen only masked keys its max stays
+      // -1e30 and exponents are taken against 0, so masked scores give
+      // 2^-inf = 0.
+      float neg_m[2], alpha[2], sum4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+        const float m_use = m_new <= kNegInf / 2 ? 0.f : m_new;
+        alpha[r] = ex2(m[r] - m_use);
+        neg_m[r] = -m_use;
+        m[r] = m_new;
       }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    // While a row has seen only masked keys its max stays -1e30; exponents
-    // are then taken against 0, so masked scores still give 2^(-1e30) = 0.
-    float m_use[2], alpha[2], sum[2] = {0.f, 0.f};
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], mx[r]);
-      m_use[r] = m_new <= kNegInf / 2 ? 0.f : m_new;
-      alpha[r] = ex2(m[r] - m_use[r]);
-      m[r] = m_new;
-    }
+        for (int e = 0; e < 4; ++e) {
+          const float pe = ex2(fmaf(sc[n][e], scale_log2, neg_m[e >> 1]));
+          sc[n][e] = pe;
+          sum4[(e >> 1) * 2 + (n & 1)] += pe;
+        }
+      float sum[2] = {sum4[0] + sum4[1], sum4[2] + sum4[3]};
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = ex2(s[n][e] - m_use[e >> 1]);
-        s[n][e] = pe;
-        sum[e >> 1] += pe;
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * alpha[r] + sum[r];
       }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
+      for (int n = 0; n < DT; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+
+      uint32_t pa[BN / 16][4];  // P as bf16 A fragments
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<NT>(pa[kk], sc, kk);
+      pin(acc);
+      wgmma_fence();  // O += P V
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int ch = 0; ch < T::NCH; ++ch)
+          wgmma_rs(*reinterpret_cast<Chunk*>(&acc[ch * T::CW / 8]), pa[kk],
+                   T::mnmajor(v_tile, BN, kk, ch));
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+      pin(pa);
     }
-    pv_tile<D, LD, NT>(acc, s, sV, ln);
-    __syncthreads();  // this buffer is refilled two iterations on
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this stage may be refilled
   }
-  cp_async_wait<0>();
 
   float inv[2];
 #pragma unroll
@@ -545,62 +929,85 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// dV = sum_q P^T dO, dK = sum_q dS^T Q, one block per key tile.  Works on the
-// transposed score tile S^T = K Q^T so every product is row-major in shared
-// memory and the key rows stay in the warp's registers.
+// dV = sum_q P^T dO, dK = sum_q dS^T Q, one block per 128 keys.  Works on
+// the transposed score tile S^T = K Q^T, so the key rows stay in each
+// consumer's registers and P^T, dS^T are the A operands of dV and dK.
 // ---------------------------------------------------------------------------
 
-template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const FlashParams p) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BN / 8;
+template <int D, int BQ>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ DkvMaps maps, const FlashParams p) {
+  using T = Tile<D>;
+  constexpr int S = kDkvStages;
+  constexpr int NT = BQ / 8;
   constexpr int DT = D / 8;
-  // One streamed stage: Q tile, dO tile, lse row, delta row.
-  constexpr int kStage = 2 * BN * LD + 2 * BN * 2;  // in bf16 units
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kRows * LD;
-  bf16* sStages = sV + kRows * LD;
+  typedef float Chunk[T::CW / 8][4];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = aligned_smem(smem_raw);   // kWsRows keys x D
+  unsigned char* sV = sK + T::bytes(kWsRows);
+  unsigned char* sQdO = sV + T::bytes(kWsRows);  // S stages of [Q, dO] tiles
+  // S stages of [lse, delta] boxes.
+  float* sRows = reinterpret_cast<float*>(sQdO + S * 2 * T::bytes(BQ));
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sRows + S * 2 * stat_pad(BQ));
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
 
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int warp = threadIdx.x / 32;
-  const Lane ln(threadIdx.x % 32);
-  const int g = ln.g, t = ln.t;
-  const int k0 = blockIdx.x * kRows;
-  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
-  const bf16* K = static_cast<const bf16*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
-  const bf16* V = static_cast<const bf16*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
-  const bf16* dO = static_cast<const bf16*>(p.dout) + b * p.do_stride[0] + h * p.do_stride[2];
-  const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
-
-  // First query tile that reaches this key tile's first key.
+  const int k0 = blockIdx.x * kWsRows;
+  const int row_base = (b * p.H + h) * p.Sq;  // of lse and delta
+  // First query tile that reaches this block's first key.
   int i0 = 0;
   if (p.causal) {
     const long long lag =
         static_cast<long long>(p.kv_offset) + k0 - p.q_offset;
-    if (lag > 0) i0 = static_cast<int>(lag / BN);
+    if (lag > 0) i0 = static_cast<int>(lag / BQ);
   }
-  const int nq = (p.Sq + BN - 1) / BN;
-  auto load_q = [&](int i) {
-    bf16* st = sStages + (i & 1) * kStage;
-    const int q0 = i * BN;
-    load_tile<D, LD>(st, Q, p.q_stride[1], q0, p.Sq, BN);
-    load_tile<D, LD>(st + BN * LD, dO, p.do_stride[1], q0, p.Sq, BN);
-    float* rows = reinterpret_cast<float*>(st + 2 * BN * LD);  // lse, delta
-    for (int idx = threadIdx.x; idx < 2 * BN; idx += kThreads) {
-      const int r = idx % BN;
-      const bool in = q0 + r < p.Sq;
-      const float* src = (idx < BN ? p.lse : p.delta) + row_base + (in ? q0 + r : 0);
-      cp_async4(rows + idx, src, in ? 4 : 0);
+  const int nq = (p.Sq + BQ - 1) / BQ;
+  const int n_it = nq > i0 ? nq - i0 : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);
     }
-  };
-  load_tile<D, LD>(sK, K, p.k_stride[1], k0, p.Sk, kRows);
-  load_tile<D, LD>(sV, V, p.v_stride[1], k0, p.Sk, kRows);
-  if (i0 < nq) load_q(i0);
-  cp_async_commit();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  const int keys[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  if (warpgroup() == 0) {  // producer
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && n_it > 0) {
+      mbar_expect_tx(kv_full, 2 * T::bytes(kWsRows));
+      for (int ch = 0; ch < T::NCH; ++ch) {
+        tma_load(sK + ch * kWsRows * T::ROWB, &maps.k, kv_full, ch * T::CW, k0, h, b);
+        tma_load(sV + ch * kWsRows * T::ROWB, &maps.v, kv_full, ch * T::CW, k0, h, b);
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % S;
+        const int q0 = (i0 + it) * BQ;
+        mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+        unsigned char* sQ = sQdO + s * 2 * T::bytes(BQ);
+        float* rows = sRows + s * 2 * stat_pad(BQ);
+        mbar_expect_tx(&full[s],
+                       2 * T::bytes(BQ) + 2 * stat_box(BQ) * sizeof(float));
+        for (int ch = 0; ch < T::NCH; ++ch) {
+          tma_load(sQ + ch * BQ * T::ROWB, &maps.q, &full[s], ch * T::CW, q0, h, b);
+          tma_load(sQ + T::bytes(BQ) + ch * BQ * T::ROWB, &maps.dout, &full[s],
+                   ch * T::CW, q0, h, b);
+        }
+        tma_load(rows, &maps.lse, &full[s], (row_base + q0) & ~3);
+        tma_load(rows + stat_pad(BQ), &maps.delta, &full[s], (row_base + q0) & ~3);
+      }
+    }
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  const int c = warpgroup() - 1;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kc = k0 + c * kWgRows;  // this warpgroup's first key
+  const int keys[2] = {kc + warp * 16 + g, kc + warp * 16 + g + 8};
   const float scale_log2 = p.scale * kLog2e;
   float dk[DT][4], dv[DT][4];
 #pragma unroll
@@ -608,68 +1015,113 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
-  for (int i = i0; i < nq; ++i) {
-    const int q0 = i * BN;
-    const bool more = i + 1 < nq;
-    if (more) {
-      load_q(i + 1);
-      cp_async_commit();
-    }
-    wait_tile<1>(more);
-    const bf16* sQ = sStages + (i & 1) * kStage;
-    const bf16* sdO = sQ + BN * LD;
-    const float* sLse = reinterpret_cast<const float*>(sdO + BN * LD);
-    const float* sDelta = sLse + BN;
+  const uint32_t k_tile = smem_addr(sK), v_tile = smem_addr(sV);
+  if (n_it > 0) mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % S;
+    const int q0 = (i0 + it) * BQ;
+    mbar_wait(&full[s], (it / S) & 1);
+    // Skip the tile when this warpgroup has no key, or no query of the
+    // tile reaches its first key.
+    const bool live =
+        kc < p.Sk &&
+        !(p.causal && static_cast<long long>(p.q_offset) + q0 + BQ - 1 <
+                          static_cast<long long>(p.kv_offset) + kc);
+    if (live) {
+      const uint32_t q_tile = smem_addr(sQdO + s * 2 * T::bytes(BQ));
+      const uint32_t do_tile = q_tile + T::bytes(BQ);
+      const float* sLse = sRows + s * 2 * stat_pad(BQ) + ((row_base + q0) & 3);
+      const float* sDelta = sLse + stat_pad(BQ);
 
-    float st[NT][4];
-    qk_tile<D, LD, NT>(st, sK, warp * 16, sQ, ln);  // S^T = K Q^T
-    // Per column (query) of this thread: lse in log2 units, +inf for a
-    // query that saw no key or lies past Sq (its P is then 0).
-    float lse2[NT][2];
+      float st[NT][4], dpt[NT][4];  // S^T = K Q^T, dP^T = V dO^T
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(st, T::kmajor(k_tile, kWsRows, c * kWgRows, kk),
+                 T::kmajor(q_tile, BQ, 0, kk), kk);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = n * 8 + 2 * t + c;
-        const float ls = sLse[col];
-        lse2[n][c] = q0 + col < p.Sq && ls > kNegInf / 2
-                         ? ls * kLog2e
-                         : __int_as_float(0x7f800000);
-      }
-    // Key rows past Sk hold zeros and are never stored, so only the causal
-    // diagonal needs the per-element mask.
-    const bool edge = p.causal && static_cast<long long>(p.kv_offset) + k0 +
-                                          kRows - 1 >
-                                      static_cast<long long>(p.q_offset) + q0;
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dpt, T::kmajor(v_tile, kWsRows, c * kWgRows, kk),
+                 T::kmajor(do_tile, BQ, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(st);
+      pin(dpt);
+
+      // Per column (query) of this thread: -lse in log2 units, -inf for a
+      // query that saw no key or lies past Sq (its P is then 0); and
+      // delta * scale.
+      float neg_lse2[NT][2], delta_s[NT][2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float pe = ex2(st[n][e] * scale_log2 - lse2[n][e & 1]);
-        if (edge) {
-          const int col = n * 8 + 2 * t + (e & 1);
-          pe = static_cast<long long>(p.q_offset) + q0 + col >=
-                       static_cast<long long>(p.kv_offset) + keys[e >> 1]
-                   ? pe
-                   : 0.f;
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * t + e;
+          const float ls = sLse[col];
+          neg_lse2[n][e] =
+              q0 + col < p.Sq && ls > kNegInf / 2 ? -ls * kLog2e : neg_inf();
+          delta_s[n][e] = sDelta[col] * p.scale;
         }
-        st[n][e] = pe;  // P^T
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // P^T = 2^(S^T scale log2e - lse log2e)
+          st[n][e] = ex2(fmaf(st[n][e], scale_log2, neg_lse2[n][e & 1]));
+      // Key rows past Sk hold zeros and are never stored, so only the
+      // causal diagonal needs the per-element mask, in a branch of its own.
+      const bool edge = p.causal && static_cast<long long>(p.kv_offset) + kc +
+                                            kWgRows - 1 >
+                                        static_cast<long long>(p.q_offset) + q0;
+      if (edge) {
+        int cmin[2];  // the first column (query) that sees each key row
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          cmin[r] = static_cast<int>(
+              min(max(static_cast<long long>(p.kv_offset) + keys[r] - p.q_offset - q0,
+                      0ll),
+                  static_cast<long long>(BQ)));
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            st[n][e] = n * 8 + 2 * t + (e & 1) >= cmin[e >> 1] ? st[n][e] : 0.f;
       }
-    pv_tile<D, LD, NT>(dv, st, sdO, ln);  // dV += P^T dO
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // P^T, dS^T as A fragments
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a<NT>(pa[kk], st, kk);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // dS^T = P^T (dP^T - delta) scale
+          st[n][e] *= fmaf(dpt[n][e], p.scale, -delta_s[n][e & 1]);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a<NT>(da[kk], st, kk);
 
-    float dpt[NT][4];
-    qk_tile<D, LD, NT>(dpt, sV, warp * 16, sdO, ln);  // dP^T = V dO^T
+      pin(dv);
+      pin(dk);
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int kk = 0; kk < BQ / 16; ++kk)  // dV += P^T dO
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        st[n][e] = st[n][e] * (dpt[n][e] - sDelta[col]) * p.scale;  // dS^T
-      }
-    pv_tile<D, LD, NT>(dk, st, sQ, ln);  // dK += dS^T Q
-    __syncthreads();
+        for (int ch = 0; ch < T::NCH; ++ch)
+          wgmma_rs(*reinterpret_cast<Chunk*>(&dv[ch * T::CW / 8]), pa[kk],
+                   T::mnmajor(do_tile, BQ, kk, ch));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)  // dK += dS^T Q
+#pragma unroll
+        for (int ch = 0; ch < T::NCH; ++ch)
+          wgmma_rs(*reinterpret_cast<Chunk*>(&dk[ch * T::CW / 8]), da[kk],
+                   T::mnmajor(q_tile, BQ, kk, ch));
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dv);
+      pin(dk);
+      pin(pa);
+      pin(da);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  cp_async_wait<0>();
 
   const long long seq = static_cast<long long>(p.H) * D;
   const long long off = (static_cast<long long>(b) * p.Sk * p.H + h) * D;
@@ -683,47 +1135,141 @@ __global__ void __launch_bounds__(kThreads)
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   const FlashParams& p) {
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   cudaStream_t stream, const Args&... args) {
   // Above 48 KB a block's dynamic shared memory must be opted into.
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-constexpr int kBn(int D, bool dkv) { return (dkv && D == 128) ? 32 : 64; }
+// cuTensorMapEncodeTiled, a driver function, fetched through the runtime so
+// the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                    cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+cudaError_t encode(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank,
+                   const void* base, const cuuint64_t* dims,
+                   const cuuint64_t* strides, const cuuint32_t* box,
+                   CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+// A (B, seq, H, D) bf16 operand read through its (batch, seq, head) strides:
+// a rank-4 map over (D, seq, H, B) whose boxes are [rows][CW columns].
+template <int D>
+cudaError_t operand_map(CUtensorMap* map, const void* base,
+                        const long long (&stride)[3], const FlashParams& p, int seq,
+                        int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(p.H), static_cast<cuuint64_t>(p.B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stride[1]) * 2,
+                                 static_cast<cuuint64_t>(stride[2]) * 2,
+                                 static_cast<cuuint64_t>(stride[0]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Tile<D>::CW),
+                             static_cast<cuuint32_t>(rows), 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
+                D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A (B, H, Sq) fp32 row statistic as a rank-1 map whose boxes are `rows`
+// values.
+cudaError_t rows_map(CUtensorMap* map, const float* base, const FlashParams& p,
+                     int rows) {
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(p.B) * p.H * p.Sq};
+  const cuuint64_t strides[1] = {sizeof(float)};  // not read at rank 1
+  const cuuint32_t box[1] = {static_cast<cuuint32_t>(rows)};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, base, dims, strides, box,
+                CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+constexpr int kDqBn = 64;  // keys per dQ tile
 
 constexpr size_t tile_bytes(int rows, int D) {
   return static_cast<size_t>(rows) * (D + 8) * sizeof(bf16);
 }
 
+constexpr size_t barrier_bytes(int stages) {
+  return (1 + 2 * stages) * sizeof(uint64_t);
+}
+
 template <int D>
 cudaError_t fwd(const FlashParams& p, cudaStream_t s) {
-  constexpr int BN = kBn(D, false);
-  dim3 grid((p.Sq + kRows - 1) / kRows, p.B * p.H);
-  return launch(flash_fwd_kernel<D, BN>, grid,
-                tile_bytes(kRows, D) + 4 * tile_bytes(BN, D), s, p);
+  using T = Tile<D>;
+  FwdMaps maps;
+  cudaError_t err;
+  if ((err = operand_map<D>(&maps.q, p.q, p.q_stride, p, p.Sq, kWsRows)) ||
+      (err = operand_map<D>(&maps.k, p.k, p.k_stride, p, p.Sk, kFwdBn)) ||
+      (err = operand_map<D>(&maps.v, p.v, p.v_stride, p, p.Sk, kFwdBn)))
+    return err;
+  constexpr int S = fwd_stages(D);
+  dim3 grid((p.Sq + kWsRows - 1) / kWsRows, p.B * p.H);
+  return launch(flash_fwd_kernel<D, kFwdBn>, grid, kWsThreads,
+                1024 + T::bytes(kWsRows) + S * 2 * T::bytes(kFwdBn) +
+                    barrier_bytes(S),
+                s, maps, p);
 }
 
 template <int D>
 cudaError_t bwd_dq(const FlashParams& p, cudaStream_t s) {
-  constexpr int BN = kBn(D, false);
   dim3 grid((p.Sq + kRows - 1) / kRows, p.B * p.H);
-  return launch(flash_bwd_dq_kernel<D, BN>, grid,
-                2 * tile_bytes(kRows, D) + 4 * tile_bytes(BN, D), s, p);
+  return launch(flash_bwd_dq_kernel<D, kDqBn>, grid, kThreads,
+                2 * tile_bytes(kRows, D) + 4 * tile_bytes(kDqBn, D), s, p);
 }
 
 template <int D>
 cudaError_t bwd_dkv(const FlashParams& p, cudaStream_t s) {
-  constexpr int BN = kBn(D, true);
-  dim3 grid((p.Sk + kRows - 1) / kRows, p.B * p.H);
-  return launch(flash_bwd_dkv_kernel<D, BN>, grid,
-                2 * tile_bytes(kRows, D) +
-                    2 * (2 * tile_bytes(BN, D) + 2 * BN * sizeof(float)),
-                s, p);
+  using T = Tile<D>;
+  constexpr int BQ = dkv_bq(D);
+  // The lse/delta maps address rows by a 32-bit coordinate.
+  if (static_cast<long long>(p.B) * p.H * p.Sq >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  DkvMaps maps;
+  cudaError_t err;
+  if ((err = operand_map<D>(&maps.q, p.q, p.q_stride, p, p.Sq, BQ)) ||
+      (err = operand_map<D>(&maps.dout, p.dout, p.do_stride, p, p.Sq, BQ)) ||
+      (err = operand_map<D>(&maps.k, p.k, p.k_stride, p, p.Sk, kWsRows)) ||
+      (err = operand_map<D>(&maps.v, p.v, p.v_stride, p, p.Sk, kWsRows)) ||
+      (err = rows_map(&maps.lse, p.lse, p, stat_box(BQ))) ||
+      (err = rows_map(&maps.delta, p.delta, p, stat_box(BQ))))
+    return err;
+  dim3 grid((p.Sk + kWsRows - 1) / kWsRows, p.B * p.H);
+  return launch(flash_bwd_dkv_kernel<D, BQ>, grid, kWsThreads,
+                1024 + 2 * T::bytes(kWsRows) +
+                    kDkvStages * (2 * T::bytes(BQ) + 2 * stat_pad(BQ) * sizeof(float)) +
+                    barrier_bytes(kDkvStages),
+                s, maps, p);
 }
 
 }  // namespace

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.basics import DeviceLike, resolve_device
+from ..ops.collective import Average, allreduce
 from ..parallel import ring_attention as ra
 
 
@@ -190,17 +191,24 @@ def serial_forward_loss(cfg: TransformerConfig, model: Transformer,
 def forward_loss(cfg: TransformerConfig, par: ParallelConfig,
                  model: Transformer, tokens: torch.Tensor,
                  labels: torch.Tensor) -> torch.Tensor:
-    """This rank's loss on its batch shard.  The reference's pmean over dp
-    happens to the gradients, in ``DistributedOptimizer``."""
+    """The loss averaged over the data-parallel ranks, as the reference's
+    ``pmean`` over dp gives it (transformer.py:280).  Its value is the dp
+    mean; its gradient is this rank's own, so ``DistributedOptimizer``
+    averages the gradients once, as before, and the update is the
+    reference's.  At world 1 the value is the rank's loss."""
     _check_ported(cfg, par)
-    return serial_forward_loss(cfg, model, tokens, labels)
+    local = serial_forward_loss(cfg, model, tokens, labels)
+    # local - local.detach() is exactly 0, so every rank holds the same
+    # value, bit for bit.
+    return allreduce(local.detach(), op=Average) + (local - local.detach())
 
 
 def make_train_step(cfg: TransformerConfig, par: ParallelConfig,
                     model: Transformer, optimizer) -> Callable:
     """``train_step(tokens, labels) -> loss``: forward, backward and one
     (distributed) optimizer step, updating ``model`` in place.  The loss
-    returned is this rank's, detached."""
+    returned is the dp mean of ``forward_loss``, detached, the same on
+    every rank, as the reference's ``train_step`` returns it."""
     _check_ported(cfg, par)
 
     def train_step(tokens: torch.Tensor, labels: torch.Tensor):

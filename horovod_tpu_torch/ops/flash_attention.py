@@ -165,10 +165,12 @@ def _on_cpu(*ts) -> bool:
 
 def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernel can read it through its strides (unit
-    stride on head_dim, 16-byte aligned rows), else a contiguous copy."""
+    stride on head_dim, 16-byte aligned base and strides, as TMA needs),
+    else a contiguous copy."""
     if t.stride(-1) != 1 or t.data_ptr() % 16 or \
             any(s % 8 for s in t.stride()[:3]):
-        return t.contiguous()
+        # A fresh allocation: contiguous() would keep a misaligned base.
+        return t.clone(memory_format=torch.contiguous_format)
     return t
 
 
@@ -238,7 +240,11 @@ def flash_fwd(q, k, v, causal: bool, scale: float, q_offset: int = 0,
 def _bwd_params(q, k, v, do, lse, delta, causal, scale, q_offset,
                 kv_offset, **outs):
     q, k, v, do = map(_kernel_layout, (q, k, v, do))
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    # The dK/dV kernel copies lse and δ rows with TMA: contiguous, 16-byte
+    # aligned.
+    lse, delta = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (lse.float().contiguous(),
+                            delta.float().contiguous()))
     if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or \
             delta.shape != lse.shape:
         raise ValueError(f"lse/delta must be (B, H, Sq), got "

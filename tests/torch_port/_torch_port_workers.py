@@ -6,6 +6,41 @@ import json
 import os
 
 
+def _train_step_loss(rank: int, world: int, out_dir: str) -> dict:
+    """The transformer's training step on this rank's contiguous batch
+    shard, from the parameters and batch in ``out_dir/lm.npz``: the
+    shard's own loss and gradients (``serial_forward_loss``), then the loss
+    ``make_train_step`` returns and the gradients after the step.  The
+    gradients go to ``out_dir/rank<r>_lm_grads.pt``."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+
+    data = np.load(os.path.join(out_dir, "lm.npz"))
+    cfg = tfm.TransformerConfig(dtype=torch.float32,
+                                **json.loads(str(data["cfg"])))
+    model = tfm.Transformer(cfg, device="cpu")
+    model.load_state_dict({k[len("param."):]: torch.from_numpy(data[k])
+                           for k in data.files if k.startswith("param.")})
+    shard = len(data["tokens"]) // world
+    tokens, labels = (torch.from_numpy(data[k][rank * shard:
+                                               (rank + 1) * shard])
+                      for k in ("tokens", "labels"))
+    local = tfm.serial_forward_loss(cfg, model, tokens, labels)
+    local.backward()
+    local_grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.1))
+    loss = tfm.make_train_step(cfg, tfm.ParallelConfig(), model, opt)(
+        tokens, labels)
+    torch.save({"local": local_grads,
+                "synced": {n: p.grad for n, p in model.named_parameters()}},
+               os.path.join(out_dir, f"rank{rank}_lm_grads.pt"))
+    return {"lm_local_loss": local.item(), "lm_step_loss": loss.item(),
+            "lm_step_loss_requires_grad": loss.requires_grad}
+
+
 def two_rank_checks(rank: int, world: int, init_method: str,
                     out_dir: str) -> None:
     os.environ.update({
@@ -73,6 +108,7 @@ def two_rank_checks(rank: int, world: int, init_method: str,
         res["allreduce_gradients"] = {
             k: v.tolist() for k, v in hvd.allreduce_gradients(
                 {"a": x, "b": x * 2}).items()}
+        res.update(_train_step_loss(rank, world, out_dir))
     finally:
         hvd.shutdown()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:

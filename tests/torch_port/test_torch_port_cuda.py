@@ -25,6 +25,12 @@ CASES = [  # (b, sq, sk, h, d, causal, q_offset, kv_offset)
     (1, 130, 70, 2, 128, True, 0, 100),   # rows < 100 see no key
     (1, 64, 64, 2, 32, True, 0, 64),      # no row sees a key
     (8, 512, 512, 8, 64, True, 0, 0),     # the flagship training shape
+    # Lengths off the 128-row tiles: TMA's zero fill and the score mask.
+    (1, 333, 333, 2, 64, True, 0, 0),
+    (2, 129, 129, 2, 128, False, 0, 0),
+    (1, 200, 333, 2, 64, True, 150, 20),  # Sq != Sk, both offsets
+    (1, 333, 129, 3, 32, True, 40, 250),
+    (5, 192, 192, 28, 64, True, 0, 0),    # B*H = 140 > 132 SMs
 ]
 
 
@@ -63,6 +69,56 @@ def test_cuda_kernels_match_plain(cuda_device, case):
         assert_matches(got, ref, atol=5e-2, rtol=1e-2)
     torch.cuda.synchronize()
     assert all(fa.launches[n] == before[n] + 1 for n in before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_kernels_match_plain_fused_qkv(cuda_device, d):
+    """q, k, v as strided slices of a fused (B, S, H, 3, D) projection, as
+    the transformer passes them: the kernels read them through their
+    strides (at head_dim 128 a row is two 64-column TMA boxes)."""
+    g = torch.Generator().manual_seed(d)
+    qkv = torch.randn((2, 200, 3, 3, d), generator=g).to(cuda_device,
+                                                          torch.bfloat16)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    do = torch.randn(q.shape, generator=g).to(cuda_device, torch.bfloat16)
+    args = (True, d ** -0.5, 0, 0)
+    o, lse = fa.flash_fwd(q, k, v, *args)
+    o_p, lse_p = fa.attention_with_lse_plain(q, k, v, *args)
+    assert_matches(o, o_p, atol=2e-2, rtol=1e-3)
+    torch.testing.assert_close(lse, lse_p, atol=2e-3, rtol=1e-4)
+    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2)
+    bargs = (do, lse_p, delta) + args
+    assert_matches(fa.flash_bwd_dq(q, k, v, *bargs),
+                   fa.bwd_dq_plain(q, k, v, *bargs), atol=5e-2, rtol=1e-2)
+    for got, ref in zip(fa.flash_bwd_dkv(q, k, v, *bargs),
+                        fa.bwd_dkv_plain(q, k, v, *bargs)):
+        assert_matches(got, ref, atol=5e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_take_misaligned_inputs(cuda_device):
+    """TMA needs 16-byte aligned bases: a contiguous q/k/v, lse or δ that
+    starts 2 or 4 bytes into its storage is copied, not misread."""
+    b, s, h, d = 1, 130, 2, 64
+    g = torch.Generator().manual_seed(3)
+
+    def shifted(shape, dtype):
+        n = torch.Size(shape).numel()
+        flat = torch.randn(n + 1, generator=g).to(cuda_device, dtype)
+        return flat[1:].view(shape)
+
+    q, k, v, do = (shifted((b, s, h, d), torch.bfloat16) for _ in range(4))
+    args = (True, d ** -0.5, 0, 0)
+    o_p, lse_p = fa.attention_with_lse_plain(q, k, v, *args)
+    assert_matches(fa.flash_fwd(q, k, v, *args)[0], o_p, atol=2e-2, rtol=1e-3)
+    lse = shifted(lse_p.shape, torch.float32).copy_(lse_p)
+    delta = shifted(lse_p.shape, torch.float32).copy_(
+        (do.float() * o_p.float()).sum(-1).transpose(1, 2))
+    bargs = (do, lse, delta) + args
+    for got, ref in zip(fa.flash_bwd_dkv(q, k, v, *bargs),
+                        fa.bwd_dkv_plain(q, k, v, *bargs)):
+        assert_matches(got, ref, atol=5e-2, rtol=1e-2)
 
 
 @pytest.mark.cuda

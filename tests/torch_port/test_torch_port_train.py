@@ -145,15 +145,36 @@ def test_world1_collectives_keep_dtype(world1):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
+def lm_case():
+    """The reference's parameters (PRNGKey(1)) and a batch of 4 sequences,
+    which the two ranks split into contiguous shards of 2."""
+    cfg = tfm_jax.TransformerConfig(dtype=jnp.float32, **SMALL)
+    params = tfm_jax.init_params(jax.random.PRNGKey(1), cfg,
+                                 tfm_jax.ParallelConfig())
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, SMALL["vocab_size"], (4, SMALL["seq_len"]))
+    return cfg, params, tokens, np.roll(tokens, -1, axis=1)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory, lm_case):
     import torch.multiprocessing as mp
     import _torch_port_workers as workers
     out = tmp_path_factory.mktemp("two_ranks")
+    _, params, tokens, labels = lm_case
+    np.savez(os.path.join(out, "lm.npz"), cfg=json.dumps(SMALL),
+             tokens=tokens, labels=labels,
+             **{"param." + k: v.numpy()
+                for k, v in convert.params_from_jax(params).items()})
     mp.start_processes(workers.two_rank_checks,
                        args=(2, f"file://{out}/rendezvous", str(out)),
                        nprocs=2, join=True, start_method="spawn")
-    return [json.load(open(os.path.join(out, f"rank{r}.json")))
-            for r in range(2)]
+    res = [json.load(open(os.path.join(out, f"rank{r}.json")))
+           for r in range(2)]
+    for r in range(2):
+        res[r]["lm_grads"] = torch.load(
+            os.path.join(out, f"rank{r}_lm_grads.pt"))
+    return res
 
 
 def _same_on_both(two_ranks, key):
@@ -224,6 +245,58 @@ def test_two_ranks_optimizer_averages_gradients(two_ranks):
     for p, w in zip(ps, after):
         np.testing.assert_allclose(p.detach().numpy(), w, rtol=1e-6)
     _same_on_both(two_ranks, "params_after_steps")
+
+
+@pytest.mark.timeout(150)
+def test_two_ranks_train_step_returns_dp_mean_loss(two_ranks, lm_case):
+    """Each rank trains on its own shard; ``make_train_step`` returns the
+    same loss on both, bit for bit: the mean of the shards' losses, which
+    is what the reference's ``make_loss_fn`` computes on a 2-device dp
+    mesh (its pmean over dp)."""
+    step_loss = _same_on_both(two_ranks, "lm_step_loss")
+    local = [res["lm_local_loss"] for res in two_ranks]
+    assert local[0] != local[1]
+    np.testing.assert_allclose(step_loss, np.mean(local), rtol=1e-6)
+    assert not _same_on_both(two_ranks, "lm_step_loss_requires_grad")
+
+    cfg, params, tokens, labels = lm_case
+    mesh = Mesh(np.array(jax.devices()[:2]).reshape(2, 1, 1),
+                ("dp", "pp", "mp"))
+    ref = tfm_jax.make_loss_fn(cfg, tfm_jax.ParallelConfig(dp=2), mesh)(
+        params, jnp.asarray(tokens, jnp.int32),
+        jnp.asarray(labels, jnp.int32))
+    np.testing.assert_allclose(step_loss, float(ref), atol=1e-5, rtol=0)
+
+
+@pytest.mark.timeout(150)
+def test_two_ranks_train_step_averages_gradients_once(two_ranks):
+    """The loss's value is the dp mean but its gradient is the rank's own:
+    after the step each rank holds the mean of the shards' gradients, as
+    before the loss was averaged."""
+    grads = [res["lm_grads"] for res in two_ranks]
+    for name, g0 in grads[0]["local"].items():
+        g1 = grads[1]["local"][name]
+        assert not torch.equal(g0, g1), name
+        mean = (g0 + g1) / 2
+        for r in range(2):
+            torch.testing.assert_close(grads[r]["synced"][name], mean,
+                                       rtol=1e-6, atol=1e-9)
+
+
+def test_world1_train_step_returns_serial_loss(world1, lm_case):
+    """At world 1 the dp mean is the rank's own loss, exactly."""
+    _, params, tokens, labels = lm_case
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **SMALL)
+    model = tfm.Transformer(cfg, device="cpu")
+    model.load_state_dict(convert.params_from_jax(params))
+    tok, lab = torch.from_numpy(tokens), torch.from_numpy(labels)
+    with torch.no_grad():
+        serial = tfm.serial_forward_loss(cfg, model, tok, lab).item()
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.0))
+    loss = tfm.make_train_step(cfg, tfm.ParallelConfig(), model, opt)(tok,
+                                                                      lab)
+    assert loss.item() == serial
 
 
 @pytest.mark.timeout(150)
