@@ -3,8 +3,9 @@
 The reference accepts both the original ``HOROVOD_*`` names and
 ``HVD_TPU_*`` overrides, the ``HVD_TPU_`` name winning when both are set
 (horovod_tpu/core/config.py).  The port keeps those names; this slice reads
-only the launcher topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...) and
-``FLASH``, the attention dispatch switch.
+only the launcher topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...).  The
+attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
+it under that one name (parallel/ring_attention.py), and so does the port.
 """
 
 from __future__ import annotations
@@ -21,9 +22,6 @@ LOCAL_RANK = "LOCAL_RANK"
 LOCAL_SIZE = "LOCAL_SIZE"
 CROSS_RANK = "CROSS_RANK"
 CROSS_SIZE = "CROSS_SIZE"
-# Attention dispatch: "0" takes the plain path, anything else the kernel on
-# CUDA tensors (parallel/ring_attention.py).
-FLASH = "FLASH"
 
 
 def get_env(name: str, default: Optional[str] = None) -> Optional[str]:

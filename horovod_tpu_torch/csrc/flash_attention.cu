@@ -32,11 +32,11 @@
 // dS are rounded to bf16 before their products (the reference keeps them
 // fp32); the tolerance this costs is stated beside the tests.
 //
-// Forward and dK/dV: warp-specialised, on wgmma and TMA.  A block of four
-// warps that each issue mma.sync on their own 16 rows cannot reach the
-// tensor cores' rate on Hopper, re-reads every streamed tile from shared
-// memory once per warp, and spends the computing threads' registers and
-// issue slots on its loads.  So a block here is three warpgroups.  One
+// All three are warp-specialised, on wgmma and TMA.  A block of four warps
+// that each issue mma.sync on their own 16 rows cannot reach the tensor
+// cores' rate on Hopper, re-reads every streamed tile from shared memory
+// once per warp, and spends the computing threads' registers and issue
+// slots on its loads.  So a block here is three warpgroups.  One
 // producer warpgroup gives its registers up (setmaxnreg.dec) and one of its
 // threads issues every copy as TMA (cp.async.bulk.tensor) into a ring of
 // shared-memory stages, each stage with a "full" mbarrier that the copy
@@ -50,6 +50,15 @@
 // dS come from the score accumulator's registers as the A operand.
 //   * forward: 128 query rows a block, 128-key K/V stages (3 stages, 2 at
 //     head_dim 128); S = Q K^T, then O += P V.
+//   * dQ: 128 query rows a block, their Q and dO tiles loaded once;
+//     3 stages of [K, V], 64 keys a stage (for registers: S and dP are both
+//     live); S = Q K^T and dP = dO V^T, then dQ += dS K with K as the
+//     MN-major operand.  Each consumer thread reads the lse of its two rows
+//     with plain loads and computes their delta = rowsum(dO o O) in fp32
+//     from O and dO in device memory (a quad of threads splits a row's
+//     columns) before its first tile, overlapping the Q/dO copy; it uses
+//     delta in its own dS and writes it for the dK/dV launch that follows,
+//     so the backward needs no separate delta pass.
 //   * dK/dV: 128 keys a block, loaded once; 64-query Q/dO stages (32 at
 //     head_dim 128, for registers), each carrying its lse and delta rows
 //     (1-D TMA boxes); S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
@@ -62,13 +71,9 @@
 // (512 special-function-unit cycles for the warpgroup) besides 512
 // tensor-core cycles of products, and the SM alternates between the two
 // instead of overlapping them.  That, not the copies, is what bounds the
-// forward and dK/dV at long context (PERF.md); staggering the consumers
-// (ping-pong) and pipelining within a warpgroup are the next steps.
-//
-// dQ is still the Ampere-style design: four warps of 16 rows each on
-// mma.sync.m16n8k16, fragments from padded shared memory with ldmatrix
-// (.trans where the product wants the tile transposed), K/V tiles double
-// buffered with cp.async, longest causal tiles first.
+// kernels at long context (PERF.md); staggering the consumers (ping-pong)
+// and pipelining within a warpgroup are the next steps.  The forward and
+// dQ start their longest causal tiles first.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -82,20 +87,19 @@ typedef __nv_bfloat16 bf16;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kThreads = 128;  // dQ: four warps
-constexpr int kRows = 64;      // dQ: rows a block owns (16 per warp)
 
 }  // namespace
 
 // Mirrored by ctypes.Structure FlashParams in ops/flash_attention.py: keep
-// the field order and types identical.
+// the field order and types identical.  New fields go at the end, so that
+// an earlier build of this file still reads its own prefix.
 struct FlashParams {
   const void* q;
   const void* k;
   const void* v;
   const void* dout;
   const float* lse;    // (B, H, Sq) fp32, contiguous
-  const float* delta;  // (B, H, Sq) fp32, contiguous
+  const float* delta;  // (B, H, Sq) fp32, contiguous (dK/dV)
   void* out;           // O (fwd) or dQ (bwd), (B, Sq, H, D) contiguous
   float* lse_out;      // (B, H, Sq) fp32 (fwd)
   void* dk;            // (B, Sk, H, D) contiguous
@@ -108,18 +112,12 @@ struct FlashParams {
   int causal;
   int q_offset, kv_offset;
   float scale;
+  const void* o;          // the forward's O (dQ reads it for delta)
+  long long o_stride[3];
+  float* delta_out;       // (B, H, Sq) fp32, written by dQ
 };
 
 namespace {
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -139,82 +137,12 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Four 8x8 b16 matrices from shared memory; lane l gives the address of
-// row (l & 7) of matrix (l >> 3) and receives, of each matrix, the elements
-// an mma fragment wants: row l/4, columns 2(l%4), 2(l%4)+1 (transposed with
-// .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// Asynchronous global -> shared copies (cp.async); `bytes` 0 zero-fills.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Fragments of mma.m16n8k16 (PTX ISA, "Matrix fragments for mma.m16n8k16"):
-// lane = 4 * g + t.  A (16x16, row major): rows g, g+8; cols 2t, 2t+1, +8.
-// B (16x8): k rows 2t, 2t+1, +8; n col g.  C (16x8): rows g, g+8; cols 2t,2t+1.
-// With ldmatrix each lane instead supplies one row address: `Lane` holds
-// the row/column offsets of that address for the three shapes below.
-struct Lane {
-  int g, t;        // fragment coordinates
-  int a_row, a_col;  // A tile, and B stored [k][n] (transposed load)
-  int b_row, b_col;  // B stored [n][k]
-  __device__ Lane(int lane)
-      : g(lane >> 2), t(lane & 3),
-        a_row((lane & 7) + ((lane >> 3) & 1) * 8), a_col((lane >> 4) * 8),
-        b_row((lane & 7) + (lane >> 4) * 8), b_col(((lane >> 3) & 1) * 8) {}
-};
-
-// A = M[r0 .. r0+16)[c0 .. c0+16), M row major with leading dim ld.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* M, int ld,
-                                       int r0, int c0, const Lane& ln) {
-  ldsm_x4(a, M + (r0 + ln.a_row) * ld + c0 + ln.a_col);
-}
-
-// B fragments of two n tiles (n0, n0 + 8) where B[k][n] = M[n][k]: M
-// stores B transposed (K for Q K^T).  b[0..1] is tile n0, b[2..3] n0 + 8.
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const bf16* M,
-                                          int ld, int n0, int k0, const Lane& ln) {
-  ldsm_x4(b, M + (n0 + ln.b_row) * ld + k0 + ln.b_col);
-}
-
-// The same for B[k][n] = M[k][n]: M stores B as is (V for P V).
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const bf16* M,
-                                          int ld, int k0, int n0, const Lane& ln) {
-  ldsm_x4_trans(b, M + (k0 + ln.a_row) * ld + n0 + ln.a_col);
-}
-
-__device__ __forceinline__ void mma_pair(float (&d0)[4], float (&d1)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[4]) {
-  const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-  mma16816(d0, a, b0);
-  mma16816(d1, a, b1);
-}
-
-// A fragment for columns [16 kk, 16 kk + 16) of a 16 x (8 NT) fp32
-// accumulator held as C fragments: the register reuse of FlashAttention-2.
+// wgmma's fp32 accumulators are laid out per warp as mma.m16n8's C
+// fragments: lane = 4 g + t holds, of each 8-column block n, rows g and
+// g + 8, columns 8 n + 2 t and 8 n + 2 t + 1.  A bf16 A fragment of a
+// 16-deep product holds the same rows and columns 2t, 2t+1, 2t+8, 2t+9.
+// acc_to_a makes the A fragment for columns [16 kk, 16 kk + 16) of a
+// 16 x (8 NT) accumulator: the register reuse of FlashAttention-2.
 template <int NT>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[NT][4],
                                          int kk) {
@@ -222,62 +150,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[NT][
   a[1] = pack_f32(c[2 * kk][2], c[2 * kk][3]);
   a[2] = pack_f32(c[2 * kk + 1][0], c[2 * kk + 1][1]);
   a[3] = pack_f32(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Start copying rows [row0, row0 + R) of one (b, h) slice into shared
-// memory [R][LD]; rows at or past `valid` are zero-filled.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* base,
-                                          long long seq_stride, int row0,
-                                          int valid, int R) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < R * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool in = row0 + r < valid;
-    cp_async16(sm + r * LD + c, in ? base + (row0 + r) * seq_stride + c : base,
-               in ? 16 : 0);
-  }
-}
-
-// S = A_rows(16 x D) . B_rows(BN x D)^T for one warp: s[NT][4].
-template <int D, int LD, int NT>
-__device__ __forceinline__ void qk_tile(float (&s)[NT][4], const bf16* sA,
-                                        int a_row0, const bf16* sB,
-                                        const Lane& ln) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    frag_a(a, sA, LD, a_row0, kk * 16, ln);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t b[4];
-      frag_b_nk(b, sB, LD, n * 8, kk * 16, ln);
-      mma_pair(s[n], s[n + 1], a, b);
-    }
-  }
-}
-
-// acc(16 x D) += P(16 x BN, registers) . M(BN x D, shared).
-template <int D, int LD, int NT>
-__device__ __forceinline__ void pv_tile(float (&acc)[D / 8][4],
-                                        const float (&p)[NT][4], const bf16* sM,
-                                        const Lane& ln) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t a[4];
-    acc_to_a<NT>(a, p, kk);
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t b[4];
-      frag_b_kn(b, sM, LD, kk * 16, n * 8, ln);
-      mma_pair(acc[n], acc[n + 1], a, b);
-    }
-  }
 }
 
 // Store a warp's 16 x D fp32 accumulator (scaled per row) as bf16 rows of a
@@ -312,17 +184,70 @@ __device__ __forceinline__ int live_key_tiles(const FlashParams& p, int q_last,
   return live < nk ? static_cast<int>(live) : nk;
 }
 
-// The streamed tiles of a kernel (K/V, or Q/dO) are double buffered: the
-// copy of tile j + 1 is in flight while tile j is computed on.  Each
-// iteration: start the next copy, wait for the current tile, barrier,
-// compute, barrier (so the next iteration may overwrite this buffer).
-template <int N>
-__device__ __forceinline__ void wait_tile(bool more) {
-  if (more)
-    cp_async_wait<N>();
-  else
-    cp_async_wait<0>();
-  __syncthreads();
+// Only key tiles on the causal diagonal or the ragged key edge need the
+// per-element mask; it is a branch of its own, so the other tiles do not
+// issue it predicated off.  Scores of keys a row may not see become -inf:
+// one compare an element against the last key each of this thread's rows
+// may see.  sc is a warpgroup's score tile over keys [k0, k0 + 8 NT) for
+// rows from qc on; rows are this thread's two.
+template <int NT>
+__device__ __forceinline__ void mask_scores(float (&sc)[NT][4], const FlashParams& p,
+                                            int k0, int qc, const int (&rows)[2],
+                                            int t) {
+  const bool edge =
+      k0 + 8 * NT > p.Sk ||
+      (p.causal && static_cast<long long>(p.kv_offset) + k0 + 8 * NT - 1 >
+                       static_cast<long long>(p.q_offset) + qc);
+  if (!edge) return;
+  int kmax[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    long long lim = p.Sk - 1;
+    if (p.causal)
+      lim = min(lim, static_cast<long long>(p.q_offset) + rows[r] - p.kv_offset);
+    kmax[r] = static_cast<int>(max(lim, -1ll));
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sc[n][e] = k0 + n * 8 + 2 * t + (e & 1) <= kmax[e >> 1] ? sc[n][e] : neg_inf();
+}
+
+// delta = rowsum(dO o O) in fp32 for this thread's two rows, read from
+// device memory: each thread of a quad sums every fourth 8-column chunk of
+// a row (16-byte loads; the wrapper passes 16-byte aligned rows) and the
+// quad adds its sums by shuffles.  A row past Sq gets 0.
+template <int D>
+__device__ __forceinline__ void row_delta(float (&delta)[2], const FlashParams& p,
+                                          int b, int h, const int (&rows)[2], int t) {
+  const bf16* O = static_cast<const bf16*>(p.o) + b * p.o_stride[0] + h * p.o_stride[2];
+  const bf16* dO =
+      static_cast<const bf16*>(p.dout) + b * p.do_stride[0] + h * p.do_stride[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = 0.f;
+    if (rows[r] < p.Sq) {
+#pragma unroll
+      for (int i = 0; i < D / 32; ++i) {
+        const int col = (4 * i + t) * 8;
+        const uint4 ov =
+            *reinterpret_cast<const uint4*>(O + rows[r] * p.o_stride[1] + col);
+        const uint4 dv =
+            *reinterpret_cast<const uint4*>(dO + rows[r] * p.do_stride[1] + col);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 x = __bfloat1622float2(o2[e]), y = __bfloat1622float2(d2[e]);
+          sum = fmaf(x.x, y.x, fmaf(x.y, y.y, sum));
+        }
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    delta[r] = sum;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -594,6 +519,12 @@ constexpr int kWsRows = kConsumers * kWgRows;      // rows a block owns
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kFwdBn = 128;  // keys per forward stage
+// Keys per dQ stage.  At 128, S and dP would each take a 64-register
+// accumulator a thread besides dQ's, and ptxas spills and serialises the
+// wgmmas (C7512) at head_dim 32 and 64; 64 keys keep every accumulator at
+// 32 registers or fewer (PERF.md).
+constexpr int kDqBn = 64;
+constexpr int kDqStages = 3;
 constexpr int kDkvStages = 3;
 
 __host__ __device__ constexpr int fwd_stages(int D) { return D == 128 ? 2 : 3; }
@@ -619,6 +550,9 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 // The TMA maps of a launch, passed in kernel parameter space.
 struct FwdMaps {
   CUtensorMap q, k, v;
+};
+struct DqMaps {
+  CUtensorMap q, k, v, dout;
 };
 struct DkvMaps {
   CUtensorMap q, k, v, dout, lse, delta;
@@ -716,30 +650,7 @@ __global__ void __launch_bounds__(kWsThreads, 1)
       wgmma_commit();
       wgmma_wait_all();
       pin(sc);
-
-      // Only tiles on the causal diagonal or the ragged key edge need the
-      // per-element mask; it is a branch of its own, so the other tiles do
-      // not issue it predicated off.  Masked scores become -inf.
-      const bool edge = k0 + BN > p.Sk ||
-                        (p.causal && static_cast<long long>(p.kv_offset) + k0 +
-                                             BN - 1 >
-                                         static_cast<long long>(p.q_offset) + qc);
-      if (edge) {
-        int kmax[2];  // the last key each of this thread's rows may see
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          long long lim = p.Sk - 1;
-          if (p.causal)
-            lim = min(lim, static_cast<long long>(p.q_offset) + rows[r] - p.kv_offset);
-          kmax[r] = static_cast<int>(max(lim, -1ll));
-        }
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sc[n][e] = k0 + n * 8 + 2 * t + (e & 1) <= kmax[e >> 1] ? sc[n][e]
-                                                                     : neg_inf();
-      }
+      mask_scores(sc, p, k0, qc, rows, t);
       // Row max over four independent chains, then across the quad.
       float mx4[4] = {neg_inf(), neg_inf(), neg_inf(), neg_inf()};
 #pragma unroll
@@ -827,105 +738,154 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// dQ = sum_k dS K, dS = P * (dO V^T - delta) * scale, P from the saved lse.
+// dQ = sum_k dS K, dS = P * (dO V^T - delta) * scale, P from the saved lse;
+// delta = rowsum(dO o O) computed here and written for dK/dV.
 // ---------------------------------------------------------------------------
 
 template <int D, int BN>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const FlashParams p) {
-  constexpr int LD = D + 8;
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ DqMaps maps, const FlashParams p) {
+  using T = Tile<D>;
+  constexpr int S = kDqStages;
   constexpr int NT = BN / 8;
   constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + kRows * LD;
-  bf16* sKV = sdO + kRows * LD;  // [2 buffers][K tile, V tile]
+  typedef float Chunk[T::CW / 8][4];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = aligned_smem(smem_raw);      // kWsRows x D
+  unsigned char* sdO = sQ + T::bytes(kWsRows);     // kWsRows x D
+  unsigned char* sKV = sdO + T::bytes(kWsRows);    // S stages of [K, V] tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKV + S * 2 * T::bytes(BN));
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
 
   const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
-  const int warp = threadIdx.x / 32;
-  const Lane ln(threadIdx.x % 32);
-  const int g = ln.g, t = ln.t;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
-  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_stride[0] + h * p.q_stride[2];
-  const bf16* K = static_cast<const bf16*>(p.k) + b * p.k_stride[0] + h * p.k_stride[2];
-  const bf16* V = static_cast<const bf16*>(p.v) + b * p.v_stride[0] + h * p.v_stride[2];
-  const bf16* dO = static_cast<const bf16*>(p.dout) + b * p.do_stride[0] + h * p.do_stride[2];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWsRows;
+  const int nk = live_key_tiles(p, min(q0 + kWsRows, p.Sq) - 1, BN);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup() == 0) {  // producer
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0 && nk > 0) {
+      mbar_expect_tx(q_full, 2 * T::bytes(kWsRows));
+      for (int ch = 0; ch < T::NCH; ++ch) {
+        tma_load(sQ + ch * kWsRows * T::ROWB, &maps.q, q_full, ch * T::CW, q0, h, b);
+        tma_load(sdO + ch * kWsRows * T::ROWB, &maps.dout, q_full, ch * T::CW, q0, h,
+                 b);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % S;
+        mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        unsigned char* sK = sKV + s * 2 * T::bytes(BN);
+        mbar_expect_tx(&full[s], 2 * T::bytes(BN));
+        for (int ch = 0; ch < T::NCH; ++ch) {
+          tma_load(sK + ch * BN * T::ROWB, &maps.k, &full[s], ch * T::CW, j * BN, h,
+                   b);
+          tma_load(sK + T::bytes(BN) + ch * BN * T::ROWB, &maps.v, &full[s],
+                   ch * T::CW, j * BN, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<kConsumerRegs>();
+  const int c = warpgroup() - 1;  // consumer warpgroup
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int qc = q0 + c * kWgRows;  // this warpgroup's first row
+  const int nk_c =
+      qc < p.Sq ? live_key_tiles(p, min(qc + kWgRows, p.Sq) - 1, BN) : 0;
+  const int rows[2] = {qc + warp * 16 + g, qc + warp * 16 + g + 8};
   const long long row_base = (static_cast<long long>(b) * p.H + h) * p.Sq;
 
-  const int q_last = min(q0 + kRows, p.Sq) - 1;
-  const int nk = live_key_tiles(p, q_last, BN);
-  auto load_kv = [&](int j) {
-    bf16* dst = sKV + (j & 1) * 2 * BN * LD;
-    load_tile<D, LD>(dst, K, p.k_stride[1], j * BN, p.Sk, BN);
-    load_tile<D, LD>(dst + BN * LD, V, p.v_stride[1], j * BN, p.Sk, BN);
-  };
-  load_tile<D, LD>(sQ, Q, p.q_stride[1], q0, p.Sq, kRows);
-  load_tile<D, LD>(sdO, dO, p.do_stride[1], q0, p.Sq, kRows);
-  if (nk > 0) load_kv(0);
-  cp_async_commit();
-
-  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  // P = 2^(S scale log2e - lse log2e); a row that saw no key (lse -1e30)
-  // or lies past Sq gets lse2 = +inf, so its P is 2^-inf = 0.
-  const float scale_log2 = p.scale * kLog2e;
-  float lse2[2], delta[2];
+  // Row statistics, while the Q/dO copy is in flight: -lse in log2 units,
+  // -inf for a row that saw no key or lies past Sq (its P is then 0), and
+  // delta * scale.  Every row below Sq gets its delta written, also when
+  // the block has no live key tile: dK/dV reads it.
+  float delta[2];
+  row_delta<D>(delta, p, b, h, rows, t);
+  float neg_lse2[2], delta_s[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool in = rows[r] < p.Sq;
     const float ls = in ? p.lse[row_base + rows[r]] : kNegInf;
-    lse2[r] = ls > kNegInf / 2 ? ls * kLog2e : __int_as_float(0x7f800000);
-    delta[r] = in ? p.delta[row_base + rows[r]] : 0.f;
+    neg_lse2[r] = ls > kNegInf / 2 ? -ls * kLog2e : neg_inf();
+    delta_s[r] = delta[r] * p.scale;
+    if (t == 0 && in) p.delta_out[row_base + rows[r]] = delta[r];
   }
+  const float scale_log2 = p.scale * kLog2e;
   float dq[DT][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
+  const uint32_t q_tile = smem_addr(sQ), do_tile = smem_addr(sdO);
+  if (nk > 0) mbar_wait(q_full, 0);
   for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BN;
-    const bool more = j + 1 < nk;
-    if (more) {
-      load_kv(j + 1);
-      cp_async_commit();
-    }
-    wait_tile<1>(more);
-    const bf16* sK = sKV + (j & 1) * 2 * BN * LD;
-    const bf16* sV = sK + BN * LD;
+    const int s = j % S;
+    mbar_wait(&full[s], (j / S) & 1);
+    if (j < nk_c) {
+      const int k0 = j * BN;
+      const uint32_t k_tile = smem_addr(sKV + s * 2 * T::bytes(BN));
+      const uint32_t v_tile = k_tile + T::bytes(BN);
 
-    float s[NT][4];
-    qk_tile<D, LD, NT>(s, sQ, warp * 16, sK, ln);
-    float dp[NT][4];
-    qk_tile<D, LD, NT>(dp, sdO, warp * 16, sV, ln);
-    const bool edge = k0 + BN > p.Sk ||
-                      (p.causal && static_cast<long long>(p.kv_offset) + k0 +
-                                           BN - 1 >
-                                       static_cast<long long>(p.q_offset) + q0);
+      float sc[NT][4], dp[NT][4];  // S = Q K^T, dP = dO V^T
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, T::kmajor(q_tile, kWsRows, c * kWgRows, kk),
+                 T::kmajor(k_tile, BN, 0, kk), kk);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float pe = ex2(s[n][e] * scale_log2 - lse2[r]);
-        if (edge) {
-          const int key = k0 + n * 8 + 2 * t + (e & 1);
-          bool ok = key < p.Sk;
-          if (p.causal)
-            ok = ok && (static_cast<long long>(p.q_offset) + rows[r] >=
-                        static_cast<long long>(p.kv_offset) + key);
-          pe = ok ? pe : 0.f;
-        }
-        s[n][e] = pe * (dp[n][e] - delta[r]) * p.scale;  // dS
-      }
-    pv_tile<D, LD, NT>(dq, s, sK, ln);
-    __syncthreads();
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, T::kmajor(do_tile, kWsRows, c * kWgRows, kk),
+                 T::kmajor(v_tile, BN, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(sc);
+      pin(dp);
+
+      mask_scores(sc, p, k0, qc, rows, t);
+      // dS = P (dP - delta) scale, P = 2^(S scale log2e - lse log2e).
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[n][e] = ex2(fmaf(sc[n][e], scale_log2, neg_lse2[e >> 1])) *
+                     fmaf(dp[n][e], p.scale, -delta_s[e >> 1]);
+      uint32_t da[BN / 16][4];  // dS as bf16 A fragments
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<NT>(da[kk], sc, kk);
+
+      pin(dq);
+      wgmma_fence();  // dQ += dS K
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int ch = 0; ch < T::NCH; ++ch)
+          wgmma_rs(*reinterpret_cast<Chunk*>(&dq[ch * T::CW / 8]), da[kk],
+                   T::mnmajor(k_tile, BN, kk, ch));
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dq);
+      pin(da);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this stage may be refilled
   }
-  cp_async_wait<0>();
 
   bf16* dQ = static_cast<bf16*>(p.out) +
              (static_cast<long long>(b) * p.Sq * p.H + h) * D;
-  store_rows<D>(dQ, static_cast<long long>(p.H) * D, dq, rows[0], rows[1],
-                p.Sq, 1.f, 1.f, t);
+  store_rows<D>(dQ, static_cast<long long>(p.H) * D, dq, rows[0], rows[1], p.Sq,
+                1.f, 1.f, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1135,15 +1095,17 @@ __global__ void __launch_bounds__(kWsThreads, 1)
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
-                   cudaStream_t stream, const Args&... args) {
-  // Above 48 KB a block's dynamic shared memory must be opted into.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
+// Opt `kernel` into `smem` bytes of dynamic shared memory (above 48 KB a
+// block's must be).  Each launcher calls it before it encodes its TMA maps:
+// as a runtime call it makes the device's primary context current in the
+// calling thread, which cuTensorMapEncodeTiled, a driver call, needs.  A
+// thread that has made no runtime call yet has no current context: the
+// autograd engine's device thread, when the backward on a side stream
+// starts with dQ, was one (the encode failed with "invalid argument").
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 // cuTensorMapEncodeTiled, a driver function, fetched through the runtime so
@@ -1214,12 +1176,6 @@ cudaError_t rows_map(CUtensorMap* map, const float* base, const FlashParams& p,
                 CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-constexpr int kDqBn = 64;  // keys per dQ tile
-
-constexpr size_t tile_bytes(int rows, int D) {
-  return static_cast<size_t>(rows) * (D + 8) * sizeof(bf16);
-}
-
 constexpr size_t barrier_bytes(int stages) {
   return (1 + 2 * stages) * sizeof(uint64_t);
 }
@@ -1227,49 +1183,66 @@ constexpr size_t barrier_bytes(int stages) {
 template <int D>
 cudaError_t fwd(const FlashParams& p, cudaStream_t s) {
   using T = Tile<D>;
+  constexpr int S = fwd_stages(D);
+  constexpr size_t smem =
+      1024 + T::bytes(kWsRows) + S * 2 * T::bytes(kFwdBn) + barrier_bytes(S);
+  const auto kernel = flash_fwd_kernel<D, kFwdBn>;
   FwdMaps maps;
   cudaError_t err;
-  if ((err = operand_map<D>(&maps.q, p.q, p.q_stride, p, p.Sq, kWsRows)) ||
+  if ((err = set_smem(kernel, smem)) ||
+      (err = operand_map<D>(&maps.q, p.q, p.q_stride, p, p.Sq, kWsRows)) ||
       (err = operand_map<D>(&maps.k, p.k, p.k_stride, p, p.Sk, kFwdBn)) ||
       (err = operand_map<D>(&maps.v, p.v, p.v_stride, p, p.Sk, kFwdBn)))
     return err;
-  constexpr int S = fwd_stages(D);
-  dim3 grid((p.Sq + kWsRows - 1) / kWsRows, p.B * p.H);
-  return launch(flash_fwd_kernel<D, kFwdBn>, grid, kWsThreads,
-                1024 + T::bytes(kWsRows) + S * 2 * T::bytes(kFwdBn) +
-                    barrier_bytes(S),
-                s, maps, p);
+  kernel<<<dim3((p.Sq + kWsRows - 1) / kWsRows, p.B * p.H), kWsThreads, smem, s>>>(
+      maps, p);
+  return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t bwd_dq(const FlashParams& p, cudaStream_t s) {
-  dim3 grid((p.Sq + kRows - 1) / kRows, p.B * p.H);
-  return launch(flash_bwd_dq_kernel<D, kDqBn>, grid, kThreads,
-                2 * tile_bytes(kRows, D) + 4 * tile_bytes(kDqBn, D), s, p);
+  using T = Tile<D>;
+  constexpr size_t smem = 1024 + 2 * T::bytes(kWsRows) +
+                          kDqStages * 2 * T::bytes(kDqBn) + barrier_bytes(kDqStages);
+  const auto kernel = flash_bwd_dq_kernel<D, kDqBn>;
+  DqMaps maps;
+  cudaError_t err;
+  if ((err = set_smem(kernel, smem)) ||
+      (err = operand_map<D>(&maps.q, p.q, p.q_stride, p, p.Sq, kWsRows)) ||
+      (err = operand_map<D>(&maps.dout, p.dout, p.do_stride, p, p.Sq, kWsRows)) ||
+      (err = operand_map<D>(&maps.k, p.k, p.k_stride, p, p.Sk, kDqBn)) ||
+      (err = operand_map<D>(&maps.v, p.v, p.v_stride, p, p.Sk, kDqBn)))
+    return err;
+  kernel<<<dim3((p.Sq + kWsRows - 1) / kWsRows, p.B * p.H), kWsThreads, smem, s>>>(
+      maps, p);
+  return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t bwd_dkv(const FlashParams& p, cudaStream_t s) {
   using T = Tile<D>;
   constexpr int BQ = dkv_bq(D);
+  constexpr size_t smem =
+      1024 + 2 * T::bytes(kWsRows) +
+      kDkvStages * (2 * T::bytes(BQ) + 2 * stat_pad(BQ) * sizeof(float)) +
+      barrier_bytes(kDkvStages);
+  const auto kernel = flash_bwd_dkv_kernel<D, BQ>;
   // The lse/delta maps address rows by a 32-bit coordinate.
   if (static_cast<long long>(p.B) * p.H * p.Sq >= (1ll << 31))
     return cudaErrorInvalidValue;
   DkvMaps maps;
   cudaError_t err;
-  if ((err = operand_map<D>(&maps.q, p.q, p.q_stride, p, p.Sq, BQ)) ||
+  if ((err = set_smem(kernel, smem)) ||
+      (err = operand_map<D>(&maps.q, p.q, p.q_stride, p, p.Sq, BQ)) ||
       (err = operand_map<D>(&maps.dout, p.dout, p.do_stride, p, p.Sq, BQ)) ||
       (err = operand_map<D>(&maps.k, p.k, p.k_stride, p, p.Sk, kWsRows)) ||
       (err = operand_map<D>(&maps.v, p.v, p.v_stride, p, p.Sk, kWsRows)) ||
       (err = rows_map(&maps.lse, p.lse, p, stat_box(BQ))) ||
       (err = rows_map(&maps.delta, p.delta, p, stat_box(BQ))))
     return err;
-  dim3 grid((p.Sk + kWsRows - 1) / kWsRows, p.B * p.H);
-  return launch(flash_bwd_dkv_kernel<D, BQ>, grid, kWsThreads,
-                1024 + 2 * T::bytes(kWsRows) +
-                    kDkvStages * (2 * T::bytes(BQ) + 2 * stat_pad(BQ) * sizeof(float)) +
-                    barrier_bytes(kDkvStages),
-                s, maps, p);
+  kernel<<<dim3((p.Sk + kWsRows - 1) / kWsRows, p.B * p.H), kWsThreads, smem, s>>>(
+      maps, p);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -5,7 +5,8 @@ Three kernels, in ``csrc/flash_attention.cu``:
 
 * ``flash_fwd``      — out + logsumexp, online softmax over key tiles
   (replaces the Pallas ``_fwd_kernel``).
-* ``flash_bwd_dq``   — dQ, streaming over key tiles (``_bwd_dq_kernel``).
+* ``flash_bwd_dq``   — dQ, streaming over key tiles (``_bwd_dq_kernel``),
+  and δ = rowsum(dO∘O), which the reference computes outside its kernels.
 * ``flash_bwd_dkv``  — dK/dV, streaming over query tiles (``_bwd_dkv_kernel``).
 
 Each wrapper takes the kernel for CUDA tensors and the plain PyTorch
@@ -86,13 +87,15 @@ def _probs_and_dscores(q, k, v, do, lse, delta, causal, scale, q_offset,
     return p, p * (dp - delta[..., None]) * scale
 
 
-def bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
+def bwd_dq_plain(q, k, v, do, lse, out, causal: bool, scale: float,
                  q_offset: int = 0, kv_offset: int = 0):
-    """dQ = Σ_k dS·K with P recomputed from lse (reference
-    ``_bwd_dq_kernel``)."""
+    """(dQ, δ): δ = rowsum(dO∘O) (B, H, Sq) fp32 as the reference's
+    ``_flash_bwd`` computes it, and dQ = Σ_k dS·K with P recomputed from
+    lse (reference ``_bwd_dq_kernel``)."""
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
     _, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, scale,
                                q_offset, kv_offset)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype), delta
 
 
 def bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float,
@@ -125,6 +128,8 @@ class FlashParams(ctypes.Structure):
         ("Sk", ctypes.c_int), ("D", ctypes.c_int), ("causal", ctypes.c_int),
         ("q_offset", ctypes.c_int), ("kv_offset", ctypes.c_int),
         ("scale", ctypes.c_float),
+        ("o", ctypes.c_void_p), ("o_stride", ctypes.c_longlong * 3),
+        ("delta_out", ctypes.c_void_p),
     ]
 
 
@@ -175,6 +180,7 @@ def _kernel_layout(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_kernel_inputs(q, k, v, *rest) -> None:
+    """``rest`` are q-shaped: dO, and O for dQ."""
     for t in (q, k, v) + rest:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the flash attention kernels take bfloat16, "
@@ -182,6 +188,10 @@ def _check_kernel_inputs(q, k, v, *rest) -> None:
         if t.dim() != 4:
             raise ValueError(f"expected (B, S, H, D) tensors, got shape "
                              f"{tuple(t.shape)}")
+    for t in rest:
+        if t.shape != q.shape:
+            raise ValueError(f"dO/O shape {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)}")
     b, sq, h, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"the flash attention kernels take head_dim in "
@@ -237,38 +247,54 @@ def flash_fwd(q, k, v, causal: bool, scale: float, q_offset: int = 0,
     return out, lse
 
 
-def _bwd_params(q, k, v, do, lse, delta, causal, scale, q_offset,
-                kv_offset, **outs):
-    q, k, v, do = map(_kernel_layout, (q, k, v, do))
-    # The dK/dV kernel copies lse and δ rows with TMA: contiguous, 16-byte
-    # aligned.
-    lse, delta = (t if t.data_ptr() % 16 == 0 else t.clone()
-                  for t in (lse.float().contiguous(),
-                            delta.float().contiguous()))
-    if lse.shape != (q.shape[0], q.shape[2], q.shape[1]) or \
-            delta.shape != lse.shape:
+def _row_stat(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """A (B, H, Sq) fp32 row statistic (lse, δ) as the kernels read it:
+    contiguous, 16-byte aligned (the dK/dV kernel copies its rows with
+    TMA); a copy only where ``t`` is not."""
+    t = t.float().contiguous()
+    if t.data_ptr() % 16:
+        t = t.clone()  # a fresh allocation is aligned
+    if t.shape != (q.shape[0], q.shape[2], q.shape[1]):
         raise ValueError(f"lse/delta must be (B, H, Sq), got "
-                         f"{tuple(lse.shape)}/{tuple(delta.shape)}")
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def _bwd_params(q, k, v, do, causal, scale, q_offset, kv_offset, **ptrs):
+    """The FlashParams of a backward launch, and the tensors it points at,
+    which the caller keeps referenced until the launch has been
+    enqueued.  ``ptrs`` name FlashParams pointer fields; an ``o`` is read
+    through its strides, like q/k/v/dO."""
+    q, k, v, do = map(_kernel_layout, (q, k, v, do))
+    if "o" in ptrs:
+        ptrs["o"] = _kernel_layout(ptrs["o"])
     p = _params(q, k, v, causal, scale, q_offset, kv_offset, dout=do,
-                lse=lse, delta=delta, **outs)
+                **ptrs)
     p.do_stride[:] = [do.stride(0), do.stride(1), do.stride(2)]
-    # Inputs stay referenced until the launch has been enqueued.
-    return p, (q, k, v, do, lse, delta)
+    if "o" in ptrs:
+        p.o_stride[:] = list(ptrs["o"].stride()[:3])
+    return p, (q, k, v, do, *ptrs.values())
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
-                 q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
-    """dQ (B, Sq, H, D) from the saved lse and δ = rowsum(dO∘O) (B, H, Sq)."""
-    if _on_cpu(q, k, v, do):
-        return bwd_dq_plain(q, k, v, do, lse, delta, causal, scale,
-                            q_offset, kv_offset)
-    _check_kernel_inputs(q, k, v, do)
+def flash_bwd_dq(q, k, v, do, lse, out, causal: bool, scale: float,
+                 q_offset: int = 0, kv_offset: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dQ (B, Sq, H, D), δ (B, H, Sq) fp32) from the saved lse and the
+    forward's output ``out``: the kernel computes δ = rowsum(dO∘O) for its
+    own rows, uses it in dS and returns it for :func:`flash_bwd_dkv`."""
+    if _on_cpu(q, k, v, do, out):
+        return bwd_dq_plain(q, k, v, do, lse, out, causal, scale, q_offset,
+                            kv_offset)
+    _check_kernel_inputs(q, k, v, do, out)
+    b, sq, h, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    p, keep = _bwd_params(q, k, v, do, lse, delta, causal, scale, q_offset,
-                          kv_offset, out=dq)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    p, keep = _bwd_params(q, k, v, do, causal, scale, q_offset, kv_offset,
+                          lse=_row_stat(lse, q), o=out, out=dq,
+                          delta_out=delta)
     _launch("hvd_flash_bwd_dq", "flash_bwd_dq", p, q.device)
     del keep
-    return dq
+    return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
@@ -281,8 +307,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
     _check_kernel_inputs(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    p, keep = _bwd_params(q, k, v, do, lse, delta, causal, scale, q_offset,
-                          kv_offset, dk=dk, dv=dv)
+    p, keep = _bwd_params(q, k, v, do, causal, scale, q_offset, kv_offset,
+                          lse=_row_stat(lse, q), delta=_row_stat(delta, q),
+                          dk=dk, dv=dv)
     _launch("hvd_flash_bwd_dkv", "flash_bwd_dkv", p, q.device)
     del keep
     return dk, dv
@@ -294,8 +321,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
 
 class _FlashAttention(torch.autograd.Function):
     """The reference's custom VJP (flash_attention.py:389-430): forward
-    saves (q, k, v, out, lse); backward computes δ = rowsum(dO∘O) outside
-    the kernels, as the reference does, then runs dQ and dK/dV."""
+    saves (q, k, v, out, lse); backward runs dQ, which also computes
+    δ = rowsum(dO∘O) (the reference computes it outside its kernels), then
+    dK/dV with that δ."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, q_offset, kv_offset):
@@ -308,8 +336,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.to(q.dtype)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, *ctx.args)
+        dq, delta = flash_bwd_dq(q, k, v, do, lse, out, *ctx.args)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None, None
 

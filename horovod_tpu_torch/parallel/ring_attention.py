@@ -8,11 +8,11 @@ Layout: q, k, v are (batch, seq, heads, head_dim).
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 
-from ..core import config as _cfg
 from ..ops import flash_attention as fa
 
 _NEG_INF = -1e30
@@ -22,8 +22,9 @@ def _flash_enabled(q: torch.Tensor) -> bool:
     """Dispatch policy.  ``HVD_TPU_FLASH=0`` takes the plain path; on a
     CUDA tensor anything else takes the kernel.  On a CPU tensor the
     default is the plain path, as the reference's is off its accelerator,
-    and ``HVD_TPU_FLASH=1`` takes the kernel's plain version."""
-    v = _cfg.get_env(_cfg.FLASH, "auto")
+    and ``HVD_TPU_FLASH=1`` takes the kernel's plain version.  Only the
+    ``HVD_TPU_`` name is read, as in the reference."""
+    v = os.environ.get("HVD_TPU_FLASH", "auto")
     if v == "0":
         return False
     return v == "1" or q.device.type == "cuda"

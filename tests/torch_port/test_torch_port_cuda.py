@@ -11,7 +11,15 @@ fp32 on both sides (atol 2e-3 rtol 1e-4: the fast exp and the summation
 order).  Those gradient atol are near a typical gradient element at the
 flagship shape, so every output is also held normwise:
 ||kernel - plain|| / ||plain|| <= 1e-2.  The kernels round P and dS to
-bf16 before their tensor-core products; these bounds include that."""
+bf16 before their tensor-core products; these bounds include that.  dQ's
+δ = rowsum(dO∘O) is fp32 from bf16 inputs on both sides, whose products
+are exact in fp32, so it differs only by the summation order (atol 1e-3,
+rtol 1e-4)."""
+
+import os
+import subprocess
+import sys
+import textwrap
 
 import pytest
 import torch
@@ -40,6 +48,17 @@ def assert_matches(got, ref, atol, rtol):
     assert diff <= 1e-2 * ref.float().norm(), "normwise relative error"
 
 
+def assert_dq_matches(q, k, v, do, lse, o, args):
+    """flash_bwd_dq's dQ and δ against bwd_dq_plain's; returns the plain δ
+    for dK/dV, so that each kernel is held to its plain version on the same
+    inputs."""
+    dq, delta = fa.flash_bwd_dq(q, k, v, do, lse, o, *args)
+    dq_p, delta_p = fa.bwd_dq_plain(q, k, v, do, lse, o, *args)
+    assert_matches(dq, dq_p, atol=5e-2, rtol=1e-2)
+    torch.testing.assert_close(delta, delta_p, atol=1e-3, rtol=1e-4)
+    return delta_p
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -60,10 +79,8 @@ def test_cuda_kernels_match_plain(cuda_device, case):
     o_p, lse_p = fa.attention_with_lse_plain(q, k, v, *args)
     assert_matches(o, o_p, atol=2e-2, rtol=1e-3)
     torch.testing.assert_close(lse, lse_p, atol=2e-3, rtol=1e-4)
-    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2)
+    delta = assert_dq_matches(q, k, v, do, lse_p, o_p, args)
     bargs = (do, lse_p, delta) + args
-    assert_matches(fa.flash_bwd_dq(q, k, v, *bargs),
-                   fa.bwd_dq_plain(q, k, v, *bargs), atol=5e-2, rtol=1e-2)
     for got, ref in zip(fa.flash_bwd_dkv(q, k, v, *bargs),
                         fa.bwd_dkv_plain(q, k, v, *bargs)):
         assert_matches(got, ref, atol=5e-2, rtol=1e-2)
@@ -87,10 +104,8 @@ def test_cuda_kernels_match_plain_fused_qkv(cuda_device, d):
     o_p, lse_p = fa.attention_with_lse_plain(q, k, v, *args)
     assert_matches(o, o_p, atol=2e-2, rtol=1e-3)
     torch.testing.assert_close(lse, lse_p, atol=2e-3, rtol=1e-4)
-    delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2)
+    delta = assert_dq_matches(q, k, v, do, lse_p, o_p, args)
     bargs = (do, lse_p, delta) + args
-    assert_matches(fa.flash_bwd_dq(q, k, v, *bargs),
-                   fa.bwd_dq_plain(q, k, v, *bargs), atol=5e-2, rtol=1e-2)
     for got, ref in zip(fa.flash_bwd_dkv(q, k, v, *bargs),
                         fa.bwd_dkv_plain(q, k, v, *bargs)):
         assert_matches(got, ref, atol=5e-2, rtol=1e-2)
@@ -119,6 +134,57 @@ def test_cuda_kernels_take_misaligned_inputs(cuda_device):
     for got, ref in zip(fa.flash_bwd_dkv(q, k, v, *bargs),
                         fa.bwd_dkv_plain(q, k, v, *bargs)):
         assert_matches(got, ref, atol=5e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_dq_takes_misaligned_out(cuda_device):
+    """dQ reads O (for δ) with 16-byte loads: an O that starts 2 bytes
+    into its storage is copied, not misread."""
+    b, s, h, d = 1, 130, 2, 64
+    g = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g).to(
+        cuda_device, torch.bfloat16) for _ in range(4))
+    args = (True, d ** -0.5, 0, 0)
+    o_p, lse_p = fa.attention_with_lse_plain(q, k, v, *args)
+    flat = torch.empty(o_p.numel() + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    o = flat[1:].view(o_p.shape).copy_(o_p)
+    assert o.data_ptr() % 16
+    assert_dq_matches(q, k, v, do, lse_p, o, args)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_on_a_side_stream(cuda_device):
+    """Forward and backward through autograd on a side stream, in a fresh
+    process: the autograd engine's device thread then makes its first CUDA
+    call in the dQ launcher, which must not encode its TMA maps before the
+    runtime has made the context current in that thread."""
+    code = textwrap.dedent("""
+        import torch
+        from horovod_tpu_torch.ops import flash_attention as fa
+        g = torch.Generator().manual_seed(5)
+        q, k, v, do = (torch.randn((2, 200, 3, 64), generator=g).to(
+            "cuda", torch.bfloat16) for _ in range(4))
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fa.flash_attention(*leaves, causal=True).backward(do)
+        torch.cuda.synchronize()
+        plain = [t.detach().float().requires_grad_() for t in (q, k, v)]
+        fa.attention_with_lse_plain(*plain, True, 64 ** -0.5)[0].backward(
+            do.float())
+        for got, ref in zip(leaves, plain):
+            diff = (got.grad.float() - ref.grad).norm()
+            assert diff <= 1e-2 * ref.grad.norm(), diff
+        print("side stream ok")
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and "side stream ok" in proc.stdout, \
+        proc.stderr[-4000:]
 
 
 @pytest.mark.cuda

@@ -7,6 +7,7 @@ the algorithms (1e-5); bf16 inputs use the reference's own tolerances.  The
 CUDA kernels against their plain versions are in test_torch_port_cuda.py."""
 
 import ctypes
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -123,14 +124,43 @@ def test_plain_backward_is_the_gradient_of_plain_forward():
     q, k, v, do = (_t(x) for x in _inputs(sq=40, sk=72, d=16, seed=5))
     args = (True, 0.25, 48, 16)
     out, lse = fa.attention_with_lse_plain(q, k, v, *args)
-    delta = (do * out).sum(-1).transpose(1, 2)
-    dq = fa.bwd_dq_plain(q, k, v, do, lse, delta, *args)
+    dq, delta = fa.bwd_dq_plain(q, k, v, do, lse, out, *args)
     dk, dv = fa.bwd_dkv_plain(q, k, v, do, lse, delta, *args)
     tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
     fa.attention_with_lse_plain(tq, tk, tv, *args)[0].backward(do)
     for got, ref in zip((dq, dk, dv), (tq.grad, tk.grad, tv.grad)):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5,
                                    rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,offsets", [(True, (0, 0)), (False, (0, 0)),
+                                            (True, (0, 64)), (True, (32, 96))])
+def test_bwd_dq_and_delta_match_pallas(causal, offsets):
+    """The port's dQ with δ (``bwd_dq_plain``, the kernel's oracle and its
+    CPU path) against the reference's Pallas ``_bwd_call`` in interpret
+    mode, fed the reference's δ (``_flash_bwd``, flash_attention.py:420).
+    With offsets (0, 64) the first 64 rows see no key."""
+    q, k, v, do = _inputs(seed=11)
+    qo, ko = offsets
+    scale = 32 ** -0.5
+    o, lse = (np.array(x) for x in fa_jax.flash_attention_with_lse(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=causal, q_offset=qo,
+        kv_offset=ko, interpret=True))
+    bhsd = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)
+    delta_ref = jnp.sum(bhsd(do) * bhsd(o), axis=-1)
+    dq_ref, _, _ = fa_jax._bwd_call(
+        bhsd(q), bhsd(k), bhsd(v), bhsd(do), jnp.asarray(lse), delta_ref,
+        jnp.asarray([[qo, ko]], jnp.int32), causal=causal, scale=scale,
+        block_q=64, block_k=64, interpret=True)
+    dq, delta = fa.bwd_dq_plain(*(_t(x) for x in (q, k, v, do, lse, o)),
+                                causal, scale, qo, ko)
+    np.testing.assert_allclose(delta.numpy(), np.asarray(delta_ref),
+                               **TOL_F32)
+    np.testing.assert_allclose(
+        dq.numpy(), np.asarray(dq_ref).transpose(0, 2, 1, 3), **TOL_F32)
+    n_dead = max(0, ko - qo) if causal else 0
+    assert np.all(lse[:, :, :n_dead] == NEG)
+    assert not dq.numpy()[:, :n_dead].any()
 
 
 def test_full_attention_dispatch_on_cpu(monkeypatch):
@@ -151,12 +181,24 @@ def test_full_attention_dispatch_on_cpu(monkeypatch):
                            "flash_bwd_dkv": 0}  # CPU tensors launch nothing
 
 
+def test_flash_switch_reads_only_hvd_tpu_flash(monkeypatch):
+    """The attention switch is ``HVD_TPU_FLASH`` alone, as in the reference
+    (horovod_tpu/parallel/ring_attention.py): ``HOROVOD_FLASH`` does not
+    turn the kernel path off."""
+    q = SimpleNamespace(device=torch.device("cuda"))
+    monkeypatch.delenv("HVD_TPU_FLASH", raising=False)
+    monkeypatch.setenv("HOROVOD_FLASH", "0")
+    assert ra._flash_enabled(q)
+    monkeypatch.setenv("HVD_TPU_FLASH", "0")
+    assert not ra._flash_enabled(q)
+
+
 def test_wrappers_refuse_other_devices():
     q = torch.zeros((1, 8, 1, 32), device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fa.flash_fwd(q, q, q, True, 0.1)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        fa.flash_bwd_dq(q, q, q, q, None, None, True, 0.1)
+        fa.flash_bwd_dq(q, q, q, q, None, q, True, 0.1)
 
 
 def test_strided_qkv_slices_reach_the_kernel_without_copy():
@@ -170,8 +212,12 @@ def test_strided_qkv_slices_reach_the_kernel_without_copy():
 def test_flash_params_mirror_the_c_struct():
     """ctypes layout of ``struct FlashParams`` (csrc/flash_attention.cu)
     on LP64: ten pointers, four int64[3] stride triples, eight ints, a
-    float."""
+    float, then the fields appended for dQ's δ: a pointer, an int64[3] and
+    a pointer.  The prefix is unchanged, so an earlier build still reads
+    it."""
     P = fa.FlashParams
     assert P.dv.offset == 72 and P.q_stride.offset == 80
     assert P.do_stride.offset == 152 and P.B.offset == 176
-    assert P.scale.offset == 208 and ctypes.sizeof(P) == 216
+    assert P.scale.offset == 208 and P.o.offset == 216
+    assert P.o_stride.offset == 224 and P.delta_out.offset == 248
+    assert ctypes.sizeof(P) == 256

@@ -12,7 +12,10 @@ named by its file stem) and the tree's
 the plain PyTorch versions at the flagship training shape, and times each
 kernel of every build with CUDA events in the order baselines, tree,
 tree, baselines reversed, at the flagship shape (8, 512, 8, 64) and at
-long context (1, 8192, 16, 64), causal, bf16.
+long context (1, 8192, 16, 64), causal, bf16.  Every build is launched
+through its C entry points on the same parameter blocks, so a baseline
+whose dQ reads a precomputed δ (before δ moved into dQ) runs beside the
+tree's, which computes δ from O.
 
 Beside each device time it takes the host's cost of one launch
 (``launch_us``): the C entry point called through ctypes on a prepared
@@ -59,18 +62,55 @@ def launch_us(torch, lib, entry, params, calls=200, rounds=5):
     return best
 
 
-def kernel_params(torch, fa, q, k, v, do, lse, delta, args):
-    """The FlashParams each kernel is launched with, and the outputs and
-    inputs they point at (kept alive by the caller)."""
-    out = torch.empty_like(q)
-    lse_out = torch.empty_like(lse)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fwd = fa._params(q, k, v, *args, out=out, lse_out=lse_out)
-    dq, keep_dq = fa._bwd_params(q, k, v, do, lse, delta, *args, out=out)
-    dkv, keep_dkv = fa._bwd_params(q, k, v, do, lse, delta, *args, dk=dk,
-                                   dv=dv)
+def kernel_params(torch, fa, q, k, v, do, lse, o, delta, args):
+    """The FlashParams each kernel is launched with, the outputs of each
+    kernel, and the inputs they point at (kept alive by the caller).  dQ's
+    block carries δ, which an earlier build's dQ reads, and O with a δ
+    output, which the tree's dQ reads and writes."""
+    outs = {"flash_fwd": (torch.empty_like(q), torch.empty_like(lse)),
+            "flash_bwd_dq": (torch.empty_like(q), torch.empty_like(lse)),
+            "flash_bwd_dkv": (torch.empty_like(k), torch.empty_like(v))}
+    fwd = fa._params(q, k, v, *args, out=outs["flash_fwd"][0],
+                     lse_out=outs["flash_fwd"][1])
+    dq, keep_dq = fa._bwd_params(q, k, v, do, *args, lse=lse, delta=delta,
+                                 o=o, out=outs["flash_bwd_dq"][0],
+                                 delta_out=outs["flash_bwd_dq"][1])
+    dkv, keep_dkv = fa._bwd_params(q, k, v, do, *args, lse=lse, delta=delta,
+                                   dk=outs["flash_bwd_dkv"][0],
+                                   dv=outs["flash_bwd_dkv"][1])
     return ({"flash_fwd": fwd, "flash_bwd_dq": dq, "flash_bwd_dkv": dkv},
-            (out, lse_out, dk, dv, keep_dq, keep_dkv))
+            outs, (keep_dq, keep_dkv))
+
+
+def launcher(torch, lib, entry, params):
+    """A call that launches C entry point ``entry`` on ``params`` on the
+    current stream (the capture stream while a CUDA graph is recorded)."""
+    fn = getattr(lib, entry)
+
+    def run():
+        if fn(ctypes.byref(params), torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError(f"{entry} launch failed")
+    return run
+
+
+def check_build(torch, fa, lib, params, outs, q, k, v, do, lse, o, delta,
+                args, writes_delta):
+    """Each kernel of one build, launched on the parameter blocks, against
+    the plain versions, with chip_smoke.py's tolerances."""
+    for n, entry in ENTRY.items():
+        launcher(torch, lib, entry, params[n])()
+    torch.cuda.synchronize()
+    cmp = chip_smoke.compare
+    cmp(torch, outs["flash_fwd"][0], o, chip_smoke.TOL_OUT)
+    torch.testing.assert_close(outs["flash_fwd"][1], lse,
+                               **chip_smoke.TOL_LSE)
+    dq_p, delta_p = fa.bwd_dq_plain(q, k, v, do, lse, o, *args)
+    cmp(torch, outs["flash_bwd_dq"][0], dq_p, chip_smoke.TOL_GRAD)
+    if writes_delta:
+        cmp(torch, outs["flash_bwd_dq"][1], delta_p, chip_smoke.TOL_DELTA)
+    for got, ref in zip(outs["flash_bwd_dkv"],
+                        fa.bwd_dkv_plain(q, k, v, do, lse, delta, *args)):
+        cmp(torch, got, ref, chip_smoke.TOL_GRAD)
 
 
 class ClockSampler:
@@ -113,31 +153,27 @@ def main() -> int:
         q, k, v, do = chip_smoke.rand_qkv(torch, b, s, s, h, d, seed=7)
         args_ = (True, 1.0 / math.sqrt(d), 0, 0)
         o, lse = fa.attention_with_lse_plain(q, k, v, *args_)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        bargs = (do, lse, delta) + args_
-        calls = {
-            "flash_fwd": lambda: fa.flash_fwd(q, k, v, *args_),
-            "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, *bargs),
-            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, *bargs),
-        }
-        params, keep = kernel_params(torch, fa, q, k, v, do, lse, delta,
-                                     args_)
-        times = {name: {n: [] for n in calls} for name in libs}
-        host = {name: {n: [] for n in calls} for name in libs}
+        delta = fa.bwd_dq_plain(q, k, v, do, lse, o, *args_)[1].contiguous()
+        params, outs, keep = kernel_params(torch, fa, q, k, v, do, lse, o,
+                                           delta, args_)
+        times = {name: {n: [] for n in ENTRY} for name in libs}
+        host = {name: {n: [] for n in ENTRY} for name in libs}
         with ClockSampler() as clock:
             for name in base + ["tree", "tree"] + base[::-1]:
-                fa._lib = libs[name]
+                lib = libs[name]
                 if label == "flagship" and not times[name]["flash_fwd"]:
-                    chip_smoke.check_case(torch, fa, q, k, v, do, True, 0, 0)
-                for n, fn in calls.items():
-                    times[name][n].append(chip_smoke.time_ms(torch, fn, iters))
-                    host[name][n].append(launch_us(torch, libs[name],
-                                                   ENTRY[n], params[n]))
-        del keep
+                    check_build(torch, fa, lib, params, outs, q, k, v, do,
+                                lse, o, delta, args_, name == "tree")
+                for n, entry in ENTRY.items():
+                    times[name][n].append(chip_smoke.time_ms(
+                        torch, launcher(torch, lib, entry, params[n]), iters))
+                    host[name][n].append(launch_us(torch, lib, entry,
+                                                   params[n]))
+        del keep, outs
         bnd = chip_smoke.bounds(b, s, h, d)
         result["shapes"][label] = {
             "shape": [b, s, h, d],
-            "bound_ms": {n: bnd[n][0] for n in calls},
+            "bound_ms": {n: bnd[n][0] for n in ENTRY},
             "ms": {name: {n: sum(t) / len(t) for n, t in per.items()}
                    for name, per in times.items()},
             "runs_ms": times,

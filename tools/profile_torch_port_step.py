@@ -8,8 +8,8 @@ Runs the flagship configuration of chip_smoke.py (vocab 8192, d_model 512,
 init() / DistributedOptimizer(AdamW) / make_train_step, warms up, then
 traces ``--steps`` steps with torch.profiler.  Prints the wall time per
 step, the device's busy share (union of kernel intervals over the wall
-time), and the kernel time per step by group: the port's flash kernels,
-matrix products, NCCL, the optimizer, and the rest.  ``--flash 0`` runs the
+time), and the kernel time and launches per step by group: the port's
+flash kernels, matrix products, NCCL, the optimizer, and the rest.  ``--flash 0`` runs the
 plain attention path instead (HVD_TPU_FLASH=0).  Writes the numbers to
 chiprun_out/profile_step.json and the trace to
 chiprun_out/profile_step_trace.json.
@@ -86,11 +86,12 @@ def main() -> int:
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
-    by_group, by_name, spans = {}, {}, []
+    by_group, by_name, spans, n_group = {}, {}, [], {}
     for e in kernels:
         dur = e.time_range.end - e.time_range.start       # microseconds
         g = group_of(e.name)
         by_group[g] = by_group.get(g, 0.0) + dur
+        n_group[g] = n_group.get(g, 0) + 1
         by_name[e.name] = by_name.get(e.name, 0.0) + dur
         spans.append((e.time_range.start, e.time_range.end))
     spans.sort()
@@ -112,6 +113,8 @@ def main() -> int:
         "busy_share_of_wall": busy / (wall * args.steps * 1e6),
         "busy_share_of_kernel_window": busy / window,
         "launches_per_step": len(kernels) / args.steps,
+        "group_launches_per_step": {g: n / args.steps
+                                    for g, n in sorted(n_group.items())},
         "group_ms_per_step": {g: per_step(t) for g, t in
                               sorted(by_group.items(), key=lambda x: -x[1])},
         "top_kernels_ms_per_step": {
