@@ -28,7 +28,25 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              parameter's gradient through the kernels must match the plain
              attention path's (HVD_TPU_FLASH=0) on the same weights and
              batch.  Losses must be finite and fall, and every kernel must
-             launch once per layer per step.
+             launch once per layer per step;
+5. compressed — the same training, world 1 on NCCL, with
+             DistributedOptimizer(AdamW, compression=wire) for each wire
+             (fp16, bf16, int8, int4), a fresh model from seed 0 and 10
+             steps each.  Step 0's synchronised gradients must equal, bit
+             for bit, the CPU's two-pass schedule (quantize or cast twice)
+             applied to its local gradients; each pass must move the
+             compressed bytes (sum of wire_bytes over the parameters,
+             recorded at dist.all_to_all_single and
+             dist.all_gather_into_tensor) and no fp32 payload; int8/int4
+             leave an error-feedback residual within half a block scale,
+             equal bit for bit to the CPU's g - qdq(g);
+             losses finite, falling, step 0 equal to phase 4's; every
+             kernel once per layer per step.  Also times quantize +
+             dequantize of w1's gradient (8,388,608 fp32) against its byte
+             bound;
+6. collectives — allgather, alltoall with splits, reducescatter (plain,
+             int8, bf16), barrier, join, the async handles and the object
+             collectives on CUDA tensors at world 1 over NCCL.
 
 The last lines are the card line, a JSON line with one entry per kernel,
 and ``{"ok": true, "device": {...}}``.  Detailed numbers also go to
@@ -70,6 +88,13 @@ TOL_REL = 1e-2
 # gradients normwise, as above.
 TOL_LOSS = 1e-3
 TOL_MODEL_GRAD_REL = 2e-2
+
+# Phase 5: the compressed wires, and the flagship's 9 parameter tensors'
+# elements (the wire-byte table is per this count at block 256).
+WIRES = ("fp16", "bf16", "int8", "int4")
+CAST_DTYPES = ("float16", "bfloat16")
+QUANT_BLOCK = 256
+W1_GRAD_ELEMS = 8 * 512 * 2048
 
 KERNELS = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:97",
@@ -257,6 +282,198 @@ def time_shape(torch, F, fa, b, s, h, d, iters, plain_iters):
     return res, fb
 
 
+def record_wire(dist):
+    """Wrap the two calls the compressed schedules move bytes with; each
+    call appends (call, dtype, bytes this rank sends).  Returns the log and
+    a function that restores the calls."""
+    log, saved = [], (dist.all_to_all_single, dist.all_gather_into_tensor)
+
+    def a2a(out, inp, *args, **kwargs):
+        log.append(("all_to_all_single", inp.dtype,
+                    inp.numel() * inp.element_size()))
+        return saved[0](out, inp, *args, **kwargs)
+
+    def gather(out, inp, *args, **kwargs):
+        log.append(("all_gather_into_tensor", inp.dtype,
+                    inp.numel() * inp.element_size()))
+        return saved[1](out, inp, *args, **kwargs)
+
+    def restore():
+        dist.all_to_all_single, dist.all_gather_into_tensor = saved
+
+    dist.all_to_all_single, dist.all_gather_into_tensor = a2a, gather
+    return log, restore
+
+
+def two_pass_world1(torch, Q, g, wire):
+    """What the two-pass schedule gives at world 1, computed on the CPU:
+    quantize → dequantize twice (or cast twice), in g's dtype."""
+    if wire in ("fp16", "bf16"):
+        dt = getattr(torch, CAST_DTYPES[WIRES.index(wire)])
+        return g.float().to(dt).float().to(dt).float().to(g.dtype)
+    spec = Q.QuantSpec(int(wire[3]), QUANT_BLOCK)
+    return Q.qdq(Q.qdq(g.float(), spec), spec).to(g.dtype)
+
+
+def phase_compressed(torch, hvd, tfm, fa, Q, cfg, par, batch, n_steps,
+                     tokens, labels, loss0, card):
+    """Phase 5: the flagship's training on each compressed wire."""
+    import torch.distributed as dist
+    out = {}
+    for wire in WIRES:
+        model = tfm.Transformer(cfg, par, seed=0)
+        params = list(model.parameters())
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            params, lr=3e-4, weight_decay=1e-4), compression=wire)
+        step = tfm.make_train_step(cfg, par, model, opt)
+        seen, synchronize = {}, opt.synchronize
+
+        def sync_and_record(opt=opt, seen=seen, synchronize=synchronize):
+            seen["local"] = [p.grad.detach().cpu().clone() for p in params]
+            log, restore = record_wire(dist)
+            try:
+                synchronize()
+            finally:
+                restore()
+            seen["log"] = log
+            seen["synced"] = [p.grad.detach().cpu().clone() for p in params]
+            seen["residual"] = None if opt.residual is None else \
+                [r.cpu().clone() for r in opt.residual]
+
+        opt.synchronize = sync_and_record      # step 0 only
+        fa.reset_launches()
+        losses, times = [], []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            loss = step(tokens, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            if i == 0:
+                del opt.synchronize
+        launches = dict(fa.launches)
+
+        # (a) bit-equal to the CPU's two-pass schedule at world 1.
+        for p_local, p_synced in zip(seen["local"], seen["synced"]):
+            expected = two_pass_world1(torch, Q, p_local, wire)
+            assert torch.equal(p_synced, expected), (
+                wire, (p_synced - expected).abs().max().item())
+        # (b) the bytes each pass moves: at world 1 each tensor is padded
+        # to the block, so the serialized size (page_wire_bytes), which is
+        # wire_bytes where the block divides the tensor, as at the flagship.
+        if wire in ("int8", "int4"):
+            spec = Q.QuantSpec(int(wire[3]), QUANT_BLOCK)
+            expected_pass = sum(Q.page_wire_bytes(p.numel(), spec)
+                                for p in params)
+            scale_bytes = sum(4 * math.ceil(p.numel() / QUANT_BLOCK)
+                              for p in params)
+        else:
+            expected_pass = sum(2 * p.numel() for p in params)
+            scale_bytes = 0
+        passes = {}
+        for call, dtype, nbytes in seen["log"]:
+            passes.setdefault(call, [0, 0])
+            passes[call][0] += nbytes
+            passes[call][1] += nbytes if dtype == torch.float32 else 0
+        for call in ("all_to_all_single", "all_gather_into_tensor"):
+            assert passes[call] == [expected_pass, scale_bytes], (
+                wire, call, passes[call], expected_pass, scale_bytes)
+        # (c) the error-feedback residual after step 0.
+        if wire in ("int8", "int4"):
+            assert any(r.abs().max() > 0 for r in seen["residual"]), wire
+            # |r| <= scale/2, plus the roundings of x/scale and q*scale
+            # (each at most 127 * 2^-24 of the scale): 2^-15 of it.  And r
+            # is what the first pass' quantizer dropped: bit for bit the
+            # CPU's g - qdq(g) (r starts at 0).
+            for g, r in zip(seen["local"], seen["residual"]):
+                _, scales = Q.quantize(g, spec)
+                half = scales.repeat_interleave(QUANT_BLOCK)[:g.numel()] / 2
+                assert (r.reshape(-1).abs() <= half * (1 + 2 ** -14)).all(), \
+                    wire
+                assert torch.equal(r, g.float() - Q.qdq(g.float(), spec)), \
+                    wire
+        else:
+            assert seen["residual"] is None and opt.residual is None, wire
+        # (d) losses; (e) launches.
+        assert all(math.isfinite(x) for x in losses), (wire, losses)
+        assert losses[-1] < losses[0], (wire, losses)
+        assert abs(losses[0] - loss0) <= TOL_LOSS, (wire, losses[0], loss0)
+        for n in KERNELS:
+            assert launches[n] == cfg.n_layers * n_steps, (wire, launches)
+        step_s = statistics.median(times[1:])
+        out[wire] = {"losses": losses, "step_times_s": times,
+                     "step_s": step_s,
+                     "tokens_per_s": batch * cfg.seq_len / step_s,
+                     "launches": launches, "bytes_per_pass": expected_pass,
+                     "scale_bytes_per_pass": scale_bytes}
+        log(f"[compressed] {wire}: step {step_s * 1e3:.3f} ms (median of "
+            f"steps 1-{n_steps - 1}), {out[wire]['tokens_per_s']:.0f} "
+            f"tokens/s; {expected_pass:,} bytes a pass ({scale_bytes:,} of "
+            f"them fp32 scales, no fp32 payload); losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+            f"launches {launches}; step-0 gradients equal the CPU's two-pass "
+            f"schedule bit for bit")
+        del model, params, opt, step, seen
+    fp32_pass = 4 * sum(p.numel() for p in tfm.Transformer(
+        cfg, par, seed=0).parameters())
+    log(f"[compressed] an fp32 pass would move {fp32_pass:,} bytes")
+    out["fp32_bytes_per_pass"] = fp32_pass
+
+    # The quantizer on w1's gradient: quantize + dequantize, device time,
+    # against the bytes it must move at 3.35 TB/s.
+    x = torch.randn(W1_GRAD_ELEMS, device="cuda")
+    out["quantizer"] = {}
+    for wire in ("int8", "int4"):
+        spec = Q.QuantSpec(int(wire[3]), QUANT_BLOCK)
+        q, sc = Q.quantize(x, spec)
+        assert torch.equal(Q.dequantize(q, sc, spec, x.numel()).cpu(),
+                           Q.qdq(x.cpu(), spec))
+        ms = time_ms(torch, lambda: Q.dequantize(
+            *Q.quantize(x, spec), spec, x.numel()), iters=20)
+        payload = q.numel() * q.element_size()
+        nbytes = 2 * (4 * x.numel() + payload + 4 * sc.numel())
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        out["quantizer"][wire] = {"elems": x.numel(), "ms": ms,
+                                  "bound_ms": bound_ms, "bytes": nbytes}
+        log(f"[compressed] quantize + dequantize {wire}, {x.numel():,} fp32: "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes:,} bytes), on "
+            f"{card}")
+    return out
+
+
+def phase_collectives(torch, hvd, Q):
+    """Phase 6: the rest of the collective API on CUDA tensors, world 1."""
+    g = torch.Generator().manual_seed(6)
+    x_cpu = torch.randn(6, 300, generator=g)
+    x = x_cpu.cuda()
+    checks = {}
+    checks["allgather"] = torch.equal(hvd.allgather(x), x)
+    recv, splits = hvd.alltoall(x, splits=[4])
+    checks["alltoall"] = torch.equal(recv, x[:4]) and splits.tolist() == [4]
+    checks["reducescatter"] = torch.equal(hvd.reducescatter(x), x)
+    checks["reducescatter_int8"] = torch.equal(
+        hvd.reducescatter(x, compression="int8").cpu(),
+        Q.qdq(x_cpu, Q.QuantSpec(8, QUANT_BLOCK)))
+    checks["reducescatter_bf16"] = torch.equal(
+        hvd.reducescatter(x, op=hvd.Sum, compression="bf16").cpu(),
+        x_cpu.to(torch.bfloat16).float())
+    hvd.barrier()
+    checks["join"] = hvd.join() == 0
+    handles = [hvd.allreduce_async(x, op=hvd.Sum), hvd.allgather_async(x),
+               hvd.broadcast_async(x), hvd.alltoall_async(x)]
+    checks["poll"] = all(isinstance(hvd.poll(h), bool) for h in handles)
+    results = [hvd.synchronize(h) for h in handles]
+    checks["async"] = (all(torch.equal(r, x) for r in results[:3])
+                       and torch.equal(results[3][0], x))
+    obj = {"card": torch.cuda.get_device_name(0), "ints": [1, 2, 3]}
+    checks["broadcast_object"] = hvd.broadcast_object(obj) == obj
+    checks["allgather_object"] = hvd.allgather_object(obj) == [obj]
+    torch.cuda.synchronize()
+    log("[collectives] " + ", ".join(f"{k} {'ok' if v else 'FAILED'}"
+                                     for k, v in checks.items()))
+    assert all(checks.values()), checks
+    return checks
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -269,6 +486,7 @@ def main() -> int:
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.ops import quantization as Q
 
     report = {}
     # 1. card
@@ -425,6 +643,12 @@ def main() -> int:
                        "step_times_s": times, "step_s": step_s,
                        "tokens_per_s": tok_s, "mfu": mfu,
                        "launches": launches}
+
+    # 5. the compressed wires; 6. the rest of the collective API
+    report["compressed"] = phase_compressed(
+        torch, hvd, tfm, fa, Q, cfg, par, batch, n_steps, tokens, labels,
+        losses[0], card)
+    report["collectives"] = phase_collectives(torch, hvd, Q)
     hvd.shutdown()
 
     kernels = []

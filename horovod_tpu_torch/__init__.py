@@ -1,10 +1,12 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
 
-One synchronous data-parallel training step of the flagship transformer
-on NVIDIA Hopper GPUs: ``init()`` over ``torch.distributed`` (NCCL, or gloo
-with ``device="cpu"``), gradient averaging through
-``DistributedOptimizer``, and the transformer's attention on hand-written
-CUDA flash-attention kernels.  Imports neither JAX nor ``horovod_tpu``.
+Synchronous data-parallel training of the flagship transformer on NVIDIA
+Hopper GPUs: ``init()`` over ``torch.distributed`` (NCCL, or gloo with
+``device="cpu"``), Horovod's collective API (sync and async, with the
+fp16/bf16/int8/int4 compressed wire), gradient reduction through
+``DistributedOptimizer`` (error feedback on a quantized wire), and the
+transformer's attention on hand-written CUDA flash-attention kernels.
+Imports neither JAX nor ``horovod_tpu``.
 """
 
 from .core.basics import (cross_rank, cross_size, device, init,
@@ -13,8 +15,14 @@ from .core.basics import (cross_rank, cross_size, device, init,
 from .core.exceptions import (HorovodInternalError, HorovodTpuError,
                               HostsUpdatedInterrupt, NotInitializedError)
 from .ops.collective import (Adasum, Average, Max, Min, Product, ReduceOp,
-                             Sum, allreduce, allreduce_, broadcast,
-                             broadcast_, grouped_allreduce)
-from .optimizers import (DistributedOptimizer, allreduce_gradients,
-                         broadcast_optimizer_state, broadcast_parameters)
+                             Sum, allgather, allgather_async, allreduce,
+                             allreduce_, allreduce_async, alltoall,
+                             alltoall_async, barrier, broadcast, broadcast_,
+                             broadcast_async, grouped_allreduce, join, poll,
+                             reducescatter, synchronize)
+from .ops.compression import Compression
+from .optimizers import (DistributedOptimizer, allgather_object,
+                         allreduce_gradients, broadcast_object,
+                         broadcast_optimizer_state, broadcast_parameters,
+                         grad, value_and_grad)
 from .version import __version__

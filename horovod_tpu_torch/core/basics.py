@@ -4,7 +4,12 @@
 contract (``HOROVOD_RANK``/``SIZE``/``LOCAL_RANK``/..., reference
 gloo_run.py:64-75) and brings up ``torch.distributed``: NCCL on
 ``cuda:local_rank`` by default, gloo when the caller asks for
-``device="cpu"``.  There is no mesh: the data-parallel group is the world.
+``device="cpu"``.  There is no mesh: the data-parallel group is the world,
+and when the launcher places the same number of processes (more than one)
+on each of more than one host, ``init()`` also makes the groups of the
+two-level topology (the reference's ``("local", "cross")`` mesh axes).  A
+launch whose hosts hold different numbers of processes trains over the
+world as before; only the ``("local", "cross")`` axis is refused there.
 """
 
 from __future__ import annotations
@@ -45,6 +50,24 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _is_grid(size: int, topo, dev: torch.device) -> bool:
+    """Whether every rank's (local_rank, local_size, cross_rank,
+    cross_size) puts it at cross_rank × L + local_rank of one C × L grid.
+    Decided on the table gathered from every rank, so all agree: where the
+    hosts hold different numbers of ranks, the ranks' local sizes differ,
+    and one rank's own numbers can fit a grid the others' do not."""
+    table = [list(topo)]
+    if size > 1:
+        mine = torch.tensor(topo, dtype=torch.int64, device=dev)
+        gathered = torch.empty(size * len(topo), dtype=torch.int64,
+                               device=dev)
+        dist.all_gather_into_tensor(gathered, mine)
+        table = gathered.view(size, len(topo)).tolist()
+    L, C = table[0][1], table[0][3]
+    return L * C == size and all(row == [r % L, L, r // L, C]
+                                 for r, row in enumerate(table))
+
+
 def init(device: DeviceLike = None, init_method: Optional[str] = None) -> None:
     """Initialize the runtime and the ``torch.distributed`` world.
 
@@ -75,6 +98,9 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None) -> None:
     else:
         rank, size = 0, 1
     local_rank = _cfg.get_int(_cfg.LOCAL_RANK) or 0
+    local_size = _cfg.get_int(_cfg.LOCAL_SIZE) or 1
+    cross_rank = _cfg.get_int(_cfg.CROSS_RANK) or 0
+    cross_size = _cfg.get_int(_cfg.CROSS_SIZE) or 1
 
     if cpu:
         dev, backend = torch.device("cpu"), "gloo"
@@ -94,21 +120,44 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None) -> None:
                                     rank=rank, world_size=size)
         owns = True
 
+    two_level = _is_grid(size, (local_rank, local_size, cross_rank,
+                                cross_size), dev)
+    if two_level and local_size > 1 and cross_size > 1:
+        # new_group is collective over the world: every rank makes every
+        # group, in the same order.
+        L, C = local_size, cross_size
+        local_groups = [dist.new_group([c * L + i for i in range(L)])
+                        for c in range(C)]
+        cross_groups = [dist.new_group([c * L + i for c in range(C)])
+                        for i in range(L)]
+        global_state.local_group = local_groups[cross_rank]
+        global_state.cross_group = cross_groups[local_rank]
+
     global_state.rank = rank
     global_state.size = size
     global_state.local_rank = local_rank
-    global_state.local_size = _cfg.get_int(_cfg.LOCAL_SIZE) or 1
-    global_state.cross_rank = _cfg.get_int(_cfg.CROSS_RANK) or 0
-    global_state.cross_size = _cfg.get_int(_cfg.CROSS_SIZE) or 1
+    global_state.local_size = local_size
+    global_state.cross_rank = cross_rank
+    global_state.cross_size = cross_size
+    global_state.two_level = two_level
+    global_state.compression = _cfg.compression()
+    global_state.quant_block = _cfg.quant_block()
     global_state.device = dev
     global_state.owns_process_group = owns
     global_state.initialized = True
 
 
 def shutdown() -> None:
-    """Tear down the runtime; destroys the process group ``init()`` made."""
-    if global_state.owns_process_group and dist.is_initialized():
-        dist.destroy_process_group()
+    """Tear down the runtime; destroys the process groups ``init()`` made
+    (all of them with the world, when ``init()`` made the world)."""
+    if dist.is_initialized():
+        if global_state.owns_process_group:
+            dist.destroy_process_group()
+        else:
+            for group in (global_state.local_group,
+                          global_state.cross_group):
+                if group is not None:
+                    dist.destroy_process_group(group)
     global_state.reset()
 
 

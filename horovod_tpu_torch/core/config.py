@@ -2,9 +2,9 @@
 
 The reference accepts both the original ``HOROVOD_*`` names and
 ``HVD_TPU_*`` overrides, the ``HVD_TPU_`` name winning when both are set
-(horovod_tpu/core/config.py).  The port keeps those names; this slice reads
-only the launcher topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...).  The
-attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
+(horovod_tpu/core/config.py).  The port keeps those names for the launcher
+topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...) and the wire knobs
+(``COMPRESSION``, ``QUANT_BLOCK``).  The attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
 it under that one name (parallel/ring_attention.py), and so does the port.
 """
 
@@ -22,6 +22,13 @@ LOCAL_RANK = "LOCAL_RANK"
 LOCAL_SIZE = "LOCAL_SIZE"
 CROSS_RANK = "CROSS_RANK"
 CROSS_SIZE = "CROSS_SIZE"
+
+# Wire format of direct collective calls, and elements per quantization
+# scale (reference config.py:503-514).
+COMPRESSION = "COMPRESSION"
+QUANT_BLOCK = "QUANT_BLOCK"
+COMPRESSION_NAMES = ("none", "fp16", "bf16", "int8", "int4")
+DEFAULT_QUANT_BLOCK = 256
 
 
 def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -42,3 +49,18 @@ def get_int(name: str) -> Optional[int]:
         return int(val)
     except ValueError:
         return None
+
+
+def compression() -> str:
+    """The session wire format: an unknown name becomes ``none`` (a typo'd
+    knob must not kill a job)."""
+    name = (get_env(COMPRESSION, "none") or "none").strip().lower()
+    return name if name in COMPRESSION_NAMES else "none"
+
+
+def quant_block() -> int:
+    """Elements per quantization scale: at least 2 and even (int4 packs
+    pairs)."""
+    block = get_int(QUANT_BLOCK)
+    block = max(2, DEFAULT_QUANT_BLOCK if block is None else block)
+    return block - block % 2

@@ -199,8 +199,10 @@ def forward_loss(cfg: TransformerConfig, par: ParallelConfig,
     _check_ported(cfg, par)
     local = serial_forward_loss(cfg, model, tokens, labels)
     # local - local.detach() is exactly 0, so every rank holds the same
-    # value, bit for bit.
-    return allreduce(local.detach(), op=Average) + (local - local.detach())
+    # value, bit for bit.  The wire is exact whatever the session's
+    # compression knob says, as the reference's compiled pmean is.
+    return allreduce(local.detach(), op=Average, compression="none") + \
+        (local - local.detach())
 
 
 def make_train_step(cfg: TransformerConfig, par: ParallelConfig,

@@ -14,7 +14,11 @@ flagship shape, so every output is also held normwise:
 bf16 before their tensor-core products; these bounds include that.  dQ's
 δ = rowsum(dO∘O) is fp32 from bf16 inputs on both sides, whose products
 are exact in fp32, so it differs only by the summation order (atol 1e-3,
-rtol 1e-4)."""
+rtol 1e-4).
+
+The wire codec (torch ops, no kernel of its own) gives the CPU's bytes on
+the card, and a world-1 NCCL allreduce on each compressed wire gives the
+CPU's two-pass values bit for bit."""
 
 import os
 import subprocess
@@ -25,6 +29,7 @@ import pytest
 import torch
 
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import quantization as Q
 
 CASES = [  # (b, sq, sk, h, d, causal, q_offset, kv_offset)
     (2, 200, 200, 3, 64, True, 0, 0),
@@ -196,3 +201,55 @@ def test_cuda_kernels_refuse_unsupported_inputs(cuda_device):
     f32 = torch.zeros((1, 64, 2, 64), device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
         fa.flash_fwd(f32, f32, f32, True, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,block", [(8, 256), (4, 256), (8, 32), (4, 64)])
+def test_cuda_codec_matches_cpu_bit_for_bit(cuda_device, bits, block):
+    spec = Q.QuantSpec(bits, block)
+    g = torch.Generator().manual_seed(bits * block)
+    for n in (1, 1000, 3 * block + 7, 1 << 20):
+        x = torch.randn(n, generator=g) * 10.0 ** torch.randint(
+            -3, 3, (n,), generator=g)
+        x[:block] = 0.0                  # an all-zero block: scale 1.0
+        q, s = Q.quantize(x, spec)
+        q_d, s_d = Q.quantize(x.to(cuda_device), spec)
+        assert torch.equal(q_d.cpu(), q) and torch.equal(s_d.cpu(), s)
+        assert torch.equal(Q.dequantize(q_d, s_d, spec, n).cpu(),
+                           Q.dequantize(q, s, spec, n))
+        if bits == 4:
+            nibbles = Q.unpack_int4(q)
+            assert torch.equal(Q.unpack_int4(q_d).cpu(), nibbles)
+            assert torch.equal(Q.pack_int4(nibbles.to(cuda_device)).cpu(), q)
+
+
+def _two_pass_world1(x, wire):
+    """The two-pass schedule at world 1 on the CPU: quantize and
+    dequantize twice (or cast twice), back in x's dtype."""
+    if wire in ("bf16", "fp16"):
+        dt = torch.bfloat16 if wire == "bf16" else torch.float16
+        return x.float().to(dt).float().to(dt).float().to(x.dtype)
+    spec = Q.QuantSpec(int(wire[3]), 256)
+    return Q.qdq(Q.qdq(x.float(), spec), spec).to(x.dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_world1_nccl_compressed_allreduce(cuda_device):
+    import horovod_tpu_torch as hvd
+    hvd.init()
+    try:
+        g = torch.Generator().manual_seed(9)
+        x = torch.randn(3, 1000, generator=g)
+        for wire in ("fp16", "bf16", "int8", "int4"):
+            for op in (hvd.Average, hvd.Sum):
+                got = hvd.allreduce(x.to(cuda_device), op=op,
+                                    compression=wire)
+                assert got.device.type == "cuda" and got.dtype == x.dtype
+                assert torch.equal(got.cpu(), _two_pass_world1(x, wire)), wire
+        h = hvd.allreduce_async(x.to(cuda_device), compression="int8")
+        assert torch.equal(hvd.synchronize(h).cpu(),
+                           _two_pass_world1(x, "int8"))
+        rs = hvd.reducescatter(x.to(cuda_device), compression="int4")
+        assert torch.equal(rs.cpu(), Q.qdq(x, Q.QuantSpec(4, 256)))
+    finally:
+        hvd.shutdown()

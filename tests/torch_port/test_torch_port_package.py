@@ -32,8 +32,9 @@ def test_imports_without_jax():
         "import horovod_tpu_torch\n"
         "from horovod_tpu_torch import convert, optimizers\n"
         "from horovod_tpu_torch.models import transformer\n"
-        "from horovod_tpu_torch.ops import _build, collective, "
-        "flash_attention\n"
+        "from horovod_tpu_torch.core import config, handles\n"
+        "from horovod_tpu_torch.ops import _build, collective, compression, "
+        "flash_attention, quantization\n"
         "from horovod_tpu_torch.parallel import ring_attention\n"
         "bad = [m for m in sys.modules if m == 'horovod_tpu' or "
         "m.startswith('horovod_tpu.')]\n"

@@ -123,8 +123,8 @@ def test_unported_options_raise(world1):
     p = torch.nn.Parameter(torch.zeros(2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), op=hvd.Adasum)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hvd.allreduce(torch.zeros(2), compression="int8")
+    with pytest.raises(ValueError, match="floating tensor"):
+        hvd.allreduce(torch.zeros(2, dtype=torch.int32), compression="int8")
     with pytest.raises(ValueError, match="backward_passes_per_step"):
         hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
                                  backward_passes_per_step=0)

@@ -2,6 +2,7 @@
 """Where the time of one horovod_tpu_torch training step goes, on one GPU.
 
     python3 tools/profile_torch_port_step.py [--steps 3] [--flash 1|0]
+        [--compression none|fp16|bf16|int8|int4]
 
 Runs the flagship configuration of chip_smoke.py (vocab 8192, d_model 512,
 8 heads, d_ff 2048, 8 layers, seq 512, bf16, batch 8) through
@@ -10,9 +11,10 @@ traces ``--steps`` steps with torch.profiler.  Prints the wall time per
 step, the device's busy share (union of kernel intervals over the wall
 time), and the kernel time and launches per step by group: the port's
 flash kernels, matrix products, NCCL, the optimizer, and the rest.  ``--flash 0`` runs the
-plain attention path instead (HVD_TPU_FLASH=0).  Writes the numbers to
-chiprun_out/profile_step.json and the trace to
-chiprun_out/profile_step_trace.json.
+plain attention path instead (HVD_TPU_FLASH=0); ``--compression`` puts the
+gradients on that wire (DistributedOptimizer(compression=)), whose
+quantize/cast work lands in "other".  Writes the numbers to
+chiprun_out/profile_step[_plain][_<wire>].json and the trace beside it.
 """
 
 import argparse
@@ -44,6 +46,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--flash", default="1", choices=("0", "1"))
+    ap.add_argument("--compression", default="none",
+                    choices=("none", "fp16", "bf16", "int8", "int4"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -64,7 +68,8 @@ def main() -> int:
     par = tfm.ParallelConfig()
     model = tfm.Transformer(cfg, par, seed=0)
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
-        model.parameters(), lr=3e-4, weight_decay=1e-4))
+        model.parameters(), lr=3e-4, weight_decay=1e-4),
+        compression=args.compression)
     step = tfm.make_train_step(cfg, par, model, opt)
     tokens, labels = tfm.synthetic_batch(cfg, 8, seed=1)
     for _ in range(3):
@@ -106,7 +111,8 @@ def main() -> int:
     window = spans[-1][1] - spans[0][0]
     per_step = lambda us: us / args.steps / 1e3           # -> ms per step
     result = {
-        "card": card, "flash": args.flash, "steps": args.steps,
+        "card": card, "flash": args.flash, "compression": args.compression,
+        "steps": args.steps,
         "wall_ms_per_step": wall * 1e3,
         "kernel_ms_per_step": per_step(sum(by_name.values())),
         "busy_ms_per_step": per_step(busy),
@@ -124,7 +130,8 @@ def main() -> int:
     hvd.shutdown()
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    tag = "" if args.flash == "1" else "_plain"
+    tag = ("" if args.flash == "1" else "_plain") + (
+        "" if args.compression == "none" else "_" + args.compression)
     with open(os.path.join(out_dir, f"profile_step{tag}.json"), "w") as f:
         json.dump(result, f, indent=1)
     prof.export_chrome_trace(os.path.join(out_dir,
