@@ -46,7 +46,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              bound;
 6. collectives — allgather, alltoall with splits, reducescatter (plain,
              int8, bf16), barrier, join, the async handles and the object
-             collectives on CUDA tensors at world 1 over NCCL.
+             collectives on CUDA tensors at world 1 over NCCL;
+7. overlap, ZeRO, Adasum — the flagship's training, world 1 on NCCL,
+             AdamW(3e-4, wd 1e-4), 10 steps a configuration:
+             DistributedOptimizer(overlap=True) on the none and int8 wires
+             beside the per-parameter schedule (the bucket plan at 8 MiB,
+             6 bucket collectives a step counted at the torch.distributed
+             call against 9, step 0's synchronised gradients and int8
+             residuals bit-equal to the per-parameter schedule's on the
+             same local gradients, losses against the per-parameter run);
+             ZeroShardedOptimizer at stages 1, 2 and 3 and stage 1 on int8
+             (parameters after step 0 within rtol 1e-5, atol 1e-6 of the
+             replicated step on the same wire; peak memory allocated of
+             each run); DistributedOptimizer(op=Adasum) (the delta
+             model p0 + (p' - p0) within 1.5 eps max(|p0|, |p'|) of the
+             inner step's p'); every configuration's
+             losses finite and falling and every kernel launched once per
+             layer per step.  Then adasum_tree of a (4, 8,388,608) fp32
+             stack and one sync_batch_norm forward and backward on the card
+             against the CPU (1e-6 and 1e-5 normwise).  Per-step host time
+             and collective calls of each configuration are reported.
 
 The last lines are the card line, a JSON line with one entry per kernel,
 and ``{"ok": true, "device": {...}}``.  Detailed numbers also go to
@@ -95,6 +114,18 @@ WIRES = ("fp16", "bf16", "int8", "int4")
 CAST_DTYPES = ("float16", "bfloat16")
 QUANT_BLOCK = 256
 W1_GRAD_ELEMS = 8 * 512 * 2048
+
+# Phase 7: the flagship's buckets at the default 8 MiB, in backward order
+# of its parameters (``nn.ParameterDict`` orders the layer tensors by
+# name), by name; ZeRO's bar (the reference's tests/test_zero_stages.py);
+# the normwise bars of the Adasum combine and sync batch norm, card vs CPU.
+FLAGSHIP_BUCKETS = [["layers.wqkv"], ["layers.wo"], ["layers.w2"],
+                    ["layers.w1"],
+                    ["layers.ln2", "layers.ln1", "final_norm", "pos"],
+                    ["embed"]]
+ZERO_TOL = dict(rtol=1e-5, atol=1e-6)
+TOL_ADASUM_REL = 1e-6
+TOL_SBN_REL = 1e-5
 
 KERNELS = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:97",
@@ -474,6 +505,314 @@ def phase_collectives(torch, hvd, Q):
     return checks
 
 
+def count_calls(dist, names):
+    """Wrap the ``torch.distributed`` calls ``names``; each call adds one
+    to its count (an all_reduce of one element, the dp-mean loss, is not
+    counted).  Returns the counts and a function that restores the
+    calls."""
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(dist, n) for n in names}
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            tensor = args[0] if args else kwargs.get("tensor")
+            if not (name == "all_reduce" and tensor.numel() == 1):
+                counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+
+    def restore():
+        for n, f in saved.items():
+            setattr(dist, n, f)
+    return counts, restore
+
+
+def train_run(torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+              make_opt, on_step0=None):
+    """``n_steps`` training steps of a fresh seed-0 flagship through
+    ``make_train_step`` with the optimizer ``make_opt(model)`` gives:
+    losses, host seconds a step, collective calls a step (steps 1..), the
+    kernels' launches, the peak bytes allocated on the card above what was
+    allocated when the run began, and what ``on_step0(model, opt)``
+    returns after step 0."""
+    import torch.distributed as dist
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = tfm.Transformer(cfg, par, seed=0)
+    opt = make_opt(model)
+    step = tfm.make_train_step(cfg, par, model, opt)
+    names = ("all_reduce", "all_to_all_single", "all_gather_into_tensor",
+             "reduce_scatter_tensor")
+    fa.reset_launches()
+    losses, times, seen, calls = [], [], None, None
+    for i in range(n_steps):
+        if i == 1:
+            calls, restore = count_calls(dist, names)
+        t0 = time.perf_counter()
+        loss = step(tokens, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if i == 0 and on_step0 is not None:
+            seen = on_step0(model, opt)
+    restore()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(fa.launches)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    for n in KERNELS:
+        assert launches[n] == cfg.n_layers * n_steps, launches
+    # One more step under torch.profiler: the device kernels it launches.
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(tokens, labels)
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    return {"losses": losses, "step_times_s": times, "peak_bytes": peak,
+            "step_s": statistics.median(times[1:]),
+            "calls_per_step": {n: c / (n_steps - 1)
+                               for n, c in calls.items()},
+            "launches": launches, "device_kernels_per_step": kernels}, seen
+
+
+def first_difference(a, b):
+    """(step, |a - b|) of the first step whose losses differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i, abs(x - y)
+    return None
+
+
+def phase_overlap_zero(torch, hvd, tfm, fa, cfg, par, tokens, labels,
+                       n_steps, per_leaf_losses, card):
+    """Phase 7: the bucketed schedule, ZeRO stages 1-3 and Adasum on the
+    flagship; returns the report."""
+    from horovod_tpu_torch.ops import adasum as A
+    from horovod_tpu_torch.ops import overlap as O
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)
+
+    out = {}
+    names, shapes = zip(*tfm.Transformer(cfg, par, seed=0)
+                        .named_parameters())
+    plan = O.plan_buckets(shapes)
+    got = [[names[i] for i in b] for b in plan.buckets]
+    assert got == FLAGSHIP_BUCKETS, got
+    log(f"[overlap] buckets at {plan.bucket_bytes:,} bytes: {got}")
+
+    # (a) The bucketed schedule beside the per-parameter one.
+    for wire in ("none", "int8"):
+        comp = None if wire == "none" else wire
+        runs = {}
+        for overlap in (False, True):
+            captured = {}
+
+            def make_opt(model, overlap=overlap, captured=captured):
+                opt = hvd.DistributedOptimizer(
+                    adamw(model.parameters()), compression=comp,
+                    overlap=overlap)
+                if overlap:
+                    launch = opt._launch
+
+                    def recording_launch(b):   # local gradients, step 0
+                        if "local" not in captured:
+                            captured["local"] = {}
+                            captured["bucket_order"] = []
+                        if len(captured["bucket_order"]) < plan.n_buckets:
+                            captured["bucket_order"].append(b)
+                            ps = opt._params()
+                            for i in opt._hooks.plan.buckets[b]:
+                                captured["local"][i] = \
+                                    ps[i].grad.detach().clone()
+                        launch(b)
+                    opt._hooks._launch = recording_launch
+                return opt
+
+            def step0(model, opt):
+                return {"synced": [p.grad.detach().clone()
+                                   for p in model.parameters()],
+                        "residual": None if opt.residual is None else
+                        [r.clone() for r in opt.residual]}
+
+            runs[overlap], seen = train_run(
+                torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+                make_opt, step0)
+            runs[overlap]["seen"], runs[overlap]["captured"] = seen, captured
+        ov = runs[True]
+        local = [ov["captured"]["local"][i] for i in range(len(names))]
+        # The hooks launched in the plan's order, as backward completed
+        # each bucket.
+        assert ov["captured"]["bucket_order"] == list(range(plan.n_buckets))
+        # The per-parameter schedule on the same local gradients.
+        ps = [torch.nn.Parameter(torch.zeros_like(g)) for g in local]
+        ref = hvd.DistributedOptimizer(torch.optim.SGD(ps, lr=0.0),
+                                       compression=comp)
+        for p, g in zip(ps, local):
+            p.grad = g.clone()
+        ref.synchronize()
+        for n, p, g in zip(names, ps, ov["seen"]["synced"]):
+            assert torch.equal(p.grad, g), (wire, n, (p.grad - g).abs().max())
+        if comp is not None:
+            for n, r, r_ov in zip(names, ref.residual,
+                                  ov["seen"]["residual"]):
+                assert torch.equal(r, r_ov), (wire, n)
+        collectives = {
+            o: (runs[o]["calls_per_step"]["all_reduce"] if wire == "none"
+                else runs[o]["calls_per_step"]["all_to_all_single"] / 2)
+            for o in (False, True)}
+        assert collectives == {False: len(names), True: plan.n_buckets}, \
+            (wire, collectives)
+        per_leaf = runs[False]["losses"]
+        diff = first_difference(ov["losses"], per_leaf)
+        assert ov["losses"][0] == per_leaf[0], (wire, ov["losses"][0],
+                                                per_leaf[0])
+        assert all(abs(a - b) <= TOL_LOSS
+                   for a, b in zip(ov["losses"], per_leaf)), wire
+        out[f"overlap_{wire}"] = {
+            "per_leaf": {k: v for k, v in runs[False].items()
+                         if k not in ("seen", "captured")},
+            "overlap": {k: v for k, v in ov.items()
+                        if k not in ("seen", "captured")},
+            "collectives_per_step": collectives,
+            "first_loss_difference": diff,
+            "earlier_phase_losses": per_leaf_losses[wire]}
+        log(f"[overlap] {wire}: step-0 gradients"
+            f"{' and residuals' if comp else ''} bit-equal to the "
+            f"per-parameter schedule on the same local gradients; "
+            f"{collectives[True]:g} bucket collectives a step against "
+            f"{collectives[False]:g}; host step {ov['step_s'] * 1e3:.3f} ms "
+            f"against {runs[False]['step_s'] * 1e3:.3f} ms (medians of "
+            f"steps 1-{n_steps - 1}), {ov['device_kernels_per_step']} "
+            f"device kernels a step against "
+            f"{runs[False]['device_kernels_per_step']}, on {card}; losses "
+            + ("equal the per-parameter run's" if diff is None else
+               f"first differ at step {diff[0]} by {diff[1]:.3g}"))
+
+    # (b) ZeRO: every stage's parameters after step 0 against the
+    # replicated step on the same wire (on int8, the replicated step's
+    # two-pass allreduce at world 1 takes the same qdq of the fed
+    # gradient on the same block grid as ZeRO's reduce-scatter).
+    def params_after(model, opt):
+        if getattr(opt, "stage", 0) == 3:
+            with torch.no_grad():
+                return [t.detach().clone()
+                        for t in opt.gather_params().values()]
+        return [p.detach().clone() for p in model.parameters()]
+
+    replicated = {}
+    for wire in (None, "int8"):
+        res, replicated[wire] = train_run(
+            torch, hvd, tfm, fa, cfg, par, tokens, labels, 2,
+            lambda m, wire=wire: hvd.DistributedOptimizer(
+                adamw(m.parameters()), compression=wire), params_after)
+        out["replicated" + ("" if wire is None else f"_{wire}")] = {
+            "peak_bytes": res["peak_bytes"]}
+    for stage, wire in ((1, None), (2, None), (3, None), (1, "int8")):
+        res, after = train_run(
+            torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+            lambda m, stage=stage, wire=wire: hvd.ZeroShardedOptimizer(
+                m, adamw, stage=stage, compression=wire), params_after)
+        worst = 0.0
+        for n, got, want in zip(names, after, replicated[wire]):
+            torch.testing.assert_close(got, want, **ZERO_TOL,
+                                       msg=lambda m, n=n: f"{n}: {m}")
+            worst = max(worst, (got - want).abs().max().item())
+        suffix = "" if wire is None else f"_{wire}"
+        rep_peak = out["replicated" + suffix]["peak_bytes"]
+        out[f"zero{stage}{suffix}"] = dict(res, max_abs_diff_step0=worst)
+        log(f"[zero] stage {stage}{'' if wire is None else ' ' + wire}: "
+            f"parameters after step 0 max |diff| {worst:.3g} from the "
+            f"replicated step{'' if wire is None else ' on ' + wire} "
+            f"(within rtol 1e-5 atol 1e-6); losses "
+            f"{res['losses'][0]:.6f} -> {res['losses'][-1]:.6f}; host step "
+            f"{res['step_s'] * 1e3:.3f} ms; peak allocated "
+            f"{res['peak_bytes'] / 2**20:.1f} MiB (replicated "
+            f"{rep_peak / 2**20:.1f} MiB); "
+            f"calls a step {res['calls_per_step']}; "
+            f"{res['device_kernels_per_step']} device kernels a step; "
+            f"launches {res['launches']}")
+
+    # (c) Adasum: at world 1 the reduction is the identity, so each step
+    # leaves p0 + (p' - p0) for the inner step's p'.  Its two roundings
+    # are within half an ulp of p' - p0 and of the sum, so within
+    # 1.5 eps max(|p0|, |p'|) of p' (eps = 2^-23): 1 ulp unless the step
+    # crosses a power of two or zero.
+    def adasum_opt(model):
+        opt = hvd.DistributedOptimizer(adamw(model.parameters()),
+                                       op=hvd.Adasum)
+        inner = opt.optimizer.step
+        seen = opt.seen = []
+
+        def recording_step(*args, **kwargs):
+            if not seen:
+                seen.append([p.detach().clone() for p in model.parameters()])
+            loss = inner(*args, **kwargs)
+            if len(seen) == 1:
+                seen.append([p.detach().clone() for p in model.parameters()])
+            return loss
+        opt.optimizer.step = recording_step
+        return opt
+
+    res, (before, inner_after, final) = train_run(
+        torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps, adasum_opt,
+        lambda m, o: o.seen + [[p.detach().clone() for p in m.parameters()]])
+    worst, exact = 0.0, 0
+    for n, p0, a, b in zip(names, before, inner_after, final):
+        bound = torch.finfo(a.dtype).eps * torch.maximum(p0.abs(), a.abs())
+        assert ((a - b).abs() <= 1.5 * bound).all(), n
+        worst = max(worst, ((a - b).abs() / bound.clamp_min(
+            torch.finfo(a.dtype).tiny)).max().item())
+        exact += int(torch.equal(a, b))
+    out["adasum"] = dict(res, worst_over_eps_max=worst,
+                         params_bit_equal=exact)
+    log(f"[adasum] {n_steps} steps, losses {res['losses'][0]:.6f} -> "
+        f"{res['losses'][-1]:.6f}; step 0's p0 + (p' - p0) within "
+        f"{worst:.3g} eps max(|p0|, |p'|) of the inner step's p' "
+        f"({exact} of {len(names)} tensors bit-equal); host step "
+        f"{res['step_s'] * 1e3:.3f} ms, "
+        f"{res['device_kernels_per_step']} device kernels a step")
+
+    # (d) The Adasum combine and sync batch norm, card against CPU.
+    g = torch.Generator().manual_seed(12)
+    stack = torch.randn(4, W1_GRAD_ELEMS, generator=g)
+    stack[1] += 0.5 * stack[0]                 # a correlated pair
+    want = A.adasum_tree(stack)
+    on_card = stack.cuda()
+    got = A.adasum_tree(on_card).cpu()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= TOL_ADASUM_REL, rel
+    ms = time_ms(torch, lambda: A.adasum_tree(on_card), iters=5)
+    out["adasum_tree"] = {"rel": rel, "ms": ms}
+    log(f"[adasum] adasum_tree (4, {W1_GRAD_ELEMS:,}) fp32 on the card vs "
+        f"the CPU: normwise {rel:.3g}; {ms:.4f} ms on the card, on {card}")
+    x = torch.randn(16, 64, 256, generator=g) * 3 + 1
+    scale, bias = torch.randn(256, generator=g), torch.randn(256, generator=g)
+    ct = torch.randn(16, 64, 256, generator=g)
+    rm, rv = torch.zeros(256), torch.ones(256)
+    sbn = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.detach().to(dev).requires_grad_()
+                  for t in (x, scale, bias)]
+        y, m, v = hvd.sync_batch_norm(*leaves, rm.to(dev), rv.to(dev))
+        y.backward(ct.to(dev))
+        sbn[dev] = [t.detach().cpu() for t in (y, m, v)] + \
+            [t.grad.cpu() for t in leaves]
+    worst = max(((a - b).norm() / b.norm()).item()
+                for a, b in zip(sbn["cuda"], sbn["cpu"]))
+    assert worst <= TOL_SBN_REL, worst
+    out["sync_batch_norm_rel"] = worst
+    log(f"[sbn] sync_batch_norm forward + backward, card vs CPU: worst "
+        f"normwise {worst:.3g}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -649,6 +988,11 @@ def main() -> int:
         torch, hvd, tfm, fa, Q, cfg, par, batch, n_steps, tokens, labels,
         losses[0], card)
     report["collectives"] = phase_collectives(torch, hvd, Q)
+    # 7. overlap, ZeRO, Adasum
+    report["overlap_zero"] = phase_overlap_zero(
+        torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+        {"none": losses, "int8": report["compressed"]["int8"]["losses"]},
+        card)
     hvd.shutdown()
 
     kernels = []

@@ -3,9 +3,11 @@
 Synchronous data-parallel training of the flagship transformer on NVIDIA
 Hopper GPUs: ``init()`` over ``torch.distributed`` (NCCL, or gloo with
 ``device="cpu"``), Horovod's collective API (sync and async, with the
-fp16/bf16/int8/int4 compressed wire), gradient reduction through
-``DistributedOptimizer`` (error feedback on a quantized wire), and the
-transformer's attention on hand-written CUDA flash-attention kernels.
+fp16/bf16/int8/int4 compressed wire, Adasum), gradient reduction through
+``DistributedOptimizer`` (error feedback on a quantized wire, bucketed
+backward overlap, Adasum's delta model), ZeRO stages 1-3
+(``ZeroShardedOptimizer``), ``sync_batch_norm``, and the transformer's
+attention on hand-written CUDA flash-attention kernels.
 Imports neither JAX nor ``horovod_tpu``.
 """
 
@@ -20,8 +22,11 @@ from .ops.collective import (Adasum, Average, Max, Min, Product, ReduceOp,
                              alltoall_async, barrier, broadcast, broadcast_,
                              broadcast_async, grouped_allreduce, join, poll,
                              reducescatter, synchronize)
+from .ops import overlap
 from .ops.compression import Compression
-from .optimizers import (DistributedOptimizer, allgather_object,
+from .ops.sync_batch_norm import sync_batch_norm
+from .optimizers import (DistributedOptimizer, ZeroShardedOptimizer,
+                         allgather_object,
                          allreduce_gradients, broadcast_object,
                          broadcast_optimizer_state, broadcast_parameters,
                          grad, value_and_grad)

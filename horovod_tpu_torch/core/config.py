@@ -4,7 +4,10 @@ The reference accepts both the original ``HOROVOD_*`` names and
 ``HVD_TPU_*`` overrides, the ``HVD_TPU_`` name winning when both are set
 (horovod_tpu/core/config.py).  The port keeps those names for the launcher
 topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...) and the wire knobs
-(``COMPRESSION``, ``QUANT_BLOCK``).  The attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
+(``COMPRESSION``, ``QUANT_BLOCK``), the overlap scheduler's
+(``OVERLAP``, ``OVERLAP_BUCKET_BYTES``) and ZeRO's (``ZERO_STAGE``,
+``ZERO_PREFETCH``, ``ZERO_QUANT_GATHER``), with the reference's defaults
+and clamps (config.py:312-320, :515-524).  The attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
 it under that one name (parallel/ring_attention.py), and so does the port.
 """
 
@@ -30,6 +33,20 @@ QUANT_BLOCK = "QUANT_BLOCK"
 COMPRESSION_NAMES = ("none", "fp16", "bf16", "int8", "int4")
 DEFAULT_QUANT_BLOCK = 256
 
+# Backward-overlap bucketed gradient scheduler (ops/overlap.py): the
+# session default for optimizers called without ``overlap=``, and the
+# bucket size when overlap is on.
+OVERLAP = "OVERLAP"
+OVERLAP_BUCKET_BYTES = "OVERLAP_BUCKET_BYTES"
+DEFAULT_OVERLAP_BUCKET_BYTES = 8 * 1024 * 1024
+
+# ZeRO weight-update sharding (optimizers.ZeroShardedOptimizer): the
+# default stage, the bucketed stage-3 forward gather (off = one gather of
+# every parameter), and the opt-in quantized stage-3 gather.
+ZERO_STAGE = "ZERO_STAGE"
+ZERO_PREFETCH = "ZERO_PREFETCH"
+ZERO_QUANT_GATHER = "ZERO_QUANT_GATHER"
+
 
 def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
     """Read a knob, preferring HVD_TPU_* over HOROVOD_*."""
@@ -51,6 +68,15 @@ def get_int(name: str) -> Optional[int]:
         return None
 
 
+def get_bool(name: str, default: bool = False) -> bool:
+    """A boolean knob: 1/true/yes/on (any case) is true; unset is
+    ``default``."""
+    val = get_env(name)
+    if val is None:
+        return default
+    return val.strip().lower() in ("1", "true", "yes", "on")
+
+
 def compression() -> str:
     """The session wire format: an unknown name becomes ``none`` (a typo'd
     knob must not kill a job)."""
@@ -64,3 +90,29 @@ def quant_block() -> int:
     block = get_int(QUANT_BLOCK)
     block = max(2, DEFAULT_QUANT_BLOCK if block is None else block)
     return block - block % 2
+
+
+def overlap() -> bool:
+    return get_bool(OVERLAP, False)
+
+
+def overlap_bucket_bytes() -> int:
+    """Bucket size in bytes, at least 1 KiB: a zero or garbage size would
+    put every leaf alone in a bucket."""
+    val = get_int(OVERLAP_BUCKET_BYTES)
+    return max(1024, DEFAULT_OVERLAP_BUCKET_BYTES if val is None else val)
+
+
+def zero_stage() -> int:
+    """The ZeRO stage, clamped to 1..3: a typo'd knob must not run
+    unsharded (0) or invent a stage 4."""
+    val = get_int(ZERO_STAGE)
+    return min(3, max(1, 1 if val is None else val))
+
+
+def zero_prefetch() -> bool:
+    return get_bool(ZERO_PREFETCH, True)
+
+
+def zero_quant_gather() -> bool:
+    return get_bool(ZERO_QUANT_GATHER, False)

@@ -197,7 +197,11 @@ def forward_loss(cfg: TransformerConfig, par: ParallelConfig,
     averages the gradients once, as before, and the update is the
     reference's.  At world 1 the value is the rank's loss."""
     _check_ported(cfg, par)
-    local = serial_forward_loss(cfg, model, tokens, labels)
+    return _dp_mean(serial_forward_loss(cfg, model, tokens, labels))
+
+
+def _dp_mean(local: torch.Tensor) -> torch.Tensor:
+    """``local``'s value averaged over the world, its gradient its own."""
     # local - local.detach() is exactly 0, so every rank holds the same
     # value, bit for bit.  The wire is exact whatever the session's
     # compression knob says, as the reference's compiled pmean is.
@@ -208,15 +212,33 @@ def forward_loss(cfg: TransformerConfig, par: ParallelConfig,
 def make_train_step(cfg: TransformerConfig, par: ParallelConfig,
                     model: Transformer, optimizer) -> Callable:
     """``train_step(tokens, labels) -> loss``: forward, backward and one
-    (distributed) optimizer step, updating ``model`` in place.  The loss
-    returned is the dp mean of ``forward_loss``, detached, the same on
-    every rank, as the reference's ``train_step`` returns it."""
+    (distributed) optimizer step.  The loss returned is the dp mean of
+    ``forward_loss``, detached, the same on every rank, as the reference's
+    ``train_step`` returns it.
+
+    ``optimizer`` is a ``DistributedOptimizer`` (or any optimizer) over
+    ``model``'s parameters, updated in place, or a ``ZeroShardedOptimizer``
+    built on ``model``: at stage 2 the step reduces the gradients into
+    shards before the update; at stage 3 the forward runs on the gathered
+    parameters (``torch.func.functional_call``) and the step updates the
+    shards, not ``model``'s own parameters."""
+    from ..optimizers import ZeroShardedOptimizer
     _check_ported(cfg, par)
+    stage = optimizer.stage if isinstance(optimizer, ZeroShardedOptimizer) \
+        else 0
+
+    def loss_of(tokens, labels):
+        if stage == 3:
+            return _dp_mean(torch.func.functional_call(
+                model, optimizer.gather_params(), (tokens, labels)))
+        return forward_loss(cfg, par, model, tokens, labels)
 
     def train_step(tokens: torch.Tensor, labels: torch.Tensor):
         optimizer.zero_grad(set_to_none=True)
-        loss = forward_loss(cfg, par, model, tokens, labels)
+        loss = loss_of(tokens, labels)
         loss.backward()
+        if stage == 2:
+            optimizer.reduce_grads()
         optimizer.step()
         return loss.detach()
 

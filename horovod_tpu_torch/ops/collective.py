@@ -15,7 +15,12 @@ allreduce runs the hierarchical compressed schedule over it when the wire
 is compressed (uncompressed, the sum over both levels is the world's), and
 allgather gathers over cross, then local, ordering the pieces local-major
 as the reference's joint mesh axis does.  broadcast, alltoall and
-reducescatter take ``None`` only.
+reducescatter count the joint axis' members in that order too: member j is
+local rank j // cross_size of host j % cross_size.
+
+``op=Adasum`` runs ``ops.adasum``: the VHDD ladder over the world, or the
+hierarchical schedule over ``("local", "cross")``, the only axis whose
+Adasum takes ``compression=`` (on its intra-node phases).
 
 ``compression`` (``Compression.{fp16,bf16,int8,int4}``, a name, or None for
 the ``HVD_TPU_COMPRESSION`` session default) routes Sum/Average of floating
@@ -57,23 +62,55 @@ _JOINT = ("local", "cross")
 
 
 def _check_op(op: int) -> None:
-    if op == Adasum:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP.md queue 1: overlap, Adasum "
-            "and ZeRO)")
-    if op not in _DIST_OPS:
+    if op not in _DIST_OPS and op != Adasum:
         raise ValueError(f"unknown reduce op {op}")
 
 
-def _check_axis(axis_name, joint: bool = True):
-    """``None`` (the world) or, where ``joint``, ``("local", "cross")``."""
+def _check_axis(axis_name):
+    """``None`` (the world) or ``("local", "cross")``."""
     if axis_name is None:
         return None
-    if joint and isinstance(axis_name, (tuple, list)) and \
-            tuple(axis_name) == _JOINT:
+    if isinstance(axis_name, (tuple, list)) and tuple(axis_name) == _JOINT:
         return _JOINT
-    allowed = "None or ('local', 'cross')" if joint else "None"
-    raise ValueError(f"axis_name must be {allowed}, got {axis_name!r}")
+    raise ValueError("axis_name must be None or ('local', 'cross'), got "
+                     f"{axis_name!r}")
+
+
+def _joint_ranks() -> List[int]:
+    """The world rank of each member of the ``("local", "cross")`` axis, in
+    the axis' order: member j is local rank j // C of host j % C
+    (local-major, as the reference's joint mesh axis counts).  Raises
+    without the two-level topology."""
+    Q._group("local")
+    L, C = global_state.local_size, global_state.cross_size
+    return [(j % C) * L + j // C for j in range(L * C)]
+
+
+def _axis_ranks(axis) -> List[int]:
+    """World ranks of the axis' members in the axis' order."""
+    return list(range(global_state.size)) if axis is None else _joint_ranks()
+
+
+def _axis_index(axis) -> int:
+    """This rank's index on the axis."""
+    return _axis_ranks(axis).index(global_state.rank)
+
+
+def _to_world_order(rows: torch.Tensor, axis) -> torch.Tensor:
+    """Rows indexed by axis member → rows indexed by world rank."""
+    if axis is None:
+        return rows
+    member = {r: j for j, r in enumerate(_joint_ranks())}
+    return rows[[member[w] for w in range(global_state.size)]]
+
+
+def _axis_all_gather(x: torch.Tensor, axis) -> torch.Tensor:
+    """Tiled all-gather along dim 0 over the axis, in the axis' order."""
+    if axis is None:
+        return Q._all_gather(x, None)
+    for a in reversed(_JOINT):    # cross first: the pieces end local-major
+        x = Q._all_gather(x, Q._group(a))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +211,31 @@ def _allreduce_plain(tensor, op, prescale, postscale):
     return _finish(tensor, x, op, postscale)
 
 
+def _adasum(tensor, axis, compression, prescale, postscale):
+    """Adasum of ``tensor`` over the axis (reference collective.py:386-405):
+    an explicit compressor rides the hierarchical schedule's intra-node
+    phases and needs the joint axis; the session default does not reach
+    Adasum."""
+    from . import adasum as A
+    comp = _resolve_compression(compression, session_default=False)
+    if comp is not None and axis != _JOINT:
+        raise ValueError(
+            "compression with op=Adasum requires a (local, cross) "
+            "axis_name pair — the compressed wire rides the hierarchical "
+            "schedule's intra-node phases")
+    x = tensor * prescale if prescale != 1.0 else tensor
+    if axis == _JOINT:
+        spec = comp.spec() if comp is not None else None
+        out = A.adasum_allreduce_hierarchical(
+            x, spec=spec, wire_dtype=None if comp is None or spec is not None
+            else comp.wire_dtype)
+    else:
+        out = A.adasum_allreduce(x)
+    if postscale != 1.0:
+        out = out * postscale
+    return out.to(tensor.dtype)
+
+
 def allreduce_(tensor: torch.Tensor, op: int = Average,
                prescale_factor: float = 1.0, postscale_factor: float = 1.0,
                axis_name=None, compression=None) -> torch.Tensor:
@@ -181,6 +243,9 @@ def allreduce_(tensor: torch.Tensor, op: int = Average,
     _check_init()
     _check_op(op)
     axis = _check_axis(axis_name)
+    if op == Adasum:
+        return tensor.copy_(_adasum(tensor, axis, compression,
+                                    prescale_factor, postscale_factor))
     comp = _wire(tensor, op, compression)
     if comp is not None:
         return tensor.copy_(_compressed_allreduce(
@@ -197,6 +262,9 @@ def allreduce(tensor: torch.Tensor, op: int = Average, axis_name=None,
     _check_init()
     _check_op(op)
     axis = _check_axis(axis_name)
+    if op == Adasum:
+        return _adasum(tensor, axis, compression, prescale_factor,
+                       postscale_factor)
     comp = _wire(tensor, op, compression)
     if comp is not None:
         return _compressed_allreduce(tensor, op, axis, comp,
@@ -214,13 +282,14 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], op: int = Average,
     device are fused into one flat buffer and reduced by one collective
     (the reference's fusion of a group, operations.cc:1041-1048).  On a
     compressed wire each member goes alone, as in the reference
-    (collective.py:636-643): fusing would move the quantization blocks."""
+    (collective.py:636-643): fusing would move the quantization blocks.
+    So does Adasum, whose coefficients are the whole tensor's."""
     del name
     _check_init()
     _check_op(op)
     _check_axis(axis_name)
     tensors = list(tensors)
-    if _resolve_compression(compression) is not None:
+    if op == Adasum or _resolve_compression(compression) is not None:
         return [allreduce(t, op, axis_name, prescale_factor,
                           postscale_factor, compression=compression)
                 for t in tensors]
@@ -315,10 +384,31 @@ def broadcast_(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
 def broadcast(tensor: torch.Tensor, root_rank: int = 0, axis_name=None,
               name: Optional[str] = None) -> torch.Tensor:
     """Broadcast the root member's value to all members; returns a new
-    tensor."""
+    tensor.  Over ``("local", "cross")``, ``root_rank`` is the root's index
+    on that axis."""
     del name
-    _check_axis(axis_name, joint=False)
-    return broadcast_(tensor.clone(), root_rank)
+    _check_init()
+    ranks = _axis_ranks(_check_axis(axis_name))
+    if not 0 <= root_rank < len(ranks):
+        raise ValueError(f"root_rank {root_rank} is not a member of the "
+                         f"axis of {len(ranks)}")
+    return broadcast_(tensor.clone(), ranks[root_rank])
+
+
+def _split_sizes(tensor: torch.Tensor, splits, world: int) -> List[int]:
+    """Validated per-member row counts: ``splits``, or dim 0 in equal
+    parts."""
+    rows = tensor.shape[0] if tensor.dim() else 0
+    if splits is None:
+        if tensor.dim() == 0 or rows % world:
+            raise ValueError(
+                f"alltoall dim0 {rows} not divisible by size {world}")
+        return [rows // world] * world
+    splits = [int(s) for s in splits]
+    if len(splits) != world or min(splits) < 0 or sum(splits) > rows:
+        raise ValueError(f"alltoall splits {splits} do not split dim0 "
+                         f"{rows} into {world} parts")
+    return splits
 
 
 def _issue_alltoall(tensor: torch.Tensor, splits):
@@ -326,16 +416,7 @@ def _issue_alltoall(tensor: torch.Tensor, splits):
     ``all_to_all_single`` with split sizes and ``async_op=True``.  Returns
     ``(work, (received, received_splits))``."""
     world = global_state.size
-    rows = tensor.shape[0] if tensor.dim() else 0
-    if splits is None:
-        if tensor.dim() == 0 or rows % world:
-            raise ValueError(
-                f"alltoall dim0 {rows} not divisible by size {world}")
-        splits = [rows // world] * world
-    splits = [int(s) for s in splits]
-    if len(splits) != world or min(splits) < 0 or sum(splits) > rows:
-        raise ValueError(f"alltoall splits {splits} do not split dim0 "
-                         f"{rows} into {world} parts")
+    splits = _split_sizes(tensor, splits, world)
     x = tensor[:sum(splits)].contiguous()
     table = torch.empty(world * world, dtype=torch.int64, device=x.device)
     dist.all_gather_into_tensor(
@@ -352,34 +433,52 @@ def alltoall(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
     """Send dim-0 slice ``i`` (of ``splits[i]`` rows, equal by default) to
     member ``i``; returns ``(received, received_splits)``, the pieces in
     member order and an int32 CPU tensor of their row counts (reference
-    eager.py:878-916)."""
+    eager.py:878-916).  Over ``("local", "cross")`` the members are the
+    joint axis' and so is their order."""
     del name
     _check_init()
-    _check_axis(axis_name, joint=False)
-    work, result = _issue_alltoall(tensor, splits)
+    axis = _check_axis(axis_name)
+    if axis is None:
+        work, result = _issue_alltoall(tensor, splits)
+        work.wait()
+        return result
+    order = _joint_ranks()
+    splits = _split_sizes(tensor, splits, len(order))
+    pieces = tensor[:sum(splits)].split(splits)
+    member = {r: j for j, r in enumerate(order)}
+    world_order = [member[w] for w in range(len(order))]
+    work, (out, recv) = _issue_alltoall(
+        torch.cat([pieces[j] for j in world_order]),
+        [splits[j] for j in world_order])
     work.wait()
-    return result
+    got = out.split(recv.tolist())
+    return torch.cat([got[r] for r in order]), recv[order]
 
 
 def reducescatter(tensor: torch.Tensor, op: int = Average, axis_name=None,
                   name: Optional[str] = None,
                   compression=None) -> torch.Tensor:
-    """Reduce, then scatter equal dim-0 chunks (rank i gets chunk i).
-    Sum/Average only; dim 0 must divide by the world.  ``compression``
-    routes it through the one-pass compressed reduce-scatter (compressed
-    wire, fp32 accumulation, full-precision output shard)."""
+    """Reduce, then scatter equal dim-0 chunks (member i of the axis gets
+    chunk i); dim 0 must divide by the world.  Sum reduces as Sum, every
+    other op as Average, as the reference's eager path does
+    (collective.py:745).  ``compression`` routes it through the one-pass
+    compressed reduce-scatter (compressed wire, fp32 accumulation,
+    full-precision output shard); an explicit compressor with an op other
+    than Sum/Average raises."""
     del name
     _check_init()
     _check_op(op)
-    _check_axis(axis_name, joint=False)
-    if op not in (Sum, Average):
-        raise ValueError("reducescatter supports Sum/Average")
+    axis = _check_axis(axis_name)
     world = global_state.size
     rows = tensor.shape[0] if tensor.dim() else 0
     if tensor.dim() == 0 or rows % world:
         raise ValueError(f"reducescatter dim0 {rows} not divisible by "
                          f"{world}")
     comp = _wire(tensor, op, compression)
+    op = Sum if op == Sum else Average
+    if axis is not None:
+        chunks = tensor.reshape((world, rows // world) + tensor.shape[1:])
+        tensor = _to_world_order(chunks, axis).reshape(tensor.shape)
     if comp is not None:
         spec = comp.spec()
         return Q.compressed_reducescatter(
@@ -453,6 +552,9 @@ def allreduce_async(tensor: torch.Tensor, op: int = Average,
     del name
     _check_init()
     _check_op(op)
+    if op == Adasum:
+        return _allocate(result=_adasum(tensor, None, compression,
+                                        prescale_factor, postscale_factor))
     comp = _wire(tensor, op, compression)
     if comp is not None:
         return _allocate(result=_compressed_allreduce(

@@ -1,9 +1,11 @@
-"""The seeded inputs of the port's multi-rank parity tests and the one
-start of four gloo ranks that runs them (``_torch_port_workers
-.four_rank_pool``): test_torch_port_collectives.py and
-test_torch_port_compressed_optimizer.py read its results, so a test
-process starts the ranks once for both, and they fork from a server that
-imported torch once for all four."""
+"""The seeded inputs of the port's multi-rank parity tests and the starts
+of four gloo ranks that run them.  ``results``: one start
+(``_torch_port_workers.four_rank_pool``) whose results
+test_torch_port_collectives.py and test_torch_port_compressed_optimizer.py
+read, so a test process starts the ranks once for both.  ``part_results``:
+one start per part of ``_torch_port_training_workers`` (overlap, adasum,
+zero, sbn) for the test file of that part.  The ranks fork from a server
+that imported torch once for all four."""
 
 import functools
 import json
@@ -59,33 +61,102 @@ def lm_case():
     return cfg, params, tokens, np.roll(tokens, -1, axis=1)
 
 
+LEAF_SHAPES = [(7, 300), (300,), (2, 3, 130), (40,), (513,)]
+BF16_LEAF = 3
+GATHER_SHAPES = [(5, 7), (33,), (3, 4, 5)]
+ZERO_PARAMS = {"w": np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(4, 3),
+               "b": np.linspace(0.5, 2.0, 16, dtype=np.float32)}
+
+
+@functools.lru_cache(maxsize=None)
+def part_inputs(part: str) -> dict:
+    """The seeded inputs of one part, per rank along axis 0 where they
+    differ between ranks."""
+    rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
+                                 "sbn": 14}[part])
+
+    def normal(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    if part == "overlap":
+        out = {f"leaf{i}": normal(WORLD, *s, scale=3.0)
+               for i, s in enumerate(LEAF_SHAPES)}
+        out.update({f"param{i}": normal(*s) for i, s in
+                    enumerate(GATHER_SHAPES)})
+        out.update({f"ct{i}": normal(WORLD, *s) for i, s in
+                    enumerate(GATHER_SHAPES)})
+        return dict(out, n_leaves=len(LEAF_SHAPES), bf16=BF16_LEAF,
+                    n_params=len(GATHER_SHAPES))
+    if part == "adasum":
+        base = normal(1000)
+        # Correlated contributions: Adasum's coefficients are then far
+        # from the plain sum's.
+        x = np.stack([base * (0.5 + r) + normal(1000) for r in range(WORLD)])
+        # z (1002) and t (2, 5): node shards of odd length (501, 5), which
+        # the cross ladder pads to a multiple of its size.
+        return {"x": x.astype(np.float32), "y": normal(WORLD, 3, 130),
+                "w": normal(50), "g": normal(2, WORLD, 50),
+                "z": normal(WORLD, 1002), "t": normal(WORLD, 2, 5)}
+    if part == "zero":
+        # Per-rank distinct rows, so the mean over ranks is a reduction.
+        return dict(ZERO_PARAMS, x=np.arange(WORLD * 4, dtype=np.float32)
+                    .reshape(WORLD, 1, 4))
+    return {"x": normal(WORLD, 8, 5, 16, scale=2.0) + 1.0,
+            "ct": normal(WORLD, 8, 5, 16), "scale": normal(16) + 1.0,
+            "bias": normal(16), "rm": normal(16),
+            "rv": np.abs(normal(16)) + 0.5}
+
+
 _RESULTS = {}
+_PARTS = {}
+
+
+def _spawn(body, out):
+    import torch.multiprocessing as mp
+    mp.get_context("forkserver").set_forkserver_preload(
+        ["torch", "torch._dynamo", "horovod_tpu_torch",
+         "_torch_port_workers", "_torch_port_training_workers"])
+    mp.start_processes(body, args=(WORLD, f"{out}/rendezvous", str(out)),
+                       nprocs=WORLD, join=True, start_method="forkserver")
+
+
+def _save_lm(out) -> None:
+    _, params, tokens, labels = lm_case()
+    np.savez(os.path.join(out, "lm.npz"), cfg=json.dumps(SMALL),
+             tokens=tokens, labels=labels,
+             **{"param." + k: v.numpy()
+                for k, v in convert.params_from_jax(params).items()})
+
+
+def part_results(tmp_path_factory, part: str) -> list:
+    """The four ranks' results of one part of
+    ``_torch_port_training_workers``, from one start of the ranks per part
+    and test process."""
+    if part not in _PARTS:
+        import _torch_port_training_workers as workers
+        out = tmp_path_factory.mktemp(f"{part}_pool")
+        np.savez(os.path.join(out, f"{part}.npz"), **part_inputs(part))
+        if part == "zero":
+            _save_lm(out)
+        _spawn({"overlap": workers.overlap_part,
+                "adasum": workers.adasum_part,
+                "zero": workers.zero_part,
+                "sbn": workers.sync_batch_norm_part}[part], out)
+        _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
+                        for r in range(WORLD)]
+    return _PARTS[part]
 
 
 def results(tmp_path_factory) -> dict:
     """{"collectives": 4 ranks' results, "uneven": 3, "optimizer": 2,
     "feedback": 1}, from one start of the ranks per test process."""
     if not _RESULTS:
-        import torch.multiprocessing as mp
         import _torch_port_workers as workers
         out = tmp_path_factory.mktemp("four_rank_pool")
         np.savez(os.path.join(out, "inputs.npz"), **collective_inputs())
         np.savez(os.path.join(out, "opt.npz"), **optimizer_data())
-        _, params, tokens, labels = lm_case()
-        np.savez(os.path.join(out, "lm.npz"), cfg=json.dumps(SMALL),
-                 tokens=tokens, labels=labels,
-                 **{"param." + k: v.numpy()
-                    for k, v in convert.params_from_jax(params).items()})
-        # The ranks fork from a server that imported torch (and what the
-        # first optimizer's construction imports) once for all four; the
-        # server never imports JAX.
-        mp.get_context("forkserver").set_forkserver_preload(
-            ["torch", "torch._dynamo", "horovod_tpu_torch",
-             "_torch_port_workers"])
-        mp.start_processes(workers.four_rank_pool,
-                           args=(WORLD, f"{out}/rendezvous", str(out)),
-                           nprocs=WORLD, join=True,
-                           start_method="forkserver")
+        _save_lm(out)
+        _spawn(workers.four_rank_pool, out)
         for name, world in (("collectives", WORLD), ("uneven", UNEVEN_WORLD),
                             ("optimizer", OPT_WORLD), ("feedback", 1)):
             _RESULTS[name] = [torch.load(os.path.join(out, f"{name}{r}.pt"))

@@ -238,6 +238,24 @@ def four_rank_collectives(rank: int, world: int, init_method: str,
         ints = torch.arange(8, dtype=torch.int32) * (rank + 1) + rank
         res["reducescatter-sum"] = hvd.reducescatter(ints.float(), op=hvd.Sum)
         res["reducescatter-int-average"] = hvd.reducescatter(ints)
+        # Ops other than Sum reduce as Average (the reference's eager path).
+        res["reducescatter-other-ops"] = {
+            name: hvd.reducescatter(x[:4], op=op) for name, op in
+            (("max", hvd.Max), ("min", hvd.Min), ("product", hvd.Product),
+             ("average", hvd.Average))}
+        # The joint axis: members counted local-major, as the reference's
+        # ("local", "cross") mesh axis counts them.
+        joint = ("local", "cross")
+        res["joint"] = {
+            "broadcast": hvd.broadcast(x, root_rank=1, axis_name=joint),
+            "alltoall": hvd.alltoall(rs, axis_name=joint),
+            "alltoall-splits": hvd.alltoall(rows, splits=splits,
+                                            axis_name=joint),
+            "reducescatter": hvd.reducescatter(rs, axis_name=joint),
+            "reducescatter-sum": hvd.reducescatter(rs, op=hvd.Sum,
+                                                   axis_name=joint),
+            "reducescatter-int8": hvd.reducescatter(
+                rs, axis_name=joint, compression="int8")}
         handles = {
             "allreduce": hvd.allreduce_async(x, op=hvd.Sum,
                                              postscale_factor=0.5),
@@ -263,7 +281,8 @@ def four_rank_collectives(rank: int, world: int, init_method: str,
                     x, op=hvd.Min, compression=hvd.Compression.int4)),
                 ("rs-int-explicit", lambda: hvd.reducescatter(
                     ints, compression="bf16")),
-                ("rs-max", lambda: hvd.reducescatter(x[:4], op=hvd.Max)),
+                ("rs-max", lambda: hvd.reducescatter(
+                    x[:4], op=hvd.Max, compression="int8")),
                 ("rs-ragged", lambda: hvd.reducescatter(x)),
                 ("axis", lambda: hvd.allreduce(x, axis_name="data"))):
             try:

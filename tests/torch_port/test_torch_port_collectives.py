@@ -258,12 +258,113 @@ def test_join_barrier_and_objects(ranks):
 
 @pytest.mark.timeout(150)
 def test_explicit_compression_errors(ranks):
+    """An explicit compressor refuses what a lossy wire cannot carry: an
+    integer tensor, Min, and a reducescatter with Max (which, without a
+    compressor, reduces as Average: test below)."""
     errors = ranks[0]["errors"]
-    for label in ("int-explicit", "min-explicit", "rs-int-explicit"):
-        assert "compression requires a floating tensor" in errors[label]
-    assert "Sum/Average" in errors["rs-max"]
+    for label in ("int-explicit", "min-explicit", "rs-int-explicit",
+                  "rs-max"):
+        assert "compression requires a floating tensor and op Sum/Average" \
+            in errors[label], label
     assert "not divisible" in errors["rs-ragged"]
     assert "axis_name" in errors["axis"]
+
+
+@pytest.mark.timeout(150)
+def test_reducescatter_reduces_other_ops_as_average(ranks, inputs):
+    """Max, Min and Product reduce as Average, as the reference's eager
+    reducescatter does (collective.py:745): each rank's chunk of the mean,
+    the reference's Average under shard_map within 1e-6."""
+    def body(x):
+        return Cj.reducescatter(x[0, :4], op=Cj.Average,
+                                axis_name="data")[None]
+
+    ref = np.asarray(jax.jit(shard_map(
+        body, mesh=Mesh(np.array(jax.devices()[:WORLD]), ("data",)),
+        in_specs=P("data"), out_specs=P("data"), check_vma=False))(
+            jnp.asarray(inputs["x"])))
+    for r, res in enumerate(ranks):
+        got = res["reducescatter-other-ops"]
+        for op in ("max", "min", "product"):
+            assert torch.equal(got[op], got["average"]), (r, op)
+        np.testing.assert_allclose(got["max"].numpy(), ref[r], rtol=0,
+                                   atol=1e-6)
+
+
+JOINT_CASES = ["broadcast", "alltoall", "reducescatter", "reducescatter-sum",
+               "reducescatter-int8"]
+
+
+@pytest.fixture(scope="module")
+def joint_references(inputs):
+    axis = ("local", "cross")
+
+    def body(x, rs):
+        x, rs = x[0], rs[0]
+        return {"broadcast": Cj.broadcast(x, root_rank=1, axis_name=axis),
+                "alltoall": Cj.alltoall(rs, axis_name=axis),
+                "reducescatter": Cj.reducescatter(rs, op=Cj.Average,
+                                                  axis_name=axis),
+                "reducescatter-sum": Cj.reducescatter(rs, op=Cj.Sum,
+                                                      axis_name=axis),
+                "reducescatter-int8": Cj.reducescatter(
+                    rs, op=Cj.Average, axis_name=axis, compression="int8")}
+
+    mesh = Mesh(np.array(jax.devices()[:WORLD]).reshape(2, 2),
+                ("cross", "local"))
+    spec = P(("cross", "local"))
+    out = jax.jit(shard_map(lambda x, rs: {k: v[None] for k, v in
+                                           body(x, rs).items()},
+                            mesh=mesh, in_specs=(spec, spec),
+                            out_specs=spec, check_vma=False))(
+        jnp.asarray(inputs["x"]), jnp.asarray(inputs["rs"]))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.timeout(150)
+@pytest.mark.parametrize("name", JOINT_CASES)
+def test_joint_axis_matches_reference(ranks, joint_references, inputs,
+                                      name):
+    """broadcast, alltoall and reducescatter over ("local", "cross") on the
+    2 x 2 layout: the reference's compiled collectives over that axis on
+    the ("cross", "local") mesh, whose members count local-major.  Moves
+    exactly; sums within 1e-6 of the largest magnitude; the int8 wire
+    within one grid step (the reference's compiled quantizer multiplies)."""
+    for r, res in enumerate(ranks):
+        got = res["joint"][name]
+        got = (got[0] if isinstance(got, tuple) else got).numpy()
+        ref = joint_references[name][r]
+        assert got.shape == ref.shape, name
+        if name in ("broadcast", "alltoall"):
+            np.testing.assert_array_equal(got, ref)
+        else:
+            big = np.abs(ref).max()
+            step = big / 127 if name.endswith("int8") else 1e-6 * big
+            assert np.abs(got - ref).max() <= step, (name, r)
+
+
+@pytest.mark.timeout(150)
+def test_joint_axis_alltoall_with_splits(ranks):
+    """Member j (local j // 2 of host j % 2) sends splits[j][d] rows to
+    member d and receives the pieces in member order."""
+    member = [0, 2, 1, 3]                  # rank = cross * 2 + local
+    order = [member.index(j) for j in range(WORLD)]   # member -> rank
+    splits = [[(s + d) % 3 for d in range(WORLD)] for s in range(WORLD)]
+
+    def sent(src, dst):
+        """What rank src sends to member dst: its pieces are in member
+        order."""
+        off = sum(splits[src][:dst])
+        return np.arange(off, off + splits[src][dst],
+                         dtype=np.float64)[:, None] * 10 + src
+
+    for rank, res in enumerate(ranks):
+        got, recv = res["joint"]["alltoall-splits"]
+        d = member[rank]
+        assert recv.tolist() == [splits[order[j]][d] for j in range(WORLD)]
+        np.testing.assert_array_equal(
+            got.numpy(), np.concatenate([sent(order[j], d)
+                                         for j in range(WORLD)]))
 
 
 @pytest.mark.timeout(150)

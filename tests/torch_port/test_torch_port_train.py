@@ -120,14 +120,49 @@ def test_backward_passes_per_step_matches_reference(world1):
 
 
 def test_unported_options_raise(world1):
+    """What is not ported raises naming its ROADMAP item (ZeRO's sharded
+    checkpoints); Adasum, which did, now runs: at world 1 its reduction is
+    the identity, so an SGD step moves p by -lr g through p + (p' - p)."""
     p = torch.nn.Parameter(torch.zeros(2))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
+                                   op=hvd.Adasum)
+    p.grad = torch.tensor([1.0, -2.0])
+    opt.step()
+    torch.testing.assert_close(p.detach(), torch.tensor([-0.1, 0.2]))
+    zero = hvd.ZeroShardedOptimizer([p], torch.optim.SGD)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1), op=hvd.Adasum)
+        zero.state_dict()
     with pytest.raises(ValueError, match="floating tensor"):
         hvd.allreduce(torch.zeros(2, dtype=torch.int32), compression="int8")
     with pytest.raises(ValueError, match="backward_passes_per_step"):
         hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
                                  backward_passes_per_step=0)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_optimizer_min_max_on_cast_wire_reduce_unrounded(world1, overlap):
+    """DistributedOptimizer(op=Max, compression=fp16) reduces the gradient
+    in its own dtype on both schedules (the port's per-parameter schedule
+    is one-parameter buckets), as the reference's bucketed schedule does
+    (``bucketed_allreduce_tree``); the reference's per-leaf schedule casts
+    to fp16 first (ROADMAP.md queue 3)."""
+    from horovod_tpu.ops import overlap as Oj
+    g = np.array([1.0 + 2.0 ** -20, -3.3, 7e-6], np.float32)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    ref = jax.jit(shard_map(
+        lambda x: Oj.bucketed_allreduce_tree(
+            [x], op=hvd_jax.Max, axis_name="data",
+            compression=hvd_jax.Compression.fp16, bucket_bytes=1024)[0],
+        mesh=mesh, in_specs=P(), out_specs=P(), check_vma=False))(
+        jnp.asarray(g))
+    p = torch.nn.Parameter(torch.zeros(3))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([p], lr=1.0),
+                                   op=hvd.Max, compression="fp16",
+                                   overlap=overlap)
+    p.grad = torch.from_numpy(g.copy())
+    opt.synchronize()
+    np.testing.assert_array_equal(p.grad.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(p.grad.numpy(), g)
 
 
 def test_world1_collectives_keep_dtype(world1):
