@@ -65,7 +65,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              layer per step.  Then adasum_tree of a (4, 8,388,608) fp32
              stack and one sync_batch_norm forward and backward on the card
              against the CPU (1e-6 and 1e-5 normwise).  Per-step host time
-             and collective calls of each configuration are reported.
+             and collective calls of each configuration are reported;
+8. checkpoint — the flagship's ZeRO training (AdamW(3e-4, wd 1e-4),
+             world 1 on NCCL) fed by DataLoader(batch 8, shuffle, seed 0,
+             prefetch, depth 2, device="cuda") over 256 seeded sequences
+             of 513 int32 tokens: the first 8 batches on the card equal the
+             sampler's host rows bit for bit.  At stage 1, stage 3 and
+             stage 1 on int8: two uninterrupted 8-step runs (their spread,
+             if any, is printed), and a run that saves at step 4
+             (state_dict with the loader's state in the manifest; the
+             parameters through utils.save_checkpoint at stage 1), then
+             restores into a model, optimizer and loader built from seed 1
+             and takes 4 more steps: its losses, final parameters, moments
+             and residuals equal the uninterrupted run's bit for bit (or
+             within that spread), and every kernel launches once per layer
+             per step.  Bytes a save, save and restore seconds, and the
+             host step fed by the loader against one fixed batch are
+             reported.  Last, Adasum at backward_passes_per_step 2 against
+             Average at world 1 (within 1.5 eps max(|p0|, |p'|)).
 
 The last lines are the card line, a JSON line with one entry per kernel,
 and ``{"ok": true, "device": {...}}``.  Detailed numbers also go to
@@ -813,6 +830,239 @@ def phase_overlap_zero(torch, hvd, tfm, fa, cfg, par, tokens, labels,
     return out
 
 
+def snapshot(torch, model, opt):
+    """The full parameters and every inner-optimizer tensor of a ZeRO
+    run, cloned: (params by name, [per shard {state key: tensor}],
+    residuals or None)."""
+    with torch.no_grad():
+        params = {n: t.detach().clone() for n, t in (
+            opt.gather_params().items() if opt.stage == 3
+            else model.named_parameters())}
+    state = [{k: (v.clone() if isinstance(v, torch.Tensor) else v)
+              for k, v in opt.optimizer.state[s].items()}
+             for s in opt.shards]
+    residual = None if opt.residual is None else \
+        [r.clone() for r in opt.residual]
+    return params, state, residual
+
+
+def max_difference(torch, a, b):
+    """The largest |a - b| over two snapshots' tensors (0.0 when every
+    tensor is bit-equal)."""
+    worst = 0.0
+    pa, sa, ra = a
+    pb, sb, rb = b
+    pairs = [(pa[n], pb[n]) for n in pa]
+    pairs += [(x[k], y[k]) for x, y in zip(sa, sb) for k in x]
+    pairs += list(zip(ra or [], rb or []))
+    for x, y in pairs:
+        if not torch.equal(x, y):
+            worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst
+
+
+def phase_checkpoint(torch, hvd, tfm, fa, cfg, par, card):
+    """Phase 8: save, restore and resume of the flagship's ZeRO training
+    fed by the port's DataLoader; returns the report."""
+    import tempfile
+    import numpy as np
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch.data import (ArraySource, DataLoader,
+                                        ShardedIndexSampler)
+    from horovod_tpu_torch.utils import checkpoint as uckpt
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)
+
+    batch, n_steps, resume_at, seqs = 8, 8, 4, 256
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (seqs, cfg.seq_len + 1), dtype=np.int32)
+    source = ArraySource(tokens)
+
+    def loader(seed):
+        return DataLoader(source, batch, shuffle=True, seed=seed,
+                          prefetch=True, queue_depth=2, device="cuda")
+
+    def split(b):
+        return b[:, :-1].long(), b[:, 1:].long()
+
+    out = {}
+    # (a) The loader's batches on the card against the host rows its
+    # sampler selects.
+    ld, sampler = loader(0), ShardedIndexSampler(seqs, batch, seed=0)
+    it = iter(ld)
+    for i in range(n_steps):
+        got = next(it)
+        assert got.is_cuda and got.dtype == torch.int32, (got.device,
+                                                          got.dtype)
+        want = torch.from_numpy(tokens[sampler.next_batch()])
+        assert torch.equal(got.cpu(), want), f"batch {i} differs"
+    ld.close()
+    log(f"[ckpt] DataLoader(batch {batch}, shuffle, seed 0, prefetch, "
+        f"depth 2, device='cuda'): the first {n_steps} batches on the card "
+        "equal the sampler's host rows bit for bit")
+
+    def run(stage, wire, steps, it, model=None, opt=None):
+        """``steps`` steps fed by ``it``: the model, the optimizer, the
+        losses, host seconds a step and the kernels' launches in those
+        steps."""
+        if model is None:
+            model = tfm.Transformer(cfg, par, seed=0)
+            opt = hvd.ZeroShardedOptimizer(model, adamw, stage=stage,
+                                           compression=wire)
+        step = tfm.make_train_step(cfg, par, model, opt)
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss = step(*split(next(it)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        launches = dict(fa.launches)
+        for n in KERNELS:
+            assert launches[n] == cfg.n_layers * steps, launches
+        assert all(math.isfinite(x) for x in losses), losses
+        return model, opt, losses, times, launches
+
+    for stage, wire in ((1, None), (3, None), (1, "int8")):
+        label = f"zero{stage}" + ("" if wire is None else f"_{wire}")
+        # (b) Run A, uninterrupted, twice: the run-to-run spread.
+        runs = []
+        for _ in range(2):
+            ld = loader(0)
+            model, opt, losses, times, _ = run(stage, wire, n_steps,
+                                               iter(ld))
+            ld.close()
+            runs.append((losses, snapshot(torch, model, opt), times))
+            del model, opt
+        (a_losses, a_snap, a_times), (a2_losses, a2_snap, _) = runs
+        spread_loss = max(abs(x - y) for x, y in zip(a_losses, a2_losses))
+        spread = max_difference(torch, a_snap, a2_snap)
+        if spread_loss or spread:
+            log(f"[ckpt] {label}: two uninterrupted runs differ: losses by "
+                f"up to {spread_loss:.6g}, parameters and moments by up to "
+                f"{spread:.6g}; the resumed run is held to that spread")
+        # (c) Run B: 4 steps, save, a fresh model, optimizer and loader
+        # from another seed, restore all three, 4 more steps.
+        with tempfile.TemporaryDirectory() as tmp:
+            ld = loader(0)
+            model, opt, b_first, _, _ = run(stage, wire, resume_at,
+                                            iter(ld))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.state_dict(os.path.join(tmp, "opt"), step=resume_at,
+                           extra={ckpt.DATA_ITERS_KEY:
+                                  {"train": ld.state_dict()}})
+            if stage < 3:
+                uckpt.save_checkpoint(os.path.join(tmp, "params"),
+                                      model.state_dict(), step=resume_at)
+            save_s = time.perf_counter() - t0
+            ld.close()
+            written = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, files in os.walk(tmp) for f in files)
+            del model, opt
+            model = tfm.Transformer(cfg, par, seed=1)
+            opt = hvd.ZeroShardedOptimizer(model, adamw, stage=stage,
+                                           compression=wire)
+            ld = loader(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            manifest = opt.load_state_dict(os.path.join(tmp, "opt"))
+            if stage < 3:
+                uckpt.restore_checkpoint(os.path.join(tmp, "params"),
+                                         target=model.state_dict(),
+                                         step=resume_at)
+            ld.load_state_dict(manifest.extra[ckpt.DATA_ITERS_KEY]["train"])
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            model, opt, b_rest, _, b_launches = run(
+                stage, wire, n_steps - resume_at, iter(ld), model, opt)
+            ld.close()
+            b_snap = snapshot(torch, model, opt)
+            del model, opt
+        b_losses = b_first + b_rest
+        loss_diff = max(abs(x - y) for x, y in zip(b_losses, a_losses))
+        diff = max_difference(torch, b_snap, a_snap)
+        assert loss_diff <= spread_loss and diff <= spread, \
+            (label, loss_diff, diff, spread_loss, spread)
+        out[label] = {
+            "losses_a": a_losses, "losses_a2": a2_losses,
+            "losses_b": b_losses, "run_to_run_loss_spread": spread_loss,
+            "run_to_run_state_spread": spread,
+            "resumed_loss_diff": loss_diff, "resumed_state_diff": diff,
+            "bytes_per_save": written, "save_s": save_s,
+            "restore_s": restore_s, "launches_b": b_launches,
+            "loader_step_s": statistics.median(a_times[1:]),
+            "step_times_a_s": a_times}
+        log(f"[ckpt] {label}: resumed at step {resume_at} into a model, "
+            f"optimizer and loader of seed 1: losses "
+            f"{b_losses[resume_at]:.6f} -> {b_losses[-1]:.6f} "
+            + ("equal the uninterrupted run's bit for bit, and so do the "
+               "final parameters, moments"
+               + (" and residuals" if wire else "")
+               if loss_diff == diff == 0 else
+               f"within the run-to-run spread ({loss_diff:.3g}, {diff:.3g})")
+            + f"; kernels once per layer per step ({b_launches}); "
+            f"{written:,} bytes a save, save {save_s:.3f} s, restore "
+            f"{restore_s:.3f} s, on {card}")
+
+    # (d) Host step time, stage 1, one fixed batch on the card against the
+    # loader's feed, in turns (fixed, loader, loader, fixed; medians of
+    # steps 1-7 of each run).
+    ld = loader(0)
+    fixed = next(iter(ld))
+    ld.close()
+    feed = {"fixed": [], "loader": []}
+    for kind in ("fixed", "loader", "loader", "fixed"):
+        ld = loader(0)
+        it = iter([fixed] * n_steps) if kind == "fixed" else iter(ld)
+        _, _, _, times, _ = run(1, None, n_steps, it)
+        ld.close()
+        feed[kind].append(statistics.median(times[1:]))
+    out["host_step_s"] = feed
+    log(f"[ckpt] host step, ZeRO stage 1, in turns: one fixed batch "
+        f"{feed['fixed'][0] * 1e3:.3f}, loader {feed['loader'][0] * 1e3:.3f}"
+        f", loader {feed['loader'][1] * 1e3:.3f}, fixed "
+        f"{feed['fixed'][1] * 1e3:.3f} ms (medians of steps "
+        f"1-{n_steps - 1}), on {card}")
+
+    # (e) Adasum with backward_passes_per_step 2 against Average at world 1:
+    # both step on the same scaled sum of the two passes, so the
+    # parameters after the communicating step are within 1.5 eps
+    # max(|p0|, |p'|) (phase 7's bound for p0 + (p' - p0) against p').
+    ld = loader(0)
+    it = iter(ld)
+    passes = [split(next(it)) for _ in range(2)]
+    ld.close()
+    after = {}
+    for op in (hvd.Average, hvd.Adasum):
+        model = tfm.Transformer(cfg, par, seed=0)
+        opt = hvd.DistributedOptimizer(adamw(model.parameters()), op=op,
+                                       backward_passes_per_step=2)
+        step = tfm.make_train_step(cfg, par, model, opt)
+        before = [p.detach().clone() for p in model.parameters()]
+        step(*passes[0])
+        assert all(torch.equal(p, b) for p, b in zip(model.parameters(),
+                                                     before))
+        step(*passes[1])
+        after[op] = [p.detach().clone() for p in model.parameters()]
+        del model, opt
+    worst = 0.0
+    for p0, a, b in zip(before, after[hvd.Average], after[hvd.Adasum]):
+        bound = torch.finfo(a.dtype).eps * torch.maximum(p0.abs(), a.abs())
+        assert ((a - b).abs() <= 1.5 * bound).all()
+        assert not torch.equal(a, p0)
+        worst = max(worst, ((a - b).abs() / bound.clamp_min(
+            torch.finfo(a.dtype).tiny)).max().item())
+    out["adasum_bpps2_worst_over_eps_max"] = worst
+    log(f"[ckpt] Adasum, backward_passes_per_step 2, against Average at "
+        f"world 1: parameters after the communicating step within "
+        f"{worst:.3g} eps max(|p0|, |p'|)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -993,6 +1243,9 @@ def main() -> int:
         torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
         {"none": losses, "int8": report["compressed"]["int8"]["losses"]},
         card)
+    # 8. checkpoint, restore and resume fed by the DataLoader
+    report["checkpoint"] = phase_checkpoint(torch, hvd, tfm, fa, cfg, par,
+                                            card)
     hvd.shutdown()
 
     kernels = []

@@ -6,16 +6,19 @@ Hopper GPUs: ``init()`` over ``torch.distributed`` (NCCL, or gloo with
 fp16/bf16/int8/int4 compressed wire, Adasum), gradient reduction through
 ``DistributedOptimizer`` (error feedback on a quantized wire, bucketed
 backward overlap, Adasum's delta model), ZeRO stages 1-3
-(``ZeroShardedOptimizer``), ``sync_batch_norm``, and the transformer's
-attention on hand-written CUDA flash-attention kernels.
+(``ZeroShardedOptimizer``), ``sync_batch_norm``, the sharded checkpoint
+engine (``checkpoint``, ``utils.checkpoint``), the input pipeline
+(``data``), and the transformer's attention on hand-written CUDA
+flash-attention kernels.
 Imports neither JAX nor ``horovod_tpu``.
 """
 
 from .core.basics import (cross_rank, cross_size, device, init,
                           is_initialized, local_rank, local_size, rank,
                           shutdown, size)
-from .core.exceptions import (HorovodInternalError, HorovodTpuError,
-                              HostsUpdatedInterrupt, NotInitializedError)
+from .core.exceptions import (DataStallError, HorovodInternalError,
+                              HorovodTpuError, HostsUpdatedInterrupt,
+                              NotInitializedError)
 from .ops.collective import (Adasum, Average, Max, Min, Product, ReduceOp,
                              Sum, allgather, allgather_async, allreduce,
                              allreduce_, allreduce_async, alltoall,

@@ -5,9 +5,11 @@ The reference accepts both the original ``HOROVOD_*`` names and
 (horovod_tpu/core/config.py).  The port keeps those names for the launcher
 topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...) and the wire knobs
 (``COMPRESSION``, ``QUANT_BLOCK``), the overlap scheduler's
-(``OVERLAP``, ``OVERLAP_BUCKET_BYTES``) and ZeRO's (``ZERO_STAGE``,
-``ZERO_PREFETCH``, ``ZERO_QUANT_GATHER``), with the reference's defaults
-and clamps (config.py:312-320, :515-524).  The attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
+(``OVERLAP``, ``OVERLAP_BUCKET_BYTES``), ZeRO's (``ZERO_STAGE``,
+``ZERO_PREFETCH``, ``ZERO_QUANT_GATHER``) and the input pipeline's
+(``DATA_PREFETCH``, ``DATA_QUEUE_DEPTH``, ``DATA_STALL_TIMEOUT_SECONDS``,
+and the stall warning ``STALL_CHECK_TIME_SECONDS``), with the
+reference's defaults and clamps (config.py:296-320, :475-524).  The attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
 it under that one name (parallel/ring_attention.py), and so does the port.
 """
 
@@ -48,6 +50,14 @@ ZERO_PREFETCH = "ZERO_PREFETCH"
 ZERO_QUANT_GATHER = "ZERO_QUANT_GATHER"
 
 
+# Input pipeline (data/): background prefetch on/off, prefetch queue
+# depth, the hard stall ceiling (0 = warn only) and the stall warning.
+DATA_PREFETCH = "DATA_PREFETCH"
+DATA_QUEUE_DEPTH = "DATA_QUEUE_DEPTH"
+DATA_STALL_TIMEOUT_SECONDS = "DATA_STALL_TIMEOUT_SECONDS"
+STALL_CHECK_TIME_SECONDS = "STALL_CHECK_TIME_SECONDS"
+
+
 def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
     """Read a knob, preferring HVD_TPU_* over HOROVOD_*."""
     for prefix in _PREFIXES:
@@ -66,6 +76,17 @@ def get_int(name: str) -> Optional[int]:
         return int(val)
     except ValueError:
         return None
+
+
+def get_float(name: str, default: float) -> float:
+    """A float knob, or ``default`` when unset or not a number."""
+    val = get_env(name)
+    if val is None:
+        return default
+    try:
+        return float(val)
+    except ValueError:
+        return default
 
 
 def get_bool(name: str, default: bool = False) -> bool:
@@ -116,3 +137,21 @@ def zero_prefetch() -> bool:
 
 def zero_quant_gather() -> bool:
     return get_bool(ZERO_QUANT_GATHER, False)
+
+
+def data_prefetch() -> bool:
+    return get_bool(DATA_PREFETCH, True)
+
+
+def data_queue_depth() -> int:
+    """Prefetch queue depth, at least 1 (2 = double buffering)."""
+    val = get_int(DATA_QUEUE_DEPTH)
+    return max(1, 2 if val is None else val)
+
+
+def data_stall_timeout_seconds() -> float:
+    return get_float(DATA_STALL_TIMEOUT_SECONDS, 0.0)
+
+
+def stall_warning_seconds() -> float:
+    return get_float(STALL_CHECK_TIME_SECONDS, 60.0)

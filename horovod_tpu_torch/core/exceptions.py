@@ -34,3 +34,14 @@ class NotInitializedError(HorovodTpuError):
         super().__init__(
             f"{what} called before horovod_tpu_torch.init(); call init() "
             "first")
+
+
+class DataStallError(HorovodTpuError):
+    """The input pipeline produced no batch within the stall window.
+
+    The data-plane analog of the coordinator's stall inspector
+    (stall_inspector.h): a warning is logged after the warning window,
+    and when ``HVD_TPU_DATA_STALL_TIMEOUT_SECONDS`` > 0 the consumer
+    raises this error instead of blocking forever on a wedged producer
+    (dead filesystem, livelocked source, crashed loader thread).
+    """

@@ -16,7 +16,8 @@ synchronous data-parallel part).
   gradients and Adasum-reduces the parameter delta (reference
   optimizers.py:177-183).
 * ``ZeroShardedOptimizer``: ZeRO weight-update sharding, stages 1-3
-  (reference optimizers.py:277-590).
+  (reference optimizers.py:277-590); its rank-distinct state is saved and
+  restored through the sharded checkpoint engine (``checkpoint/``).
 * ``allreduce_gradients``, ``grad``/``value_and_grad``,
   ``broadcast_parameters``, ``broadcast_optimizer_state``,
   ``broadcast_object`` and ``allgather_object`` (reference
@@ -25,6 +26,7 @@ synchronous data-parallel part).
 
 from __future__ import annotations
 
+import os
 import pickle
 from typing import Any, Callable, List, Mapping, Optional, Sequence
 
@@ -285,7 +287,10 @@ class DistributedOptimizer:
     def _adasum_step(self, params, closure):
         """The delta model (reference optimizers.py:177-183): the inner
         step on local gradients, then the parameters move by the Adasum of
-        every rank's delta."""
+        every rank's delta.  With ``backward_passes_per_step`` > 1 the
+        local gradients are first the scaled sum of the passes, as on the
+        other path (reference :200-207)."""
+        self._fold_passes(range(len(params)), params)
         with torch.no_grad():
             before = [p.detach().clone() for p in params]
         loss = self.optimizer.step(closure)
@@ -328,9 +333,10 @@ _ZERO_STAGE_REFUSAL = (
 
 
 _ZERO_CHECKPOINT = (
-    "ZeRO state is rank-distinct: it is saved and restored by the sharded "
-    "checkpoint engine, which is not ported yet (ROADMAP.md queue 1, "
-    "checkpointing)")
+    "ZeRO state is rank-distinct: its shards cannot travel in one dict.  "
+    "Save and restore it through the sharded checkpoint engine: "
+    "state_dict(path, step) / load_state_dict(path, step=None), or "
+    "horovod_tpu_torch.checkpoint.save_zero_state / restore_zero_state")
 
 
 class ZeroShardedOptimizer:
@@ -565,11 +571,62 @@ class ZeroShardedOptimizer:
             elif t.grad is not None:
                 t.grad.zero_()
 
-    def state_dict(self):
-        raise NotImplementedError(_ZERO_CHECKPOINT)
+    def state_dict(self, path: Optional[str] = None,
+                   step: Optional[int] = None, keep: Optional[int] = None,
+                   extra: Optional[dict] = None,
+                   params_path: Optional[str] = None):
+        """Write one committed step of this optimizer's state through the
+        sharded checkpoint engine (reference ``ZeroGradientTransformation.
+        state_dict``, optimizers.py:252-262): every member writes its
+        shard under ``path``, rank 0 commits the manifest last; call it on
+        every rank.  At stage 3 the parameter shards go to a root of their
+        own at the same step, ``params_path`` (default ``<path>-params``).
+        ``keep`` retains the newest steps; ``extra`` rides the manifest
+        (the loaders' state under ``checkpoint.DATA_ITERS_KEY``).  Returns
+        the optimizer state's manifest.
 
-    def load_state_dict(self, state_dict):
-        raise NotImplementedError(_ZERO_CHECKPOINT)
+        Called without ``path`` and ``step`` (torch's idiom) it raises
+        ``TypeError``: rank-distinct shards cannot travel in one dict."""
+        if path is None or step is None:
+            raise TypeError(_ZERO_CHECKPOINT)
+        from . import checkpoint as ckpt
+        manifest = ckpt.save_zero_state(path, self, step, keep=keep,
+                                        extra=extra)
+        if self.stage == 3:
+            ckpt.save_zero_state(self._params_root(path, params_path),
+                                 ckpt.ShardedParams(self), step, keep=keep)
+        return manifest
+
+    def load_state_dict(self, path, step: Optional[int] = None,
+                        params_path: Optional[str] = None):
+        """Restore the newest committed step under ``path`` (or ``step``)
+        in place, resharded for this world (reference
+        ``load_state_dict``, optimizers.py:264-271): the inner optimizer's
+        state (its shard tensors keep their identity), the residual and,
+        at stage 3, the parameter shards from ``params_path`` (default
+        ``<path>-params``).  Returns the restored step's manifest, whose
+        ``extra`` holds what ``state_dict`` stamped there.  A dict
+        (torch's idiom) raises ``TypeError``."""
+        if not isinstance(path, (str, os.PathLike)):
+            raise TypeError(_ZERO_CHECKPOINT)
+        from . import checkpoint as ckpt
+        if step is None:
+            step = ckpt.latest_step(path)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no committed checkpoint step under {path}")
+        ckpt.restore_zero_state(path, self, step)
+        if self.stage == 3:
+            ckpt.restore_zero_state(self._params_root(path, params_path),
+                                    ckpt.ShardedParams(self), step)
+        return ckpt.read_manifest(path, step)
+
+    @staticmethod
+    def _params_root(path, params_path) -> str:
+        """Stage 3's parameter root: ``params_path``, else beside
+        ``path``."""
+        return params_path if params_path is not None else \
+            os.path.normpath(os.fspath(path)) + "-params"
 
 
 # ---------------------------------------------------------------------------
@@ -641,11 +698,35 @@ def broadcast_parameters(params, root_rank: int = 0):
     return params
 
 
+def _wraps_zero(optimizer) -> bool:
+    """Whether ``optimizer`` is a ``ZeroShardedOptimizer`` or wraps one
+    through its ``optimizer`` attributes."""
+    while optimizer is not None:
+        if isinstance(optimizer, ZeroShardedOptimizer):
+            return True
+        # __dict__, not getattr: ZeroShardedOptimizer forwards attributes.
+        optimizer = getattr(optimizer, "__dict__", {}).get("optimizer")
+    return False
+
+
 def broadcast_optimizer_state(optimizer, root_rank: int = 0):
     """Overwrite the tensors of an optimizer's state in place with the
     root's (every rank must hold the same state structure — call it before
     the first step or after one).  Tensors that live off the communicator's
-    device (AdamW's ``step`` counts on the CPU) travel through it."""
+    device (AdamW's ``step`` counts on the CPU) travel through it.
+
+    ZeRO state is rank-distinct and refused with ``ValueError``, as the
+    reference refuses it (optimizers.py:674-690): it goes through the
+    sharded checkpoint engine instead."""
+    if _wraps_zero(optimizer):
+        raise ValueError(
+            "broadcast_optimizer_state on ZeroShardedOptimizer state "
+            "would overwrite rank-distinct shards with rank 0's slice; "
+            "use the sharded checkpoint engine instead — "
+            "horovod_tpu_torch.checkpoint.save_zero_state / "
+            "restore_zero_state (or the optimizer's state_dict(path, step) "
+            "/ load_state_dict(path) hooks), which writes per-rank shards "
+            "and reshards on restore when the world size changed")
     from .core.state import global_state
     opt = getattr(optimizer, "optimizer", optimizer)
     dev = global_state.device

@@ -4,8 +4,9 @@ of four gloo ranks that run them.  ``results``: one start
 test_torch_port_collectives.py and test_torch_port_compressed_optimizer.py
 read, so a test process starts the ranks once for both.  ``part_results``:
 one start per part of ``_torch_port_training_workers`` (overlap, adasum,
-zero, sbn) for the test file of that part.  The ranks fork from a server
-that imported torch once for all four."""
+zero, sbn) and of ``_torch_port_checkpoint_workers`` (ckpt) for the test
+file of that part.  The ranks fork from a server that imported torch once
+for all four."""
 
 import functools
 import json
@@ -73,7 +74,7 @@ def part_inputs(part: str) -> dict:
     """The seeded inputs of one part, per rank along axis 0 where they
     differ between ranks."""
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
-                                 "sbn": 14}[part])
+                                 "sbn": 14, "ckpt": 15}[part])
 
     def normal(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -97,6 +98,13 @@ def part_inputs(part: str) -> dict:
         return {"x": x.astype(np.float32), "y": normal(WORLD, 3, 130),
                 "w": normal(50), "g": normal(2, WORLD, 50),
                 "z": normal(WORLD, 1002), "t": normal(WORLD, 2, 5)}
+    if part == "ckpt":
+        return {"param.w": np.linspace(-1.0, 1.0, 12, dtype=np.float32)
+                .reshape(4, 3),
+                "param.b": np.linspace(0.5, 2.0, 10, dtype=np.float32),
+                "param.layers.u": normal(2, 3),
+                "param.layers.a": normal(7),
+                "x": normal(WORLD, 1, 4, scale=2.0)}
     if part == "zero":
         # Per-rank distinct rows, so the mean over ranks is a reduction.
         return dict(ZERO_PARAMS, x=np.arange(WORLD * 4, dtype=np.float32)
@@ -109,13 +117,20 @@ def part_inputs(part: str) -> dict:
 
 _RESULTS = {}
 _PARTS = {}
+_DIRS = {}
+
+
+def part_dir(part: str) -> str:
+    """The directory the ranks of ``part`` read and wrote."""
+    return _DIRS[part]
 
 
 def _spawn(body, out):
     import torch.multiprocessing as mp
     mp.get_context("forkserver").set_forkserver_preload(
         ["torch", "torch._dynamo", "horovod_tpu_torch",
-         "_torch_port_workers", "_torch_port_training_workers"])
+         "_torch_port_workers", "_torch_port_training_workers",
+         "_torch_port_checkpoint_workers"])
     mp.start_processes(body, args=(WORLD, f"{out}/rendezvous", str(out)),
                        nprocs=WORLD, join=True, start_method="forkserver")
 
@@ -128,20 +143,27 @@ def _save_lm(out) -> None:
                 for k, v in convert.params_from_jax(params).items()})
 
 
-def part_results(tmp_path_factory, part: str) -> list:
+def part_results(tmp_path_factory, part: str, prepare=None) -> list:
     """The four ranks' results of one part of
-    ``_torch_port_training_workers``, from one start of the ranks per part
-    and test process."""
+    ``_torch_port_training_workers`` (or ``_torch_port_checkpoint_workers``
+    for "ckpt"), from one start of the ranks per part and test process.
+    ``prepare(out_dir)`` writes what the ranks read beyond the part's
+    inputs, before they start; ``part_dir(part)`` is that directory."""
     if part not in _PARTS:
+        import _torch_port_checkpoint_workers as ckpt_workers
         import _torch_port_training_workers as workers
         out = tmp_path_factory.mktemp(f"{part}_pool")
         np.savez(os.path.join(out, f"{part}.npz"), **part_inputs(part))
         if part == "zero":
             _save_lm(out)
+        if prepare is not None:
+            prepare(str(out))
+        _DIRS[part] = str(out)
         _spawn({"overlap": workers.overlap_part,
                 "adasum": workers.adasum_part,
                 "zero": workers.zero_part,
-                "sbn": workers.sync_batch_norm_part}[part], out)
+                "sbn": workers.sync_batch_norm_part,
+                "ckpt": ckpt_workers.checkpoint_part}[part], out)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
                         for r in range(WORLD)]
     return _PARTS[part]

@@ -206,6 +206,23 @@ def adasum_part(rank, world, rendezvous, out_dir):
             res["world3"] = hvd.allreduce(x, op=hvd.Adasum)
         finally:
             hvd.shutdown()
+    if rank < 2:
+        # The delta model at backward_passes_per_step 2: pass q takes
+        # g[q // 2, 2 * (q % 2) + rank].
+        torch, hvd = _init(rank, 2, f"file://{rendezvous}_adasum2", 2)
+        try:
+            w = torch.nn.Parameter(torch.from_numpy(data["w"].copy()))
+            opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.1),
+                                           op=hvd.Adasum,
+                                           backward_passes_per_step=2)
+            res["bpps2"] = []
+            for q in range(4):
+                w.grad = torch.from_numpy(
+                    data["g"][q // 2, 2 * (q % 2) + rank].copy())
+                opt.step()
+                res["bpps2"].append(w.detach().clone())
+        finally:
+            hvd.shutdown()
     torch.save(res, os.path.join(out_dir, f"adasum{rank}.pt"))
 
 

@@ -108,6 +108,20 @@ def two_rank_checks(rank: int, world: int, init_method: str,
         res["opt_state"] = [
             [st["exp_avg"].tolist(), st["exp_avg_sq"].tolist(),
              float(st["step"])] for st in opt.state.values()]
+        # ZeRO's shards are rank-distinct: the broadcast must refuse them.
+        zp = torch.nn.Parameter(torch.zeros(6))
+        zero = hvd.ZeroShardedOptimizer([zp], torch.optim.Adam)
+        zp.grad = torch.ones(6)
+        zero.step()
+        (shard,) = zero.shards
+        zero.optimizer.state[shard]["exp_avg"].fill_(1.0 + rank)
+        try:
+            hvd.broadcast_optimizer_state(zero)
+            refusal = None
+        except ValueError as e:
+            refusal = str(e)
+        res["zero_broadcast"] = [refusal, [
+            zero.optimizer.state[shard]["exp_avg"].tolist()]]
         res["allreduce_gradients"] = {
             k: v.tolist() for k, v in hvd.allreduce_gradients(
                 {"a": x, "b": x * 2}).items()}

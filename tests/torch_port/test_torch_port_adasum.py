@@ -157,6 +157,44 @@ def test_delta_model_matches_reference(ranks, inputs):
                            - 0.1 * inputs["g"].sum(1).sum(0), atol=1e-3)
 
 
+@pytest.mark.timeout(150)
+def test_delta_model_backward_passes_match_reference(ranks, inputs):
+    """DistributedOptimizer(SGD(0.1), op=Adasum, backward_passes_per_step
+    =2) on 2 ranks, 4 passes: the inner step on the scaled sum of each
+    rank's passes, then Adasum of the delta, as the reference's
+    ``DistributedOptimizer(optax.sgd(0.1), op=Adasum,
+    backward_passes_per_step=2)``; the first pass of each pair leaves the
+    parameters as they were."""
+    tx = hvd_jax.DistributedOptimizer(optax.sgd(0.1), op=hvd_jax.Adasum,
+                                      backward_passes_per_step=2)
+    mesh = Mesh(np.array(jax.devices()[:2]), ("data",))
+
+    def run(gs, p):
+        s, out = tx.init(p), []
+        for q in range(4):
+            u, s = tx.update(gs[q, 0], s, p)
+            p = optax.apply_updates(p, u)
+            out.append(p)
+        return jnp.stack(out)
+
+    g = inputs["g"]       # (2, 4, 50): pass q, rank r -> g[q//2, 2(q%2)+r]
+    gs = np.stack([g[q // 2, 2 * (q % 2):2 * (q % 2) + 2]
+                   for q in range(4)])
+    want = jax.jit(shard_map(run, mesh=mesh, in_specs=(P(None, "data"), P()),
+                             out_specs=P(), check_vma=False))(
+        jnp.asarray(gs), jnp.asarray(inputs["w"]))
+    for r in range(2):
+        got = ranks[r]["bpps2"]
+        for q in range(4):
+            np.testing.assert_allclose(got[q].numpy(), np.asarray(want[q]),
+                                       rtol=0, atol=1e-6)
+        assert torch.equal(got[0], torch.from_numpy(inputs["w"]))
+        assert torch.equal(got[2], got[1])
+    # Summed and scaled, not the last pass alone.
+    last_only = inputs["w"] - 0.1 * gs[1].mean(0)
+    assert not np.allclose(np.asarray(want[1]), last_only, atol=1e-3)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n", [2, 3, 4, 5])
 def test_adasum_tree_matches_reference(n, dtype):

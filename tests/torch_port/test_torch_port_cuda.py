@@ -18,13 +18,17 @@ rtol 1e-4).
 
 The wire codec (torch ops, no kernel of its own) gives the CPU's bytes on
 the card, and a world-1 NCCL allreduce on each compressed wire gives the
-CPU's two-pass values bit for bit."""
+CPU's two-pass values bit for bit.  A ZeRO checkpoint of card-resident
+shards round-trips bit for bit on the card, and the DataLoader's pinned
+ring delivers batches bit-equal to their host rows while the next
+gathers are in flight."""
 
 import os
 import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -338,3 +342,95 @@ def test_cuda_zero_train_step_launches(cuda_device, stage):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", [1, 3])
+def test_cuda_zero_checkpoint_round_trip(cuda_device, stage, tmp_path):
+    """ZeroShardedOptimizer(AdamW) on the card, world 1 on NCCL: two steps,
+    state_dict, a fresh optimizer from other weights restored from it —
+    moments, the step count (torch's dtype and device) and, at stage 3,
+    the parameter shards equal bit for bit and stay on the card — then one
+    more step on each gives the same parameters."""
+    import functools
+    import horovod_tpu_torch as hvd
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-2, weight_decay=1e-3)
+
+    def build(seed):
+        g = torch.Generator().manual_seed(seed)
+        m = torch.nn.Linear(40, 24).to(cuda_device)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.copy_(torch.randn(p.shape, generator=g))
+        return m, hvd.ZeroShardedOptimizer(m, adamw, stage=stage)
+
+    def step(m, opt, x):
+        opt.zero_grad()
+        params = opt.gather_params() if stage == 3 else \
+            dict(m.named_parameters())
+        out = torch.func.functional_call(m, params, (x,))
+        out.square().mean().backward()
+        opt.step()
+
+    def params(m, opt):
+        with torch.no_grad():
+            return [t.clone() for t in (opt.gather_params().values()
+                                        if stage == 3 else m.parameters())]
+
+    hvd.init()
+    try:
+        x = torch.randn(8, 40, generator=torch.Generator().manual_seed(1)
+                        ).to(cuda_device)
+        m, opt = build(0)
+        step(m, opt, x)
+        step(m, opt, x)
+        opt.state_dict(str(tmp_path / "opt"), step=2)
+        m2, opt2 = build(7)
+        if stage < 3:
+            with torch.no_grad():
+                for a, b in zip(m2.parameters(), m.parameters()):
+                    a.copy_(b)
+        opt2.load_state_dict(str(tmp_path / "opt"))
+        for s1, s2 in zip(opt.shards, opt2.shards):
+            a, b = opt.optimizer.state[s1], opt2.optimizer.state[s2]
+            assert sorted(a) == sorted(b)
+            for k in a:
+                assert b[k].device == a[k].device and b[k].dtype == a[k].dtype
+                assert torch.equal(a[k], b[k]), k
+            assert s2.is_cuda and (stage < 3 or torch.equal(s1, s2))
+        step(m, opt, x)
+        step(m2, opt2, x)
+        for a, b in zip(params(m, opt), params(m2, opt2)):
+            assert torch.equal(a, b)
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_cuda_loader_pinned_ring(cuda_device, prefetch):
+    """DataLoader(device="cuda"): batches arrive on the card equal, bit for
+    bit, to the host rows the sampler selects, also when the side stream's
+    copies are held back while the producer gathers the next batches into
+    the ring's pinned slots (depth 1: two slots)."""
+    from horovod_tpu_torch.data import (ArraySource, DataLoader,
+                                        ShardedIndexSampler)
+    x = np.random.default_rng(0).integers(0, 8192, (64, 513),
+                                          dtype=np.int32)
+    loader = DataLoader(ArraySource(x), 4, seed=3, prefetch=prefetch,
+                        queue_depth=1, device=cuda_device)
+    want = [x[i] for i in ShardedIndexSampler(64, 4, seed=3)]
+    got = []
+    for i, batch in enumerate(loader):
+        if i == 0:
+            # Hold the copies back: the producer now fills the other slot
+            # and must wait for this one's copy before it writes it again.
+            with torch.cuda.stream(loader._feed._stream):
+                torch.cuda._sleep(200_000_000)
+        assert batch.is_cuda and batch.dtype == torch.int32
+        got.append(batch)
+    loader.close()
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == 16
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), torch.from_numpy(b))

@@ -36,6 +36,9 @@ def test_imports_without_jax():
         "from horovod_tpu_torch.ops import _build, collective, compression, "
         "flash_attention, quantization\n"
         "from horovod_tpu_torch.parallel import ring_attention\n"
+        "from horovod_tpu_torch import checkpoint, data\n"
+        "from horovod_tpu_torch.checkpoint import engine, zero\n"
+        "from horovod_tpu_torch.utils import checkpoint as utils_ckpt\n"
         "bad = [m for m in sys.modules if m == 'horovod_tpu' or "
         "m.startswith('horovod_tpu.')]\n"
         "assert not bad, bad\n"

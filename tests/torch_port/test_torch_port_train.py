@@ -119,10 +119,42 @@ def test_backward_passes_per_step_matches_reference(world1):
         np.testing.assert_allclose(w.detach().numpy(), ref, atol=1e-6)
 
 
+def test_adasum_backward_passes_equal_average_at_world_one(world1):
+    """With backward_passes_per_step 2, Adasum's delta model steps on the
+    scaled sum of the passes (reference optimizers.py:200-207); at world 1
+    its reduction is the identity, so it equals Average: SGD(lr 1) on
+    (1, 2, 3, 4) then (3, 2, 1, 0) moves p by -(2, 2, 2, 2).  Unscaled
+    and unsummed it would move by the last pass alone."""
+    got = {}
+    for op in (hvd.Average, hvd.Adasum):
+        for average in (True, False):
+            p = torch.nn.Parameter(torch.zeros(4))
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD([p], lr=1.0), op=op,
+                backward_passes_per_step=2,
+                average_aggregated_gradients=average)
+            traj = []
+            for g in ([1.0, 2.0, 3.0, 4.0], [3.0, 2.0, 1.0, 0.0]) * 2:
+                p.grad = torch.tensor(g)
+                opt.step()
+                traj.append(p.detach().clone())
+            got[op, average] = traj
+    want = torch.tensor([-2.0, -2.0, -2.0, -2.0])
+    for average, scale in ((True, 1.0), (False, 2.0)):
+        adasum, mean = got[hvd.Adasum, average], got[hvd.Average, average]
+        assert torch.equal(adasum[0], torch.zeros(4))   # pass 1 waits
+        torch.testing.assert_close(adasum[1], scale * want, rtol=0, atol=0)
+        torch.testing.assert_close(adasum[3], 2 * scale * want, rtol=0,
+                                   atol=0)
+        for a, b in zip(adasum, mean):
+            assert torch.equal(a, b)
+
+
 def test_unported_options_raise(world1):
-    """What is not ported raises naming its ROADMAP item (ZeRO's sharded
-    checkpoints); Adasum, which did, now runs: at world 1 its reduction is
-    the identity, so an SGD step moves p by -lr g through p + (p' - p)."""
+    """What is refused says where to go instead (ZeRO state: the sharded
+    checkpoint engine, not a dict); Adasum, which once raised, runs: at
+    world 1 its reduction is the identity, so an SGD step moves p by
+    -lr g through p + (p' - p)."""
     p = torch.nn.Parameter(torch.zeros(2))
     opt = hvd.DistributedOptimizer(torch.optim.SGD([p], lr=0.1),
                                    op=hvd.Adasum)
@@ -130,7 +162,7 @@ def test_unported_options_raise(world1):
     opt.step()
     torch.testing.assert_close(p.detach(), torch.tensor([-0.1, 0.2]))
     zero = hvd.ZeroShardedOptimizer([p], torch.optim.SGD)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="sharded checkpoint engine"):
         zero.state_dict()
     with pytest.raises(ValueError, match="floating tensor"):
         hvd.allreduce(torch.zeros(2, dtype=torch.int32), compression="int8")
@@ -339,3 +371,16 @@ def test_two_ranks_broadcast_optimizer_state(two_ranks):
     """Rank 1 perturbed its moments; the broadcast restored rank 0's."""
     state = _same_on_both(two_ranks, "opt_state")
     assert [s[2] for s in state] == [2.0, 2.0]
+
+
+@pytest.mark.timeout(150)
+def test_two_ranks_broadcast_refuses_zero_state(two_ranks):
+    """ZeRO state is rank-distinct: broadcast_optimizer_state refuses it on
+    every rank, as the reference does (optimizers.py:674-690), and points
+    at the checkpoint engine; each rank's shard moments stay its own."""
+    for r, res in enumerate(two_ranks):
+        msg, moments = res["zero_broadcast"]
+        assert "rank-distinct" in msg and "save_zero_state" in msg
+        assert moments == [[1.0 + r] * 3]
+    assert two_ranks[0]["zero_broadcast"][1] != \
+        two_ranks[1]["zero_broadcast"][1]

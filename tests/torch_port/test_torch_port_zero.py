@@ -196,10 +196,12 @@ def test_stage_validation(world1, stage):
 
 
 def test_zero_state_dict_names_its_roadmap_item(world1):
+    """torch's dict idiom is refused with a TypeError that names the
+    sharded checkpoint engine, which saves ZeRO state instead."""
     opt = hvd.ZeroShardedOptimizer([torch.nn.Parameter(torch.ones(3))],
                                    functools.partial(torch.optim.SGD, lr=0.1))
     for call in (opt.state_dict, lambda: opt.load_state_dict({})):
-        with pytest.raises(NotImplementedError, match="checkpointing"):
+        with pytest.raises(TypeError, match="sharded checkpoint engine"):
             call()
     with pytest.raises(ValueError, match="Sum or Average"):
         hvd.ZeroShardedOptimizer([torch.nn.Parameter(torch.ones(3))],
