@@ -158,21 +158,35 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a host numpy array (one device-to-host copy); bf16,
-    which numpy lacks, widens losslessly to fp32."""
+    """A tensor as a host numpy array (one device-to-host copy).  numpy
+    has no bfloat16, so a bf16 tensor becomes its raw 2-byte words
+    (dtype ``V2``), the form the reference's ``np.savez`` gives a bf16
+    array: the same bits on disk, stamped ``"bfloat16"``."""
     t = t.detach()
     if t.dtype == torch.bfloat16:
-        t = t.float()
+        return t.view(torch.int16).cpu().numpy().view("V2")
     return t.cpu().numpy()
 
 
+def from_host(value) -> torch.Tensor:
+    """A host array as a CPU tensor: raw 2-byte words (``V2``, as
+    :func:`to_host` and the reference's shard files hold bf16) and
+    ml_dtypes' ``bfloat16`` (a reference pickle) become bf16."""
+    value = np.array(value)
+    if value.dtype.kind == "V" and value.dtype.itemsize == 2:
+        return torch.from_numpy(value.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(value)
+
+
 def _copy_into(t: torch.Tensor, value: np.ndarray, what: str) -> torch.Tensor:
+    """Copy a stored array into ``t`` in place; its shape must be
+    ``t``'s."""
     value = np.asarray(value)
     if tuple(value.shape) != tuple(t.shape):
         raise ValueError(f"{what}: checkpoint value of shape "
                          f"{tuple(value.shape)} does not fit {tuple(t.shape)}")
     with torch.no_grad():
-        t.copy_(torch.from_numpy(np.array(value)))
+        t.copy_(from_host(value))
     return t
 
 
@@ -311,9 +325,7 @@ def _plain_leaf(path: str, leaf) -> _Leaf:
     """A tensor, array or scalar of the tree: replicated; a tensor is
     restored in place, anything else is returned as the stored array."""
     if isinstance(leaf, torch.Tensor):
-        shape = list(leaf.shape)
-        dtype = "float32" if leaf.dtype == torch.bfloat16 \
-            else _dtype_name(leaf.dtype)
+        shape, dtype = list(leaf.shape), _dtype_name(leaf.dtype)
         get = lambda: to_host(leaf)  # noqa: E731
     else:
         host = np.asarray(leaf)

@@ -130,12 +130,13 @@ class DataLoader:
         ``HVD_TPU_DATA_PREFETCH`` (on).
       queue_depth: prefetch queue depth; default
         ``HVD_TPU_DATA_QUEUE_DEPTH`` (2 = double buffering).
-      device: where batches are delivered, as torch tensors: ``"cuda"``
-        (through the pinned ring and a side stream), a CUDA device, or
-        ``"cpu"``.  ``None`` with no ``transfer`` yields the host numpy
-        batches.
+      device: where batches are delivered, as torch tensors: a CUDA
+        device (through the pinned ring and a side stream) or ``"cpu"``.
+        ``None`` means the runtime's card (``init()``'s device, else the
+        current CUDA device) and raises when there is none.
       transfer: applied to each host batch in the producer, in place of
-        ``device``'s copy.
+        ``device``'s copy (``transfer=lambda b: b`` yields the host
+        numpy batches).
       stall_timeout_s: hard ceiling on waiting for one batch; default
         ``HVD_TPU_DATA_STALL_TIMEOUT_SECONDS`` (0 = warn only).
     """
@@ -168,7 +169,7 @@ class DataLoader:
         if device is not None and transfer is not None:
             raise ValueError("pass either transfer= or device=, not both")
         self._feed = None
-        if device is not None:
+        if transfer is None:
             from ..core.basics import resolve_device
             self._feed = _DeviceFeed(resolve_device(device),
                                      slots=self._depth + 1)

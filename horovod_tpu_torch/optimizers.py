@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import shutil
 from typing import Any, Callable, List, Mapping, Optional, Sequence
 
 import torch
@@ -580,21 +581,34 @@ class ZeroShardedOptimizer:
         state_dict``, optimizers.py:252-262): every member writes its
         shard under ``path``, rank 0 commits the manifest last; call it on
         every rank.  At stage 3 the parameter shards go to a root of their
-        own at the same step, ``params_path`` (default ``<path>-params``).
-        ``keep`` retains the newest steps; ``extra`` rides the manifest
-        (the loaders' state under ``checkpoint.DATA_ITERS_KEY``).  Returns
-        the optimizer state's manifest.
+        own at the same step, ``params_path`` (default ``<path>-params``),
+        written first: the optimizer root's manifest commits the pair, so
+        its newest step always has its parameters.  ``keep`` retains the
+        newest steps; ``extra`` rides the manifest (the loaders' state
+        under ``checkpoint.DATA_ITERS_KEY``).  Returns the optimizer
+        state's manifest.
 
         Called without ``path`` and ``step`` (torch's idiom) it raises
         ``TypeError``: rank-distinct shards cannot travel in one dict."""
         if path is None or step is None:
             raise TypeError(_ZERO_CHECKPOINT)
         from . import checkpoint as ckpt
+        if self.stage < 3:
+            return ckpt.save_zero_state(path, self, step, keep=keep,
+                                        extra=extra)
+        proot = self._params_root(path, params_path)
+        if self.index == 0 and ckpt.is_committed(proot, step) \
+                and not ckpt.is_committed(path, step):
+            # The parameters of a save that died before its optimizer
+            # step: no pair holds them, so this save replaces them.
+            shutil.rmtree(ckpt.step_dir(proot, step))
+        if self.world > 1:
+            C.barrier()
+        ckpt.save_zero_state(proot, ckpt.ShardedParams(self), step)
         manifest = ckpt.save_zero_state(path, self, step, keep=keep,
                                         extra=extra)
-        if self.stage == 3:
-            ckpt.save_zero_state(self._params_root(path, params_path),
-                                 ckpt.ShardedParams(self), step, keep=keep)
+        if keep is not None and self.index == 0:
+            ckpt.gc_steps(proot, keep=keep)
         return manifest
 
     def load_state_dict(self, path, step: Optional[int] = None,
@@ -604,21 +618,32 @@ class ZeroShardedOptimizer:
         ``load_state_dict``, optimizers.py:264-271): the inner optimizer's
         state (its shard tensors keep their identity), the residual and,
         at stage 3, the parameter shards from ``params_path`` (default
-        ``<path>-params``).  Returns the restored step's manifest, whose
+        ``<path>-params``; the newest step is then the newest committed
+        under both roots, and a step missing from either is refused before
+        any tensor changes).  Returns the restored step's manifest, whose
         ``extra`` holds what ``state_dict`` stamped there.  A dict
         (torch's idiom) raises ``TypeError``."""
         if not isinstance(path, (str, os.PathLike)):
             raise TypeError(_ZERO_CHECKPOINT)
         from . import checkpoint as ckpt
+        roots = [path]
+        if self.stage == 3:
+            roots.append(self._params_root(path, params_path))
         if step is None:
-            step = ckpt.latest_step(path)
-            if step is None:
+            common = set.intersection(*(set(ckpt.list_steps(r))
+                                        for r in roots))
+            if not common:
                 raise FileNotFoundError(
-                    f"no committed checkpoint step under {path}")
+                    "no checkpoint step committed under "
+                    + " and ".join(map(str, roots)))
+            step = max(common)
+        for r in roots:
+            if not ckpt.is_committed(r, step):
+                raise FileNotFoundError(
+                    f"step {step} is not committed under {r}")
         ckpt.restore_zero_state(path, self, step)
         if self.stage == 3:
-            ckpt.restore_zero_state(self._params_root(path, params_path),
-                                    ckpt.ShardedParams(self), step)
+            ckpt.restore_zero_state(roots[1], ckpt.ShardedParams(self), step)
         return ckpt.read_manifest(path, step)
 
     @staticmethod

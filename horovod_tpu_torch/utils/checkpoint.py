@@ -20,7 +20,6 @@ import os
 import pickle
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
 from ..checkpoint import engine as E
@@ -28,8 +27,9 @@ from ..checkpoint import zero as Z
 
 
 def _host_tree(tree):
-    """``tree`` with every tensor as a host numpy array (bf16 widened to
-    fp32, losslessly), dicts, lists and tuples kept."""
+    """``tree`` with every tensor as a host numpy array (bf16 as its raw
+    2-byte words, ``checkpoint.zero.to_host``), dicts, lists and tuples
+    kept."""
     if isinstance(tree, torch.Tensor):
         return Z.to_host(tree)
     if isinstance(tree, dict):
@@ -39,19 +39,21 @@ def _host_tree(tree):
     return tree
 
 
-def _into(target, value):
-    """Copy ``value``'s arrays into ``target``'s tensors in place; returns
-    ``target``'s structure holding them (and ``value``'s other leaves)."""
+def _into(target, value, path: str = ""):
+    """Copy ``value``'s arrays into ``target``'s tensors in place (each of
+    the tensor's shape); returns ``target``'s structure holding them (and
+    ``value``'s other leaves)."""
     if isinstance(target, torch.Tensor):
-        with torch.no_grad():
-            target.copy_(torch.from_numpy(np.array(value)).reshape(
-                target.shape))
-        return target
+        return Z._copy_into(target, value, path or "checkpoint")
     if isinstance(target, dict):
-        return type(target)((k, _into(v, value[k]))
+        return type(target)((k, _into(v, value[k], f"{path}[{k!r}]"))
                             for k, v in target.items())
     if isinstance(target, (list, tuple)) and not hasattr(target, "_fields"):
-        return type(target)(_into(t, v) for t, v in zip(target, value))
+        if len(value) != len(target):
+            raise ValueError(f"checkpoint{path}: {len(value)} stored "
+                             f"values for {len(target)} targets")
+        return type(target)(_into(t, v, f"{path}[{i}]")
+                            for i, (t, v) in enumerate(zip(target, value)))
     return value
 
 

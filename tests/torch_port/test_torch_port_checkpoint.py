@@ -593,3 +593,115 @@ def test_zero_checkpoint_refusals(tmp_path, world1):
     rms = hvd.ZeroShardedOptimizer(m, torch.optim.RMSprop)
     with pytest.raises(ValueError, match="Adam, torch.optim.AdamW and"):
         rms.state_dict(str(tmp_path / "rms"), step=1)
+
+
+def _states_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] if isinstance(a[k], float) else torch.equal(a[k], b[k])
+        for k in a)
+
+
+def test_stage3_pair_commits_with_the_optimizer_root(tmp_path, world1):
+    """At stage 3 the optimizer root's manifest commits the pair with the
+    parameter root: a save that died after its parameter step is not
+    restored, a step missing from either root is refused before any
+    tensor changes, the newest step committed under both is the one
+    restored, and the next save of the step replaces the orphaned
+    parameters."""
+    m = W.model(torch, {n: _inputs()[f"param.{n}"] for n in W.NAMES})
+    opt = W.optimizer(torch, hvd, m, "s3-adamw")
+    x = torch.from_numpy(_inputs()["x"][0].copy())
+    root = str(tmp_path / "opt")
+    proot = root + "-params"
+    W.step(m, opt, x)
+    opt.state_dict(root, step=1)
+    at1 = W.dump(opt)
+    W.step(m, opt, x)
+    opt.state_dict(root, step=2)
+    at2 = W.dump(opt)
+    assert ckpt.list_steps(root) == ckpt.list_steps(proot) == [1, 2]
+    # Torn after the parameters (the order state_dict writes in), then
+    # torn the other way round; only the first can be saved over.
+    for torn, whole in ((root, proot), (proot, root)):
+        os.remove(os.path.join(ckpt.step_dir(torn, 2), ckpt.MANIFEST_NAME))
+        assert ckpt.list_steps(torn) == [1] and \
+            ckpt.list_steps(whole) == [1, 2]
+        W.step(m, opt, x)
+        before = W.dump(opt)
+        with pytest.raises(FileNotFoundError, match="not committed"):
+            opt.load_state_dict(root, step=2)
+        assert _states_equal(W.dump(opt), before)
+        assert opt.load_state_dict(root).step == 1
+        assert _states_equal(W.dump(opt), at1)
+        W.step(m, opt, x)
+        if torn == root:
+            opt.state_dict(root, step=2)     # replaces the orphan
+            assert ckpt.list_steps(root) == ckpt.list_steps(proot) == [1, 2]
+            assert _states_equal(W.dump(opt), at2)
+            opt.load_state_dict(root)
+            assert _states_equal(W.dump(opt), at2)
+    opt.state_dict(root, step=3, keep=1)
+    assert ckpt.list_steps(root) == ckpt.list_steps(proot) == [3]
+
+
+def test_bf16_leaf_crosses_packages(tmp_path, monkeypatch, world1):
+    """A bf16 leaf is stamped "bfloat16" and stored as its raw 2-byte
+    words, as the reference stores one: the manifests and fingerprints are
+    equal, each package restores the other's bits, and the replicated
+    pickle carries the same bits both ways."""
+    import ml_dtypes
+    bits = np.asarray([0x3FC0, 0xC010, 0x4040, 0x0001, 0xFF80], np.uint16)
+    e = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+    f = torch.linspace(-1.0, 1.0, 3)
+    like = {"e": jnp.asarray(bits.view(ml_dtypes.bfloat16)),
+            "f": jnp.asarray(f.numpy())}
+    port_root, ref_root = str(tmp_path / "port"), str(tmp_path / "ref")
+    ckpt.save_zero_state(port_root, {"e": e, "f": f}, 0)
+    ckpt_jax.save_zero_state(ref_root, like, 0, mesh=_mesh(1),
+                             axis_name="data")
+    port = ckpt_jax.read_manifest(port_root, 0)
+    ref = ckpt_jax.read_manifest(ref_root, 0)
+    assert port.to_json() == ref.to_json()
+    assert [l.dtype for l in port.leaves] == ["bfloat16", "float32"]
+    shard = ckpt.shard_filename(0, 1)
+    for key in ("['e']", "['f']"):
+        a, b = (np.load(os.path.join(r, ckpt.step_dirname(0), shard))[key]
+                for r in (port_root, ref_root))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    back = ckpt_jax.restore_zero_state(port_root, like, mesh=_mesh(1),
+                                       axis_name="data")
+    np.testing.assert_array_equal(np.asarray(back["e"]).view(np.uint16),
+                                  bits)
+    target = {"e": torch.zeros(5, dtype=torch.bfloat16), "f": torch.zeros(3)}
+    out = ckpt.restore_zero_state(ref_root, target)
+    assert out["e"] is target["e"] and torch.equal(out["f"], f)
+    np.testing.assert_array_equal(
+        target["e"].view(torch.int16).numpy().view(np.uint16), bits)
+
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    from horovod_tpu.utils import checkpoint as utils_jax
+    utils_ckpt.save_checkpoint(str(tmp_path / "p"), {"e": e}, step=0)
+    stored = utils_jax.restore_checkpoint(str(tmp_path / "p"), step=0)["e"]
+    np.testing.assert_array_equal(np.asarray(stored).view(np.uint16), bits)
+    utils_jax.save_checkpoint(str(tmp_path / "r"),
+                              {"e": np.asarray(like["e"])}, rank=0)
+    target = {"e": torch.zeros(5, dtype=torch.bfloat16)}
+    utils_ckpt.restore_checkpoint(str(tmp_path / "r"), target=target)
+    np.testing.assert_array_equal(
+        target["e"].view(torch.int16).numpy().view(np.uint16), bits)
+
+
+def test_pickle_restore_checks_shapes(tmp_path, world1):
+    """A stored array is copied only into a tensor of its own shape, and a
+    list only into a list of its own length."""
+    path = str(tmp_path / "p")
+    utils_ckpt.save_checkpoint(path, {"w": torch.arange(12.0).reshape(4, 3),
+                                      "l": [torch.ones(2), torch.ones(2)]})
+    for target in ({"w": torch.zeros(3, 4), "l": [torch.zeros(2)] * 2},
+                   {"w": torch.zeros(12), "l": [torch.zeros(2)] * 2}):
+        with pytest.raises(ValueError, match=r"\['w'\].*does not fit"):
+            utils_ckpt.restore_checkpoint(path, target=target)
+    with pytest.raises(ValueError, match=r"\['l'\]: 2 stored values for 1"):
+        utils_ckpt.restore_checkpoint(path, target={
+            "w": torch.zeros(4, 3), "l": [torch.zeros(2)]})

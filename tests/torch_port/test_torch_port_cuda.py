@@ -434,3 +434,21 @@ def test_cuda_loader_pinned_ring(cuda_device, prefetch):
     assert len(got) == len(want) == 16
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), torch.from_numpy(b))
+
+
+@pytest.mark.cuda
+def test_cuda_loader_defaults_to_the_card(cuda_device):
+    """DataLoader without device: the batches arrive on the current CUDA
+    device, equal to the host rows the sampler selects."""
+    from horovod_tpu_torch.data import (ArraySource, DataLoader,
+                                        ShardedIndexSampler)
+    x = np.random.default_rng(1).integers(0, 8192, (32, 65), dtype=np.int32)
+    with torch.cuda.device(cuda_device):
+        loader = DataLoader(ArraySource(x), 4, seed=5)
+        got = list(loader)
+        loader.close()
+    want = [x[i] for i in ShardedIndexSampler(32, 4, seed=5)]
+    assert len(got) == len(want) == 8
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.device.index == torch.cuda.current_device()
+        assert torch.equal(a.cpu(), torch.from_numpy(b))

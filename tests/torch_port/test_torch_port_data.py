@@ -12,7 +12,8 @@ modelled on tests/test_data_pipeline.py.
   world 2: the union of consumed indices is the epoch's, exactly; the
   state rides a ZeRO checkpoint's manifest, and the reference reads it.
 * ``DataLoader(device="cpu")`` yields tensors equal to the reference
-  loader's batches; the knobs parse as the reference's do."""
+  loader's batches; without ``device`` it delivers to the card and
+  raises where there is none; the knobs parse as the reference's do."""
 
 import os
 import threading
@@ -125,7 +126,7 @@ class _SlowSource(ArraySource):
 
 def test_prefetch_close_joins_producer_thread():
     loader = DataLoader(_SlowSource(400, 0.01), 4, prefetch=True,
-                        queue_depth=2)
+                        queue_depth=2, device="cpu")
     next(iter(loader))
     assert _live_producer_threads()
     loader.close()
@@ -144,7 +145,7 @@ def test_prefetch_propagates_producer_exception():
             return super().gather(indices)
 
     loader = DataLoader(_Boom(np.arange(16)), 4, shuffle=False,
-                        prefetch=True)
+                        prefetch=True, device="cpu")
     it = iter(loader)
     next(it), next(it)
     with pytest.raises(RuntimeError, match="decode failed"):
@@ -173,7 +174,7 @@ def test_prefetch_stall_timeout_raises_instead_of_hanging():
 
 def test_prefetch_depth_bounds_runahead_and_state_is_the_consumers():
     loader = DataLoader(_SlowSource(400, 0.0), 4, shuffle=False,
-                        prefetch=True, queue_depth=3)
+                        prefetch=True, queue_depth=3, device="cpu")
     assert loader.state_dict()["cursor"] == 0
     it = iter(loader)
     next(it), next(it)
@@ -198,7 +199,8 @@ def test_resume_no_dupes_no_drops(shuffle, restore_world):
     n, batch, k = 64, 2, 3
     src = ArraySource(np.arange(n))
     loaders = [DataLoader(src, batch, world_size=4, rank=r, shuffle=shuffle,
-                          seed=3, prefetch=True) for r in range(4)]
+                          seed=3, prefetch=True, device="cpu")
+               for r in range(4)]
     its = [iter(ld) for ld in loaders]
     consumed = [i for _ in range(k) for it in its
                 for i in next(it).tolist()]
@@ -207,7 +209,8 @@ def test_resume_no_dupes_no_drops(shuffle, restore_world):
         ld.close()
     # A relaunch with wrong knobs: the state fixes them.
     new = [DataLoader(src, batch, world_size=restore_world, rank=r,
-                      shuffle=not shuffle, seed=999, prefetch=True)
+                      shuffle=not shuffle, seed=999, prefetch=True,
+                      device="cpu")
            for r in range(restore_world)]
     for ld in new:
         ld.load_state_dict(state)
@@ -262,9 +265,10 @@ def test_loader_topology_follows_the_runtime():
     finally:
         hvd.shutdown()
     with pytest.raises(ValueError, match="explicit world_size"):
-        DataLoader(ArraySource(np.arange(8)), 2, rank=1)
+        DataLoader(ArraySource(np.arange(8)), 2, rank=1, device="cpu")
     with pytest.raises(ValueError, match="out of range"):
-        DataLoader(ArraySource(np.arange(32)), 8, world_size=4, rank=4)
+        DataLoader(ArraySource(np.arange(32)), 8, world_size=4, rank=4,
+                   device="cpu")
     with pytest.raises(ValueError, match="not both"):
         DataLoader(ArraySource(np.arange(8)), 2, device="cpu",
                    transfer=lambda b: b)
@@ -292,6 +296,30 @@ def test_data_knobs_parse_as_reference(monkeypatch):
         assert got == want == (ref.data_prefetch, ref.data_queue_depth,
                                ref.data_stall_timeout_seconds,
                                ref.stall_warning_time_seconds)
-    loader = DataLoader(ArraySource(np.arange(8)), 2)
+    loader = DataLoader(ArraySource(np.arange(8)), 2, device="cpu")
     assert loader._prefetch is False and loader._depth == 1
     loader.close()
+
+
+def test_loader_delivers_to_the_card_unless_asked(monkeypatch):
+    """Without ``device`` the loader delivers to the runtime's card and
+    raises where there is none; ``device="cpu"`` delivers CPU tensors and
+    ``transfer=`` the caller's form (here the host numpy batches)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    src = ArraySource(np.arange(8, dtype=np.int32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataLoader(src, 2)
+    for kw, kind in (({"device": "cpu"}, torch.Tensor),
+                     ({"transfer": lambda b: b}, np.ndarray)):
+        loader = DataLoader(src, 2, shuffle=False, prefetch=False, **kw)
+        got = list(loader)
+        assert all(isinstance(b, kind) for b in got)
+        assert [int(i) for b in got for i in b] == list(range(8))
+        loader.close()
+    hvd.init(device="cpu")
+    try:     # the runtime's device is the default's card
+        loader = DataLoader(src, 2, prefetch=False)
+        assert loader._feed.device == torch.device("cpu")
+        loader.close()
+    finally:
+        hvd.shutdown()
