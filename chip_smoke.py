@@ -82,10 +82,32 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              per step.  Bytes a save, save and restore seconds, and the
              host step fed by the loader against one fixed batch are
              reported.  Last, Adasum at backward_passes_per_step 2 against
-             Average at world 1 (within 1.5 eps max(|p0|, |p'|)).
+             Average at world 1 (within 1.5 eps max(|p0|, |p'|));
+9. gspmd   — the flagship through gspmd.make_zero_train_step on
+             hvd.mesh() (world 1 on NCCL, AdamW(3e-4, wd 1e-4), 10 steps)
+             at stages 1, 2, 3 and stage 2 on int8, each beside the flat
+             ZeroShardedOptimizer in turns (flat, gspmd, gspmd, flat): losses
+             within rtol 1e-5 of the flat plane's (and of phase 7's run
+             where it has the configuration), host step, peak memory,
+             collectives a step, residency_report (ratio 1.0 at world 1),
+             every kernel once per layer per step; int8's
+             plan_allreduce_step bytes equal two of phase 5's measured
+             passes;
+10. sequence — ring_attention and ulysses_attention at world 1 on NCCL,
+             (8, 512, 8, 64) causal, equal to full_attention bit for bit
+             (out, dq, dk, dv); then a ring of 4 through the one-process
+             seam (ring_attention._ring_attention_shards) at
+             (1, 8192, 16, 64), causal and not, against one kernel call
+             over the whole sequence (out and lse, dq/dk/dv, the kernels'
+             tolerances): 16 launches of each kernel, the launches on
+             fully masked blocks, the walk's device time against the one
+             call's (CUDA-graph replays), combine_blocks', and one fully
+             masked launch's against an unmasked one's.
 
-The last lines are the card line, a JSON line with one entry per kernel,
-and ``{"ok": true, "device": {...}}``.  Detailed numbers also go to
+The last lines are the card line, a JSON line with one entry per kernel
+(``launches`` on the main path of phase 4, ``launches_by_path`` on every
+path, each counted from 0 just before it ran), and
+``{"ok": true, "device": {...}}``.  Detailed numbers also go to
 chiprun_out/chip_smoke.json.  Without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -250,15 +272,15 @@ def time_ms(torch, fn, iters, reps=3):
     return ms
 
 
-def bounds(b, s, h, d):
-    """Least time (ms) for each kernel at a causal (b, s, h, d) self-
-    attention: bytes each input read once and each output written once over
-    HBM bandwidth, vs the unmasked (q, k) pairs' tensor-core FLOPs over the
+def bounds(b, s, h, d, causal=True):
+    """Least time (ms) for each kernel at a (b, s, h, d) self-attention:
+    bytes each input read once and each output written once over HBM
+    bandwidth, vs the unmasked (q, k) pairs' tensor-core FLOPs over the
     bf16 peak; the larger wins.  dQ reads q, k, v, dO, O and lse and writes
     dQ and δ; dK/dV reads q, k, v, dO, lse and δ and writes dK and dV."""
     act = b * s * h * d * 2          # one bf16 (B, S, H, D) tensor
     row = b * h * s * 4              # one fp32 (B, H, S) row statistic
-    pairs = b * h * s * (s + 1) // 2
+    pairs = b * h * s * (s + 1) // 2 if causal else b * h * s * s
     work = {  # (bytes, flops): products of 2*d FLOPs per pair each
         "flash_fwd": (3 * act + act + row, 2 * 2 * d * pairs),
         "flash_bwd_dq": ((5 * act + row) + (act + row), 3 * 2 * d * pairs),
@@ -1063,6 +1085,251 @@ def phase_checkpoint(torch, hvd, tfm, fa, cfg, par, card):
     return out
 
 
+# Phase 9: the GSPMD plane's configurations (stage, wire), and the
+# collectives counted at torch.distributed.
+GSPMD_CONFIGS = ((1, None), (2, None), (3, None), (2, "int8"))
+COUNTED = ("all_reduce", "all_to_all_single", "all_gather_into_tensor",
+           "reduce_scatter_tensor")
+# Phase 10: the ring of 4 through the one-process seam at long context.
+RING_SHAPE, RING_MEMBERS = (1, 8192, 16, 64), 4
+
+
+def zero_plane_run(torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+                   stage, wire, plane):
+    """``n_steps`` AdamW(3e-4, wd 1e-4) steps of a fresh seed-0 flagship at
+    ZeRO ``stage`` on ``wire``: through ``ZeroShardedOptimizer`` and
+    ``make_train_step`` (plane "flat", phase 7's) or through
+    ``gspmd.make_zero_train_step`` on ``hvd.mesh()`` (plane "gspmd", the
+    module's parameters given up for the placed copies).  Losses, host
+    seconds a step, collectives a step (steps 1..), the kernels' launches,
+    peak bytes above the run's start and, for gspmd, the residency
+    report."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import gspmd
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = tfm.Transformer(cfg, par, seed=0)
+    if plane == "flat":
+        train = tfm.make_train_step(
+            cfg, par, model, hvd.ZeroShardedOptimizer(
+                model, adamw, stage=stage, compression=wire))
+
+        def step():
+            return train(tokens, labels)
+    else:
+        fns = gspmd.make_zero_train_step(
+            lambda p, batch: torch.func.functional_call(model, p, batch),
+            adamw, hvd.mesh(), stage=stage, compression=wire)
+        params, state = fns.init(dict(model.named_parameters()))
+        for p in model.parameters():
+            p.data = p.data.new_empty(0)
+
+        def step():
+            return fns.step(params, state, (tokens, labels))[2]
+    fa.reset_launches()
+    losses, times = [], []
+    for i in range(n_steps):
+        if i == 1:
+            calls, restore = count_calls(dist, COUNTED)
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    restore()
+    launches = dict(fa.launches)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    for n in KERNELS:
+        assert launches[n] == cfg.n_layers * n_steps, (plane, launches)
+    out = {"losses": losses, "step_times_s": times,
+           "step_s": statistics.median(times[1:]),
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "calls_per_step": {n: c / (n_steps - 1)
+                              for n, c in calls.items() if c},
+           "launches": launches}
+    if plane == "gspmd":
+        out["residency"] = gspmd.residency_report((params, state),
+                                                  hvd.mesh())
+    return out
+
+
+def phase_gspmd(torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+                zero_losses, int8_bytes_per_pass, card):
+    """Phase 9: the GSPMD ZeRO plane on the flagship against the flat
+    plane, in turns (flat, gspmd, gspmd, flat); returns the report."""
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.ops import xla_collectives as XC
+    out = {}
+    for stage, wire in GSPMD_CONFIGS:
+        label = f"stage{stage}" + ("" if wire is None else f"_{wire}")
+        runs = [zero_plane_run(torch, hvd, tfm, fa, cfg, par, tokens,
+                               labels, n_steps, stage, wire, plane)
+                for plane in ("flat", "gspmd", "gspmd", "flat")]
+        flat, gspmd_run = runs[0], runs[1]
+        for run in runs[1:]:    # every run: the same function, rtol 1e-5
+            for a, b in zip(run["losses"], flat["losses"]):
+                assert abs(a - b) <= 1e-5 * abs(b), (label, a, b)
+        earlier = zero_losses.get(f"zero{stage}" if wire is None else None)
+        if earlier is not None:
+            for a, b in zip(gspmd_run["losses"], earlier):
+                assert abs(a - b) <= 1e-5 * abs(b), (label, a, b)
+        rep = gspmd_run["residency"]
+        assert rep["ratio_to_ideal"] == 1.0 and rep["world"] == 1, rep
+        diff = max(abs(a - b) for a, b in zip(gspmd_run["losses"],
+                                              flat["losses"]))
+        out[label] = {"runs": runs, "max_loss_diff": diff,
+                      "phase7_losses": earlier}
+        log(f"[gspmd] {label}: losses {gspmd_run['losses'][0]:.6f} -> "
+            f"{gspmd_run['losses'][-1]:.6f}, max |diff| {diff:.3g} from the "
+            f"flat ZeroShardedOptimizer"
+            + ("" if earlier is None else " (and phase 7's run)")
+            + "; host step gspmd "
+            + " / ".join(f"{r['step_s'] * 1e3:.3f}" for r in runs[1:3])
+            + " ms, flat " + " / ".join(f"{r['step_s'] * 1e3:.3f}"
+                                        for r in (runs[0], runs[3]))
+            + f" ms (medians of steps 1-{n_steps - 1}, in turns); peak "
+            f"{gspmd_run['peak_bytes'] / 2**20:.1f} MiB against "
+            f"{flat['peak_bytes'] / 2**20:.1f} MiB; collectives a step "
+            f"{gspmd_run['calls_per_step']} against {flat['calls_per_step']};"
+            f" residency {rep['total_bytes']:,} bytes, ratio "
+            f"{rep['ratio_to_ideal']}; launches {gspmd_run['launches']}; "
+            f"on {card}")
+    sizes = [p.numel() for p in tfm.Transformer(cfg, par, seed=0,
+                                                device="cpu").parameters()]
+    plan = XC.plan_allreduce_step(sizes, spec=Q.QuantSpec(8, QUANT_BLOCK))
+    out["int8_plan"] = {"raw": plan.raw, "sent": plan.sent,
+                        "phase5_bytes_per_pass": int8_bytes_per_pass}
+    assert plan.sent == 2 * int8_bytes_per_pass, (plan, int8_bytes_per_pass)
+    log(f"[gspmd] int8 plan_allreduce_step: raw {plan.raw:,}, sent "
+        f"{plan.sent:,} bytes a step = 2 passes x {plan.sent // 2:,} "
+        f"(phase 5 measured {int8_bytes_per_pass:,} a pass)")
+    return out
+
+
+def phase_sequence_parallel(torch, fa, card):
+    """Phase 10: ring and Ulysses at world 1 on NCCL against
+    full_attention, bit for bit; the ring of 4 through the one-process
+    seam at long context against one kernel call; returns the report."""
+    from horovod_tpu_torch.parallel import mesh as mesh_lib
+    from horovod_tpu_torch.parallel import ring_attention as ra
+    from horovod_tpu_torch.parallel import ulysses
+    out = {}
+    # (a) world 1 on NCCL, the flagship's attention shape.
+    group = mesh_lib.create_mesh({mesh_lib.SEQUENCE: 1}).get_group(
+        mesh_lib.SEQUENCE)
+    q, k, v, do = rand_qkv(torch, 8, 512, 512, 8, 64, seed=21)
+    fns = {"full": ra.full_attention,
+           "ring": lambda a, b, c: ra.ring_attention(a, b, c, group),
+           "ulysses": lambda a, b, c: ulysses.ulysses_attention(a, b, c,
+                                                                group)}
+    got = {}
+    for name, fn in fns.items():
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launches()
+        o = fn(*leaves)
+        o.backward(do)
+        torch.cuda.synchronize()
+        got[name] = [o.detach()] + [t.grad for t in leaves]
+        out[f"world1_{name}_launches"] = dict(fa.launches)
+        assert all(n == 1 for n in fa.launches.values()), (name,
+                                                           fa.launches)
+    for name in ("ring", "ulysses"):
+        for what, a, b in zip(("out", "dq", "dk", "dv"), got[name],
+                              got["full"]):
+            assert torch.equal(a, b), (name, what)
+    log("[seq] world 1 on NCCL, (8, 512, 8, 64) causal: ring_attention and "
+        "ulysses_attention equal full_attention bit for bit (out, dq, dk, "
+        "dv), one launch of each kernel each")
+
+    # (b), (c) the ring of 4 through the seam, causal and not.
+    b, s, h, d = RING_SHAPE
+    n = RING_MEMBERS
+    scale = 1.0 / math.sqrt(d)
+    ring = ra._LocalRing(n)
+    for causal in (True, False):
+        label = "causal" if causal else "full"
+        q, k, v, do = rand_qkv(torch, b, s, s, h, d, seed=22)
+        parts = [list(t.split(s // n, dim=1)) for t in (q, k, v, do)]
+        leaves = [[t.detach().clone().requires_grad_() for t in ts]
+                  for ts in parts[:3]]
+        fa.reset_launches()
+        outs = ra._ring_attention_shards(*leaves, causal=causal)
+        torch.autograd.backward(outs, parts[3])
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        assert launches == {k_: n * n for k_ in KERNELS}, launches
+        masked = sum((i + t) % n > i for t in range(n) for i in range(n)) \
+            if causal else 0
+        whole = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o1 = fa.flash_attention(*whole, causal=causal)
+        o1.backward(do)
+        _, lse1 = fa.flash_fwd(q, k, v, causal, scale)
+        _, lses = ra._ring_flash_forward(ring, *parts[:3], causal, scale)
+        torch.cuda.synchronize()
+        errs = {"out": compare(torch, torch.cat(outs, 1).detach(),
+                               o1.detach(), TOL_OUT)}
+        torch.testing.assert_close(torch.cat(lses, 2), lse1, **TOL_LSE)
+        errs["lse"] = ((torch.cat(lses, 2) - lse1).abs().max().item(), 0.0)
+        for what, ts, w in zip(("dq", "dk", "dv"), leaves, whole):
+            errs[what] = compare(torch, torch.cat([t.grad for t in ts], 1),
+                                 w.grad, TOL_GRAD)
+        # Device time (CUDA-graph replays): the walk against one call.
+        outs_p, lses_p = ra._ring_flash_forward(ring, *parts[:3], causal,
+                                                scale)
+        o_single, lse_single = fa.flash_fwd(q, k, v, causal, scale)
+
+        def single_bwd():
+            _, delta = fa.flash_bwd_dq(q, k, v, do, lse_single, o_single,
+                                       causal, scale)
+            fa.flash_bwd_dkv(q, k, v, do, lse_single, delta, causal, scale)
+
+        shard = [t[0] for t in parts[:3]]
+        ms = {
+            "walk_fwd": time_ms(torch, lambda: ra._ring_flash_forward(
+                ring, *parts[:3], causal, scale), 5),
+            "single_fwd": time_ms(torch, lambda: fa.flash_fwd(
+                q, k, v, causal, scale), 5),
+            "walk_bwd": time_ms(torch, lambda: ra._ring_flash_backward(
+                ring, *parts[:3], outs_p, lses_p, parts[3], causal, scale),
+                5),
+            "single_bwd": time_ms(torch, single_bwd, 5),
+            "combine_blocks": time_ms(torch, lambda: fa.combine_blocks(
+                outs_p[0].float(), lses_p[0], outs_p[1].float(), lses_p[1]),
+                20),
+            # A step whose keys all lie after its queries, and one that
+            # sees all its keys.
+            "masked_fwd_launch": time_ms(torch, lambda: fa.flash_fwd(
+                *shard, True, scale, 0, s // n), 20),
+            "unmasked_fwd_launch": time_ms(torch, lambda: fa.flash_fwd(
+                *shard, True, scale, s // n, 0), 20),
+        }
+        bnd = bounds(b, s, h, d, causal)
+        fwd_bound = bnd["flash_fwd"][0]
+        bwd_bound = bnd["flash_bwd_dq"][0] + bnd["flash_bwd_dkv"][0]
+        out[f"ring4_{label}"] = {"launches": launches,
+                                 "masked_launches_per_direction": masked,
+                                 "errs": errs, "ms": ms,
+                                 "fwd_bound_ms": fwd_bound,
+                                 "bwd_bound_ms": bwd_bound}
+        log(f"[seq] ring of {n} through the seam, {RING_SHAPE} {label}: "
+            f"launches {launches} ({masked} a direction on fully masked "
+            f"blocks); {fmt_errs(errs)}; walk fwd {ms['walk_fwd']:.4f} ms "
+            f"against one call {ms['single_fwd']:.4f} ms (bound "
+            f"{fwd_bound:.4f}), walk bwd {ms['walk_bwd']:.4f} ms against "
+            f"{ms['single_bwd']:.4f} ms (bound {bwd_bound:.4f}); "
+            f"combine_blocks (1, {s // n}, {h}, {d}) fp32 "
+            f"{ms['combine_blocks']:.4f} ms; one fully masked fwd launch "
+            f"{ms['masked_fwd_launch']:.4f} ms against an unmasked one "
+            f"{ms['unmasked_fwd_launch']:.4f} ms; on {card}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1246,13 +1513,32 @@ def main() -> int:
     # 8. checkpoint, restore and resume fed by the DataLoader
     report["checkpoint"] = phase_checkpoint(torch, hvd, tfm, fa, cfg, par,
                                             card)
+    # 9. the GSPMD ZeRO plane; 10. sequence-parallel attention
+    report["gspmd"] = phase_gspmd(
+        torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+        {k: v["losses"] for k, v in report["overlap_zero"].items()
+         if k.startswith("zero")},
+        report["compressed"]["int8"]["bytes_per_pass"], card)
+    report["sequence_parallel"] = phase_sequence_parallel(torch, fa, card)
     hvd.shutdown()
 
     kernels = []
     flag = timing["flagship"]["kernels"]
+    seq = report["sequence_parallel"]
     for name, replaces in KERNELS.items():
+        # Launches on each path, counted from 0 just before it ran.
+        by_path = {"train": launches[name]}
+        by_path.update({f"gspmd_{label}": r["runs"][1]["launches"][name]
+                        for label, r in report["gspmd"].items()
+                        if label.startswith("stage")})
+        by_path.update({f"{p}_world1": seq[f"world1_{p}_launches"][name]
+                        for p in ("ring", "ulysses")})
+        by_path.update({f"ring4_{c}": seq[f"ring4_{c}"]["launches"][name]
+                        for c in ("causal", "full")})
+        assert all(by_path.values()), (name, by_path)
         kernels.append(dict(name=name, route="cuda", source=SOURCE,
                             replaces=replaces, launches=launches[name],
+                            launches_by_path=by_path,
                             max_abs_err=main_errs[name][0],
                             rel_err=main_errs[name][1], **flag[name]))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

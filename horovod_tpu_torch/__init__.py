@@ -8,14 +8,16 @@ fp16/bf16/int8/int4 compressed wire, Adasum), gradient reduction through
 backward overlap, Adasum's delta model), ZeRO stages 1-3
 (``ZeroShardedOptimizer``), ``sync_batch_norm``, the sharded checkpoint
 engine (``checkpoint``, ``utils.checkpoint``), the input pipeline
-(``data``), and the transformer's attention on hand-written CUDA
+(``data``), the ``DeviceMesh`` (``mesh()``, ``parallel.mesh``), the GSPMD
+ZeRO plane (``gspmd``), sequence-parallel attention (ring and Ulysses,
+``parallel``), and the transformer's attention on hand-written CUDA
 flash-attention kernels.
 Imports neither JAX nor ``horovod_tpu``.
 """
 
 from .core.basics import (cross_rank, cross_size, device, init,
-                          is_initialized, local_rank, local_size, rank,
-                          shutdown, size)
+                          is_homogeneous, is_initialized, local_rank,
+                          local_size, mesh, rank, shutdown, size)
 from .core.exceptions import (DataStallError, HorovodInternalError,
                               HorovodTpuError, HostsUpdatedInterrupt,
                               NotInitializedError)
@@ -25,7 +27,7 @@ from .ops.collective import (Adasum, Average, Max, Min, Product, ReduceOp,
                              alltoall_async, barrier, broadcast, broadcast_,
                              broadcast_async, grouped_allreduce, join, poll,
                              reducescatter, synchronize)
-from .ops import overlap
+from .ops import gspmd, overlap
 from .ops.compression import Compression
 from .ops.sync_batch_norm import sync_batch_norm
 from .optimizers import (DistributedOptimizer, ZeroShardedOptimizer,
@@ -33,4 +35,6 @@ from .optimizers import (DistributedOptimizer, ZeroShardedOptimizer,
                          allreduce_gradients, broadcast_object,
                          broadcast_optimizer_state, broadcast_parameters,
                          grad, value_and_grad)
+from . import parallel
+from .parallel import mesh as mesh_lib
 from .version import __version__

@@ -38,6 +38,14 @@ reference saves its ``shard_params`` state (:class:`ShardedParams`):
 ``.sizes[k]`` and the shards ``.inner[k]``, in a root of their own.
 Tensors and arrays elsewhere in a state tree ride along as replicated
 leaves under their own key paths.
+
+The GSPMD plane's state (``ops.gspmd``) is planned as the reference plans
+its own (zero.py:143-250): an ``OptimizerState`` alone (the uncompressed
+step) as optax state, every leaf a full replicated value; wrapped in
+``optimizers._ZeroState`` (a compressed wire) with ``.sizes``, its
+parameter-shaped moments as full replicated values except a 1-D moment
+whose length the world divides (a flat shard, as the reference's "global"
+leaves), and its residual as per-rank flat runs.
 """
 
 from __future__ import annotations
@@ -73,8 +81,20 @@ class ShardedParams:
         self.optimizer = optimizer
 
 
+def _gspmd_types():
+    from ..ops.gspmd import OptimizerState
+    from ..optimizers import _ZeroState
+    return OptimizerState, _ZeroState
+
+
+def _is_gspmd(x) -> bool:
+    opt_state, zero_state = _gspmd_types()
+    return isinstance(x, opt_state) or (
+        isinstance(x, zero_state) and isinstance(x.inner, opt_state))
+
+
 def _is_group(x) -> bool:
-    return isinstance(x, (_zero_type(), ShardedParams))
+    return isinstance(x, (_zero_type(), ShardedParams)) or _is_gspmd(x)
 
 
 def has_zero_leaves(tree) -> bool:
@@ -90,9 +110,15 @@ def has_zero_leaves(tree) -> bool:
 
 def _children(tree) -> Optional[List[Tuple[str, Any]]]:
     """(key-path step, child) pairs of a container in flatten order, or
+    None for a leaf or a ZeRO state."""
+    return None if _is_group(tree) else _container_children(tree)
+
+
+def _container_children(tree) -> Optional[List[Tuple[str, Any]]]:
+    """(key-path step, child) pairs of a container in flatten order, or
     None for a leaf.  Dicts flatten in sorted key order, OrderedDicts in
     insertion order, named tuples by field, lists and tuples by index."""
-    if isinstance(tree, (torch.Tensor, np.ndarray)) or _is_group(tree):
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return None
     if isinstance(tree, OrderedDict):
         return [(f"[{k!r}]", v) for k, v in tree.items()]
@@ -285,6 +311,8 @@ def _state_leaves(opt, prefix, keys, field, tkey) -> List[_Leaf]:
 
 def _group_leaves(group, prefix: str, world: int) -> List[_Leaf]:
     """The leaves of one ZeRO state, in the reference's order."""
+    if _is_gspmd(group):
+        return _gspmd_leaves(group, prefix, world)
     params_view = isinstance(group, ShardedParams)
     opt = group.optimizer if params_view else group
     keys = param_keys(opt.names, len(opt.params))
@@ -307,17 +335,87 @@ def _group_leaves(group, prefix: str, world: int) -> List[_Leaf]:
     elif kind == "trace":
         leaves += _state_leaves(opt, prefix, keys, "trace", "momentum_buffer")
     if opt.residual is not None:
-        # One flat fp32 run of TRUE elements per parameter and rank,
-        # globally (world * true,): true_size pins the step to the world
-        # that wrote it (reference zero.py:207-246).
+        leaves += _residual_leaves(opt, prefix, keys, world)
+    return leaves
+
+
+def _residual_leaves(opt, prefix, keys, world) -> List[_Leaf]:
+    """One flat fp32 run of TRUE elements per parameter and rank, globally
+    (world * true,): true_size pins the step to the world that wrote it
+    (reference zero.py:207-246)."""
+    out = []
+    for i, k in keys:
+        true = opt.params[i].numel()
+        r = opt.residual[i]
+        out.append(_Leaf(
+            _spec(prefix + ".residual" + k, M.SHARDED, [true * world],
+                  "float32", true * world),
+            lambda r=r: to_host(r),
+            lambda v, r=r, k=k: _copy_into(r, v, ".residual" + k)))
+    return out
+
+
+def _moment_leaf(opt, i, path, tkey, flat: bool) -> _Leaf:
+    """One GSPMD moment (a DTensor of the parameter's shape, ``Shard(0)``
+    or replicated): a flat shard of the parameter's length when ``flat``,
+    else the full value, which a rank holding rows reads from and writes
+    to its rows."""
+    shard, param = opt.shards[i], opt.params[i]
+    true = param.numel()
+    inner = opt.optimizer
+
+    def live():
+        st = inner.state[shard]
+        if st.get(tkey) is None:
+            st[tkey] = torch.zeros_like(shard)
+        return st[tkey]
+
+    def get():
+        t = inner.state.get(shard, {}).get(tkey)
+        if t is None:
+            shape = shard.to_local().shape if flat else param.shape
+            return np.zeros(tuple(shape), np.float32)
+        return to_host(t.to_local() if flat else t.full_tensor())
+
+    def put(v):
+        local = live().to_local()
+        v = np.asarray(v)
+        if not flat and tuple(local.shape) != tuple(param.shape):
+            rows = local.shape[0]
+            v = v.reshape(tuple(param.shape))[opt.index * rows:
+                                              (opt.index + 1) * rows]
+        _copy_into(local, v.reshape(tuple(local.shape)), path)
+    kind, shape = (M.SHARDED, [true]) if flat else \
+        (M.REPLICATED, list(param.shape))
+    return _Leaf(_spec(path, kind, shape, _dtype_name(shard.dtype), true),
+                 get, put)
+
+
+_MOMENTS = {"adam": (("mu", "exp_avg"), ("nu", "exp_avg_sq")),
+            "trace": (("trace", "momentum_buffer"),), "none": ()}
+
+
+def _gspmd_leaves(group, prefix: str, world: int) -> List[_Leaf]:
+    """The leaves of a GSPMD state (see the module docstring)."""
+    opt_state, _ = _gspmd_types()
+    wrapped = not isinstance(group, opt_state)
+    opt = group.inner if wrapped else group
+    keys = list(enumerate(opt.keys))
+    leaves, inner = [], prefix
+    if wrapped:
+        leaves += _sizes_leaves(opt, prefix, keys)
+        inner = prefix + ".inner"
+    kind = _inner_kind(opt)
+    if kind == "adam":
+        leaves.append(_count_leaf(opt, inner + "[0].count"))
+    for field, tkey in _MOMENTS[kind]:
         for i, k in keys:
-            true = opt.params[i].numel()
-            r = opt.residual[i]
-            leaves.append(_Leaf(
-                _spec(prefix + ".residual" + k, M.SHARDED, [true * world],
-                      "float32", true * world),
-                lambda r=r: to_host(r),
-                lambda v, r=r, k=k: _copy_into(r, v, ".residual" + k)))
+            p = opt.params[i]
+            flat = wrapped and p.dim() == 1 and p.numel() % world == 0
+            leaves.append(_moment_leaf(opt, i, inner + f"[0].{field}" + k,
+                                       tkey, flat))
+    if wrapped and group.residual is not None:
+        leaves += _residual_leaves(opt, prefix, keys, world)
     return leaves
 
 
@@ -350,12 +448,24 @@ def _plan(tree, world: int) -> List[Tuple[List[_Leaf], Any]]:
     return out
 
 
+def _group_axis(group) -> Tuple[int, int, Any]:
+    """(world, index, axis) of one ZeRO state; a GSPMD state's axis is its
+    mesh's shape, as ((name, size), ...)."""
+    if isinstance(group, ShardedParams):
+        group = group.optimizer
+    elif _is_gspmd(group):
+        opt = group if isinstance(group, _gspmd_types()[0]) else group.inner
+        return opt.world, opt.index, tuple(
+            (str(n), int(s)) for n, s in zip(opt.mesh.mesh_dim_names,
+                                            opt.mesh.mesh.shape))
+    return group.world, group.index, group.axis
+
+
 def _axis_of(tree) -> Tuple[int, int, Any]:
     """(world, this rank's index, axis) of the ZeRO states in ``tree`` —
     the runtime's world when it holds none."""
-    axes = {(g.world, g.index, g.axis) for g in
-            (leaf.optimizer if isinstance(leaf, ShardedParams) else leaf
-             for _, leaf in _flatten(tree) if _is_group(leaf))}
+    axes = {_group_axis(leaf) for _, leaf in _flatten(tree)
+            if _is_group(leaf)}
     if len(axes) > 1:
         raise ValueError(f"ZeRO states over different axes {sorted(axes)} "
                          "in one checkpoint")
@@ -370,6 +480,8 @@ def _axis_of(tree) -> Tuple[int, int, Any]:
 def _mesh_shape(world: int, axis) -> dict:
     if axis is None:
         return {"data": world}
+    if isinstance(axis[0], tuple):      # a GSPMD state's mesh
+        return dict(axis)
     from ..core.state import global_state
     return {"local": global_state.local_size,
             "cross": global_state.cross_size}

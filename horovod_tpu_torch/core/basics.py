@@ -4,17 +4,19 @@
 contract (``HOROVOD_RANK``/``SIZE``/``LOCAL_RANK``/..., reference
 gloo_run.py:64-75) and brings up ``torch.distributed``: NCCL on
 ``cuda:local_rank`` by default, gloo when the caller asks for
-``device="cpu"``.  There is no mesh: the data-parallel group is the world,
-and when the launcher places the same number of processes (more than one)
-on each of more than one host, ``init()`` also makes the groups of the
-two-level topology (the reference's ``("local", "cross")`` mesh axes).  A
-launch whose hosts hold different numbers of processes trains over the
-world as before; only the ``("local", "cross")`` axis is refused there.
+``device="cpu"``.  The data-parallel group is the world, and when the
+launcher places the same number of processes (more than one) on each of
+more than one host, ``init()`` also makes the groups of the two-level
+topology (the reference's ``("local", "cross")`` mesh axes).  A launch
+whose hosts hold different numbers of processes trains over the world as
+before; only the ``("local", "cross")`` axis is refused there.
+``mesh()`` is the ``torch.distributed`` ``DeviceMesh`` of the reference's
+``mesh()``, built on first use (reference basics.py:305-425).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -68,7 +70,8 @@ def _is_grid(size: int, topo, dev: torch.device) -> bool:
                                  for r, row in enumerate(table))
 
 
-def init(device: DeviceLike = None, init_method: Optional[str] = None) -> None:
+def init(device: DeviceLike = None, init_method: Optional[str] = None,
+         mesh=None, axes: Optional[Sequence[str]] = None) -> None:
     """Initialize the runtime and the ``torch.distributed`` world.
 
     Args:
@@ -78,6 +81,10 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None) -> None:
         (``tcp://host:port``, ``file:///path``); default ``env://``, which
         reads ``MASTER_ADDR``/``MASTER_PORT``.  A world of one needs none:
         it rendezvouses through an in-process store.
+      mesh: a ``DeviceMesh`` for ``mesh()`` to return; by default
+        ``mesh()`` builds one on first use.
+      axes: kept as the default mesh's hint, as the reference keeps it
+        (``_build_default_mesh``).
     """
     if global_state.initialized:
         return
@@ -142,6 +149,13 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None) -> None:
     global_state.two_level = two_level
     global_state.compression = _cfg.compression()
     global_state.quant_block = _cfg.quant_block()
+    for kind in ("allreduce", "allgather"):
+        setattr(global_state, f"hierarchical_{kind}", _cfg.hierarchical(kind))
+        setattr(global_state, f"hierarchical_{kind}_pin",
+                _cfg.hierarchical_pin(kind))
+    global_state.mesh = mesh
+    global_state.mesh_axes_hint = None if mesh is not None or not axes \
+        else tuple(axes)
     global_state.device = dev
     global_state.owns_process_group = owns
     global_state.initialized = True
@@ -207,3 +221,29 @@ def device() -> torch.device:
     """The device ``init()`` placed this process on."""
     _check_init()
     return global_state.device
+
+
+def _build_default_mesh(axes: Optional[Sequence[str]] = None):
+    """``HVD_TPU_MESH_AXES`` ("data:8,model:4") when set and no axes were
+    given, else a 1-D ``"data"`` mesh over the world: the reference's
+    ``_build_default_mesh``, which reads the hint only to skip the knob."""
+    from ..parallel import mesh as mesh_lib
+    spec = _cfg.mesh_axes()
+    if axes is None and spec:
+        return mesh_lib.create_mesh(mesh_lib.parse_mesh_spec(spec))
+    return mesh_lib.create_mesh({mesh_lib.DATA: global_state.size})
+
+
+def mesh():
+    """The global ``DeviceMesh``, built on first use (its groups are made
+    by every rank together, so every rank calls this the first time)."""
+    _check_init()
+    if global_state.mesh is None:
+        global_state.mesh = _build_default_mesh(global_state.mesh_axes_hint)
+    return global_state.mesh
+
+
+def is_homogeneous() -> bool:
+    """True when every node has the same number of processes."""
+    _check_init()
+    return global_state.size % max(global_state.cross_size, 1) == 0

@@ -8,8 +8,10 @@ topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...) and the wire knobs
 (``OVERLAP``, ``OVERLAP_BUCKET_BYTES``), ZeRO's (``ZERO_STAGE``,
 ``ZERO_PREFETCH``, ``ZERO_QUANT_GATHER``) and the input pipeline's
 (``DATA_PREFETCH``, ``DATA_QUEUE_DEPTH``, ``DATA_STALL_TIMEOUT_SECONDS``,
-and the stall warning ``STALL_CHECK_TIME_SECONDS``), with the
-reference's defaults and clamps (config.py:296-320, :475-524).  The attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
+and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
+``MESH_AXES`` and the hierarchical schedule's ``HIERARCHICAL_ALLREDUCE`` /
+``HIERARCHICAL_ALLGATHER``, with the reference's defaults and clamps
+(config.py:296-320, :475-524).  The attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
 it under that one name (parallel/ring_attention.py), and so does the port.
 """
 
@@ -56,6 +58,16 @@ DATA_PREFETCH = "DATA_PREFETCH"
 DATA_QUEUE_DEPTH = "DATA_QUEUE_DEPTH"
 DATA_STALL_TIMEOUT_SECONDS = "DATA_STALL_TIMEOUT_SECONDS"
 STALL_CHECK_TIME_SECONDS = "STALL_CHECK_TIME_SECONDS"
+
+# The default mesh (``core.basics.mesh()``): "data:8,model:4".
+MESH_AXES = "MESH_AXES"
+
+# Flat vs hierarchical schedule of the scheduled collectives
+# (``ops.xla_collectives.choose_schedule``).  The boolean is the knob's
+# value; the pin is None while the knob is unset and the value once it is
+# set (reference config.py:42-48, :480-489).
+HIERARCHICAL_ALLREDUCE = "HIERARCHICAL_ALLREDUCE"
+HIERARCHICAL_ALLGATHER = "HIERARCHICAL_ALLGATHER"
 
 
 def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -155,3 +167,21 @@ def data_stall_timeout_seconds() -> float:
 
 def stall_warning_seconds() -> float:
     return get_float(STALL_CHECK_TIME_SECONDS, 60.0)
+
+
+def mesh_axes() -> str:
+    return get_env(MESH_AXES, "") or ""
+
+
+def hierarchical(kind: str) -> bool:
+    """``HIERARCHICAL_ALLREDUCE`` (kind "allreduce") or
+    ``HIERARCHICAL_ALLGATHER`` ("allgather")."""
+    return get_bool(f"HIERARCHICAL_{kind.upper()}")
+
+
+def hierarchical_pin(kind: str) -> Optional[bool]:
+    """None while the knob is unset, else its value: the knob's presence,
+    not its value, is what pins a schedule."""
+    if get_env(f"HIERARCHICAL_{kind.upper()}") is None:
+        return None
+    return hierarchical(kind)

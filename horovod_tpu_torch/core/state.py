@@ -3,9 +3,10 @@
 The reference's state owns a JAX mesh; the port's owns the process-level
 topology (rank/size/local/cross, reference common.h:119-123), the process
 groups of the two-level (local, cross) topology, the device this process
-computes on, the session wire knobs ``init()`` read, and whether
-``init()`` created the ``torch.distributed`` process group (and so must
-destroy it).
+computes on, the ``DeviceMesh`` (built on first use of ``mesh()``) and the
+axis hint ``init()`` took for it, the session wire and schedule knobs
+``init()`` read, and whether ``init()`` created the ``torch.distributed``
+process group (and so must destroy it).
 """
 
 from __future__ import annotations
@@ -38,6 +39,14 @@ class GlobalState:
     cross_group: Any = None
     compression: str = "none"   # HVD_TPU_COMPRESSION, normalized
     quant_block: int = _cfg.DEFAULT_QUANT_BLOCK  # HVD_TPU_QUANT_BLOCK
+    # HVD_TPU_HIERARCHICAL_ALLREDUCE / _ALLGATHER: the values and the pins
+    # (None = knob unset) that choose_schedule reads.
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    hierarchical_allreduce_pin: Optional[bool] = None
+    hierarchical_allgather_pin: Optional[bool] = None
+    mesh: Any = None            # torch DeviceMesh; built lazily by mesh()
+    mesh_axes_hint: Optional[tuple] = None
 
     def reset(self) -> None:
         self.__init__()

@@ -29,7 +29,8 @@ from __future__ import annotations
 import os
 import pickle
 import shutil
-from typing import Any, Callable, List, Mapping, Optional, Sequence
+from typing import (Any, Callable, List, Mapping, NamedTuple, Optional,
+                    Sequence)
 
 import torch
 
@@ -324,6 +325,19 @@ class DistributedOptimizer:
             for r, saved in zip(self.residual, residual):
                 r.copy_(saved)
         self.optimizer.load_state_dict(state_dict)
+
+
+class _ZeroState(NamedTuple):
+    """The GSPMD plane's optimizer state on a compressed wire (reference
+    ``optimizers._ZeroState``): ``inner`` the optimizer
+    (``ops.gspmd.OptimizerState``), ``sizes`` the parameters' true sizes
+    (int32, params-structured), ``residual`` the error-feedback residual
+    (params-structured flat fp32, globally world × size, each rank's slice
+    its own; None on a cast wire).  The checkpoint engine plans it as the
+    reference plans its ``_ZeroState``."""
+    inner: Any
+    sizes: Any
+    residual: Any = None
 
 
 _ZERO_STAGE_REFUSAL = (

@@ -4,8 +4,9 @@ of four gloo ranks that run them.  ``results``: one start
 test_torch_port_collectives.py and test_torch_port_compressed_optimizer.py
 read, so a test process starts the ranks once for both.  ``part_results``:
 one start per part of ``_torch_port_training_workers`` (overlap, adasum,
-zero, sbn) and of ``_torch_port_checkpoint_workers`` (ckpt) for the test
-file of that part.  The ranks fork from a server that imported torch once
+zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt) and of
+``_torch_port_parallel_workers`` (gspmd, ring) for the test file of that
+part.  The ranks fork from a server that imported torch once
 for all four."""
 
 import functools
@@ -65,6 +66,10 @@ def lm_case():
 LEAF_SHAPES = [(7, 300), (300,), (2, 3, 130), (40,), (513,)]
 BF16_LEAF = 3
 GATHER_SHAPES = [(5, 7), (33,), (3, 4, 5)]
+GSPMD_PARAMS = {"param.w": np.linspace(-1.0, 1.0, 96, dtype=np.float32)
+                .reshape(32, 3),
+                "param.b": np.linspace(0.5, 2.0, 16, dtype=np.float32),
+                "param.c": np.linspace(0.0, 1.0, 5, dtype=np.float32)}
 ZERO_PARAMS = {"w": np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(4, 3),
                "b": np.linspace(0.5, 2.0, 16, dtype=np.float32)}
 
@@ -74,7 +79,8 @@ def part_inputs(part: str) -> dict:
     """The seeded inputs of one part, per rank along axis 0 where they
     differ between ranks."""
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
-                                 "sbn": 14, "ckpt": 15}[part])
+                                 "sbn": 14, "ckpt": 15, "gspmd": 16,
+                                 "ring": 17}[part])
 
     def normal(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -105,6 +111,15 @@ def part_inputs(part: str) -> dict:
                 "param.layers.u": normal(2, 3),
                 "param.layers.a": normal(7),
                 "x": normal(WORLD, 1, 4, scale=2.0)}
+    if part == "gspmd":
+        return dict(GSPMD_PARAMS, x=normal(WORLD, 2, 32),
+                    sched_x=normal(WORLD, 5, 130, scale=3.0),
+                    sched_rs=normal(WORLD, 8, 33), sched_v=normal(WORLD, 2,
+                                                                 3, 50))
+    if part == "ring":
+        # (B, S, H, D) over the whole sequence; 4 heads split over 4
+        # members, 64 rows a member (one tile of the reference's kernel).
+        return {n: normal(1, 256, 4, 32) for n in ("q", "k", "v", "ct")}
     if part == "zero":
         # Per-rank distinct rows, so the mean over ranks is a reduction.
         return dict(ZERO_PARAMS, x=np.arange(WORLD * 4, dtype=np.float32)
@@ -130,7 +145,7 @@ def _spawn(body, out):
     mp.get_context("forkserver").set_forkserver_preload(
         ["torch", "torch._dynamo", "horovod_tpu_torch",
          "_torch_port_workers", "_torch_port_training_workers",
-         "_torch_port_checkpoint_workers"])
+         "_torch_port_checkpoint_workers", "_torch_port_parallel_workers"])
     mp.start_processes(body, args=(WORLD, f"{out}/rendezvous", str(out)),
                        nprocs=WORLD, join=True, start_method="forkserver")
 
@@ -146,11 +161,13 @@ def _save_lm(out) -> None:
 def part_results(tmp_path_factory, part: str, prepare=None) -> list:
     """The four ranks' results of one part of
     ``_torch_port_training_workers`` (or ``_torch_port_checkpoint_workers``
-    for "ckpt"), from one start of the ranks per part and test process.
+    for "ckpt", ``_torch_port_parallel_workers`` for "gspmd" and "ring"),
+    from one start of the ranks per part and test process.
     ``prepare(out_dir)`` writes what the ranks read beyond the part's
     inputs, before they start; ``part_dir(part)`` is that directory."""
     if part not in _PARTS:
         import _torch_port_checkpoint_workers as ckpt_workers
+        import _torch_port_parallel_workers as par_workers
         import _torch_port_training_workers as workers
         out = tmp_path_factory.mktemp(f"{part}_pool")
         np.savez(os.path.join(out, f"{part}.npz"), **part_inputs(part))
@@ -163,7 +180,9 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "adasum": workers.adasum_part,
                 "zero": workers.zero_part,
                 "sbn": workers.sync_batch_norm_part,
-                "ckpt": ckpt_workers.checkpoint_part}[part], out)
+                "ckpt": ckpt_workers.checkpoint_part,
+                "gspmd": par_workers.gspmd_part,
+                "ring": par_workers.ring_part}[part], out)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
                         for r in range(WORLD)]
     return _PARTS[part]

@@ -452,3 +452,85 @@ def test_cuda_loader_defaults_to_the_card(cuda_device):
     for a, b in zip(got, want):
         assert a.is_cuda and a.device.index == torch.cuda.current_device()
         assert torch.equal(a.cpu(), torch.from_numpy(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_one_process_ring_of_4_matches_one_kernel_call(cuda_device,
+                                                            causal):
+    """Four members' (1, 128, 4, 64) bf16 shards walk the ring in one
+    process (the rotation a shift of the list): 16 launches of each kernel
+    (4 members x 4 steps), and the joined output and dq/dk/dv match one
+    flash_attention call over the whole 512 rows at the kernels'
+    tolerances."""
+    from horovod_tpu_torch.parallel import ring_attention as ra
+    g = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn((1, 512, 4, 64), generator=g).to(
+        cuda_device, torch.bfloat16) for _ in range(4))
+    split = lambda t: [s.detach().clone().requires_grad_()  # noqa: E731
+                       for s in t.split(128, dim=1)]
+    qs, ks, vs = split(q), split(k), split(v)
+    fa.reset_launches()
+    outs = ra._ring_attention_shards(qs, ks, vs, causal=causal)
+    torch.autograd.backward(outs, list(do.split(128, dim=1)))
+    torch.cuda.synchronize()
+    assert fa.launches == {n: 16 for n in fa.launches}
+    qf, kf, vf = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(qf, kf, vf, causal=causal)
+    out.backward(do)
+    assert_matches(torch.cat(outs, dim=1).detach(), out.detach(),
+                   atol=2e-2, rtol=1e-3)
+    for mine, whole in ((qs, qf), (ks, kf), (vs, vf)):
+        assert_matches(torch.cat([s.grad for s in mine], dim=1), whole.grad,
+                       atol=5e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_gspmd_stage3_step_matches_the_flat_plane(cuda_device):
+    """make_zero_train_step at stage 3 on a small bf16 transformer, world 1
+    on NCCL: three steps' losses and the parameters after them equal
+    ZeroShardedOptimizer's stage 3 within rtol 1e-5, atol 1e-6, and every
+    flash kernel launches once per layer per step."""
+    import functools
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import gspmd
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
+                                d_ff=512, n_layers=2, seq_len=256)
+    par = tfm.ParallelConfig()
+    adamw = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=1e-4)
+    hvd.init()
+    try:
+        tokens, labels = tfm.synthetic_batch(cfg, 2)
+        model = tfm.Transformer(cfg, par, seed=0)
+        opt = hvd.ZeroShardedOptimizer(model, adamw, stage=3)
+        step = tfm.make_train_step(cfg, par, model, opt)
+        flat = [step(tokens, labels).item() for _ in range(3)]
+        with torch.no_grad():
+            flat_params = {n: t.clone()
+                           for n, t in opt.gather_params().items()}
+
+        model = tfm.Transformer(cfg, par, seed=0)
+
+        def loss_fn(params, batch):
+            return torch.func.functional_call(model, params, batch)
+
+        fns = gspmd.make_zero_train_step(loss_fn, adamw, hvd.mesh(),
+                                         stage=3)
+        p, s = fns.init(dict(model.named_parameters()))
+        fa.reset_launches()
+        losses = []
+        for _ in range(3):
+            p, s, loss = fns.step(p, s, (tokens, labels))
+            losses.append(loss.item())
+        assert all(n == 3 * cfg.n_layers for n in fa.launches.values())
+        assert losses[-1] < losses[0]
+        torch.testing.assert_close(torch.tensor(losses), torch.tensor(flat),
+                                   rtol=1e-5, atol=0)
+        for n, t in p.items():
+            torch.testing.assert_close(t.full_tensor(), flat_params[n],
+                                       rtol=1e-5, atol=1e-6)
+        assert gspmd.residency_report((p, s), hvd.mesh())[
+            "ratio_to_ideal"] == 1.0
+    finally:
+        hvd.shutdown()

@@ -36,6 +36,11 @@ def test_imports_without_jax():
         "from horovod_tpu_torch.ops import _build, collective, compression, "
         "flash_attention, quantization\n"
         "from horovod_tpu_torch.parallel import ring_attention\n"
+        "from horovod_tpu_torch.parallel import mesh, ulysses\n"
+        "from horovod_tpu_torch.ops import gspmd, xla_collectives\n"
+        "from horovod_tpu_torch import parallel\n"
+        "assert horovod_tpu_torch.mesh is horovod_tpu_torch.core.basics"
+        ".mesh\n"
         "from horovod_tpu_torch import checkpoint, data\n"
         "from horovod_tpu_torch.checkpoint import engine, zero\n"
         "from horovod_tpu_torch.utils import checkpoint as utils_ckpt\n"
@@ -64,6 +69,25 @@ def test_source_names_no_jax_or_reference(path):
                         re.M)
     with open(path) as f:
         assert not banned.search(f.read()), path
+
+
+@pytest.mark.parametrize("module", [
+    "horovod_tpu_torch.parallel.mesh", "horovod_tpu_torch.parallel.ulysses",
+    "horovod_tpu_torch.parallel.ring_attention",
+    "horovod_tpu_torch.ops.gspmd", "horovod_tpu_torch.ops.xla_collectives"])
+def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
+    """Each module of the mesh, the GSPMD plane and sequence parallelism,
+    imported first in a fresh interpreter where ``import jax`` fails."""
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = [m for m in sys.modules if m == 'horovod_tpu' or "
+            "m.startswith('horovod_tpu.') or m == 'jax']\n"
+            "assert not [m for m in bad if sys.modules[m] is not None], bad\n"
+            "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_init_refuses_cpu_fallback():
