@@ -11,8 +11,9 @@ topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...) and the wire knobs
 and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
 ``MESH_AXES`` and the hierarchical schedule's ``HIERARCHICAL_ALLREDUCE`` /
 ``HIERARCHICAL_ALLGATHER``, with the reference's defaults and clamps
-(config.py:296-320, :475-524).  The attention switch ``HVD_TPU_FLASH`` is not one of them: the reference reads
-it under that one name (parallel/ring_attention.py), and so does the port.
+(config.py:296-320, :475-524).  The attention switch ``HVD_TPU_FLASH`` is
+not one of them: the reference reads it under that one name
+(parallel/ring_attention.py), and so does the port.
 """
 
 from __future__ import annotations
@@ -173,15 +174,19 @@ def mesh_axes() -> str:
     return get_env(MESH_AXES, "") or ""
 
 
+_HIERARCHICAL = {"allreduce": HIERARCHICAL_ALLREDUCE,
+                 "allgather": HIERARCHICAL_ALLGATHER}
+
+
 def hierarchical(kind: str) -> bool:
     """``HIERARCHICAL_ALLREDUCE`` (kind "allreduce") or
     ``HIERARCHICAL_ALLGATHER`` ("allgather")."""
-    return get_bool(f"HIERARCHICAL_{kind.upper()}")
+    return get_bool(_HIERARCHICAL[kind])
 
 
 def hierarchical_pin(kind: str) -> Optional[bool]:
     """None while the knob is unset, else its value: the knob's presence,
     not its value, is what pins a schedule."""
-    if get_env(f"HIERARCHICAL_{kind.upper()}") is None:
+    if get_env(_HIERARCHICAL[kind]) is None:
         return None
     return hierarchical(kind)
