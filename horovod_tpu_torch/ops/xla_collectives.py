@@ -23,7 +23,9 @@ inside ``shard_map``; the port's run eagerly over the process groups of a
   which the port gets with the telemetry of ROADMAP queue 1 item 9).
 * **Wire resolution** — :func:`resolve_wire`.
 
-Every reduction accumulates in fp32; the wire dtype only travels.
+The compressed schedules accumulate in fp32 and the wire dtype only
+travels; the fp32 wire reduces in the tensor's own dtype, as the
+reference's ``psum`` does.
 """
 
 from __future__ import annotations

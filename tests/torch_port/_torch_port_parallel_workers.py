@@ -98,6 +98,45 @@ def _scheduled(torch, hvd, XC, data, rank):
     return out
 
 
+LEAF_SHAPES = [(32, 3), (5,), (), (8,), (4, 4)]
+
+
+def _placements(torch, hvd, G):
+    """leaf_spec of each shape, sharded and not; place and constrain round
+    trips of the toy's parameters."""
+    mesh = hvd.mesh()
+    out = {}
+    for shape in LEAF_SHAPES:
+        for sharded in (True, False):
+            out[(shape, sharded)] = str(G.leaf_spec(torch.empty(shape), mesh,
+                                                    sharded))
+    t = {"w": torch.arange(96.0).reshape(32, 3), "c": torch.arange(5.0)}
+    placed = G.place(t, mesh, False)
+    sharded = G.constrain(placed, mesh, True)
+    back = G.constrain(sharded, mesh, False)
+    out["constrain"] = {k: (str(sharded[k].placements),
+                            sharded[k].to_local().clone(),
+                            torch.equal(back[k].full_tensor(), t[k]))
+                        for k in t}
+    return out
+
+
+def _gspmd_sgd(torch, hvd, G, data, rank):
+    """Stage 3 with SGD(momentum 0.9): the trace state, its residency."""
+    params = {k: torch.from_numpy(data["param." + k].copy())
+              for k in PARAM_KEYS}
+    x = torch.from_numpy(data["x"][rank].copy())
+    fns = G.make_zero_train_step(
+        gspmd_loss, lambda ps: torch.optim.SGD(ps, lr=0.05, momentum=0.9),
+        hvd.mesh(), stage=3)
+    p, s = fns.init(params)
+    for _ in range(2):
+        p, s, loss = fns.step(p, s, (x,))
+    return {"loss": loss.item(),
+            "params": {k: v.full_tensor() for k, v in p.items()},
+            "report": G.residency_report((p, s), hvd.mesh())}
+
+
 def gspmd_part(rank, world, rendezvous, out_dir):
     import numpy as np
     data = np.load(os.path.join(out_dir, "gspmd.npz"))
@@ -125,6 +164,8 @@ def gspmd_part(rank, world, rendezvous, out_dir):
         res["saved"] = _state_values(G, s)
         res["wire"] = tuple(XC.wire_totals())
         res["scheduled"] = _scheduled(torch, hvd, XC, data, rank)
+        res["placement"] = _placements(torch, hvd, G)
+        res["sgd"] = _gspmd_sgd(torch, hvd, G, data, rank)
     finally:
         hvd.shutdown()
     torch.save(res, os.path.join(out_dir, f"gspmd{rank}.pt"))

@@ -220,6 +220,50 @@ def test_gspmd_checkpoint_port_to_reference(ranks):
             np.testing.assert_array_equal(_np(v), saved[k], err_msg=k)
 
 
+def test_leaf_spec_and_constrain_match_reference(ranks):
+    """A leaf shards on dim 0 where it divides the world (and was asked
+    to), as the reference's PartitionSpec says; constrain slices to this
+    rank's rows and gathers back."""
+    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("data",))
+    as_port = {"PartitionSpec('data',)": "(Shard(dim=0),)",
+               "PartitionSpec()": "(Replicate(),)"}
+    for shape in workers.LEAF_SHAPES:
+        for sharded in (True, False):
+            want = as_port[str(G_jax.leaf_spec(jnp.zeros(shape), mesh,
+                                               sharded))]
+            for res in ranks:
+                assert res["placement"][(shape, sharded)] == want, shape
+    for r, res in enumerate(ranks):
+        got = res["placement"]["constrain"]
+        assert got["w"][0] == "(Shard(dim=0),)" and got["w"][2]
+        assert torch.equal(got["w"][1],
+                           torch.arange(96.0).reshape(32, 3)[8 * r:8 * r + 8])
+        assert got["c"][0] == "(Replicate(),)" and got["c"][2]
+
+
+def test_gspmd_sgd_momentum_matches_reference(ranks):
+    """Stage 3 with SGD(0.05, momentum 0.9) against optax.sgd: the trace
+    state's paths and residency are the reference's, the values its own
+    to 1e-5."""
+    inputs = pool.part_inputs("gspmd")
+    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("data",))
+    fns = G_jax.make_zero_train_step(_ref_loss, optax.sgd(0.05, momentum=0.9),
+                                     mesh, stage=3)
+    p, s = fns.init({k: jnp.asarray(inputs["param." + k]) for k in KEYS})
+    x = jnp.asarray(inputs["x"].reshape(-1, inputs["x"].shape[-1]))
+    for _ in range(2):
+        p, s, loss = fns.step(p, s, (x,))
+    want = G_jax.residency_report((p, s), mesh)
+    for res in ranks:
+        got = res["sgd"]
+        assert got["report"] == want
+        assert abs(got["loss"] - float(loss)) <= 1e-5 * abs(float(loss))
+        for k in KEYS:
+            np.testing.assert_allclose(_np(got["params"][k]),
+                                       np.asarray(p[k]), rtol=1e-5,
+                                       atol=1e-5)
+
+
 def test_world4_meshes_match_reference(ranks):
     """mesh() is the 1-D "data" mesh over the world; create_mesh lays the
     ranks out row-major, as the reference's reshape of its devices."""
