@@ -102,7 +102,18 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              tolerances): 16 launches of each kernel, the launches on
              fully masked blocks, the walk's device time against the one
              call's (CUDA-graph replays), combine_blocks', and one fully
-             masked launch's against an unmasked one's.
+             masked launch's against an unmasked one's;
+11. negotiated — the flagship's training (world 1 on NCCL,
+             DistributedOptimizer(AdamW(3e-4, wd 1e-4)), 10 steps) without
+             the native controller, then with it attached
+             (init(use_controller=True)): the gradients go as named,
+             negotiated and fused responses through the device executor.
+             Losses bit-equal to phase 4's and to each other; all_reduce
+             calls a step (fused responses against one a parameter),
+             names per response, response-cache hits a step (every
+             gradient from step 1 on), host step, peak memory; a
+             timeline written and parsed (every gradient's name,
+             NEGOTIATE and DEVICE_COLLECTIVE events).
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -570,13 +581,13 @@ def count_calls(dist, names):
 
 
 def train_run(torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
-              make_opt, on_step0=None):
+              make_opt, on_step0=None, on_step=None):
     """``n_steps`` training steps of a fresh seed-0 flagship through
     ``make_train_step`` with the optimizer ``make_opt(model)`` gives:
     losses, host seconds a step, collective calls a step (steps 1..), the
     kernels' launches, the peak bytes allocated on the card above what was
     allocated when the run began, and what ``on_step0(model, opt)``
-    returns after step 0."""
+    returns after step 0.  ``on_step(i)`` runs after each step."""
     import torch.distributed as dist
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -598,6 +609,8 @@ def train_run(torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
         losses.append(loss.item())
         if i == 0 and on_step0 is not None:
             seen = on_step0(model, opt)
+        if on_step is not None:
+            on_step(i)
     restore()
     peak = torch.cuda.max_memory_allocated() - base
     launches = dict(fa.launches)
@@ -1330,6 +1343,138 @@ def phase_sequence_parallel(torch, fa, card):
     return out
 
 
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def timeline_spans(events, n_steps):
+    """From the controller's Chrome trace, in ms: each device response's
+    wait from its first name's enqueue (``NEGOTIATE`` B) to the
+    executor's start (``DEVICE_COLLECTIVE`` B), the executor's span (its
+    B to E), each tensor's enqueue to finish (``OPERATION`` E), and a
+    step's gradients from the first enqueue to the last finish."""
+    import collections
+    enq, fin = collections.defaultdict(list), collections.defaultdict(list)
+    waits, execs, open_exec = [], [], {}
+    for e in sorted((e for e in events if e.get("ph") in "BE"),
+                    key=lambda e: e["ts"]):
+        name, cat, ts = e["name"], e.get("cat"), e["ts"] / 1e3
+        if cat == "NEGOTIATE" and e["ph"] == "B":
+            enq[name].append(ts)
+        elif cat == "OPERATION":
+            fin[name].append(ts)
+        elif cat == "DEVICE_COLLECTIVE" and e["ph"] == "B":
+            open_exec[name] = ts
+            waits.append(ts - enq[name][-1])
+        elif cat == "DEVICE_COLLECTIVE":
+            execs.append(ts - open_exec.pop(name))
+    inflight = [f - b for n in enq for b, f in zip(enq[n], fin[n])]
+    grads = [n for n in enq if n.startswith("DistributedOptimizer.grad.")]
+    steps = [max(fin[n][i] for n in grads) - min(enq[n][i] for n in grads)
+             for i in range(min(len(enq[n]) for n in grads))]
+    med = statistics.median
+    return {"negotiation_wait_ms": med(waits), "executor_ms": med(execs),
+            "executor_ms_per_step": sum(execs) / n_steps,
+            "tensor_inflight_ms": med(inflight),
+            "gradients_first_enqueue_to_last_finish_ms": med(steps),
+            "responses": len(execs)}
+
+
+def phase_negotiated(torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+                     phase4_losses, card):
+    """Phase 11: the flagship step with the native controller attached
+    (world 1 on NCCL), beside the same step without it; returns the
+    report."""
+    import tempfile
+    from horovod_tpu_torch.core.state import global_state
+
+    def make_opt(model):
+        return hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=3e-4, weight_decay=1e-4))
+
+    hvd.init()
+    flat, _ = train_run(torch, hvd, tfm, fa, cfg, par, tokens, labels,
+                        n_steps, make_opt)
+    hvd.shutdown()
+
+    os.environ["HVD_TPU_CONTROLLER_ADDR"] = f"127.0.0.1:{free_port()}"
+    tmp = tempfile.mkdtemp()
+    timeline = os.path.join(tmp, "timeline.json")
+    try:
+        hvd.init(use_controller=True)
+        ctl = global_state.controller
+        assert ctl is not None and hvd.nccl_built()
+        hvd.start_timeline(timeline)
+        snaps = [ctl.stats()]
+
+        def on_step(i):
+            snaps.append(ctl.stats())
+            if i == n_steps - 1:   # not train_run's profiled step
+                hvd.stop_timeline()
+
+        ctl_run, _ = train_run(torch, hvd, tfm, fa, cfg, par, tokens,
+                               labels, n_steps, make_opt, on_step=on_step)
+        stats = snaps[-1]
+        hvd.shutdown()
+        with open(timeline) as f:
+            events = json.load(f)
+    finally:
+        del os.environ["HVD_TPU_CONTROLLER_ADDR"]
+        if os.path.exists(timeline):
+            os.unlink(timeline)
+        os.rmdir(tmp)
+    hits = [b["cache_hits"] - a["cache_hits"]
+            for a, b in zip(snaps, snaps[1:])]
+    responses = [b["responses"] - a["responses"]
+                 for a, b in zip(snaps, snaps[1:])]
+    n_params = len(list(tfm.Transformer(cfg, par, seed=0).parameters()))
+    # World 1: the sum over one rank is the identity and Average divides
+    # by 1, so the fused responses change no bit.
+    assert ctl_run["losses"] == flat["losses"] == phase4_losses, (
+        ctl_run["losses"], flat["losses"], phase4_losses)
+    assert flat["calls_per_step"]["all_reduce"] == n_params, flat
+    # Every gradient of a step after the first announced as a cache bit.
+    assert all(h == n_params for h in hits[1:]), hits
+    assert 1 <= ctl_run["calls_per_step"]["all_reduce"] < n_params, ctl_run
+    names = {e.get("name") for e in events}
+    cats = {e.get("cat") for e in events}
+    assert {f"DistributedOptimizer.grad.{i}" for i in range(n_params)} \
+        <= names, sorted(n for n in names if n)[:20]
+    assert {"NEGOTIATE", "DEVICE_COLLECTIVE"} <= cats, cats
+    spans = timeline_spans(events, n_steps)
+    out = {"flat": flat, "controller": ctl_run, "timeline_spans": spans,
+           "cache_hits_per_step": hits, "responses_per_step": responses,
+           "names_per_response": stats["names_per_response"],
+           "bytes_raw": stats["bytes_raw"], "bytes_sent": stats["bytes_sent"],
+           "timeline_events": len(events)}
+    log(f"[negotiated] losses bit-equal to phase 4's and to the run "
+        f"without the controller; all_reduce calls a step "
+        f"{ctl_run['calls_per_step']['all_reduce']:g} (fused responses) "
+        f"against {flat['calls_per_step']['all_reduce']:g}; names per "
+        f"response {stats['names_per_response']}; response-cache hits a "
+        f"step {hits}; host step {ctl_run['step_s'] * 1e3:.3f} ms against "
+        f"{flat['step_s'] * 1e3:.3f} ms (medians of steps 1-{n_steps - 1});"
+        f" peak allocated {ctl_run['peak_bytes'] / 2**20:.1f} MiB against "
+        f"{flat['peak_bytes'] / 2**20:.1f} MiB; device kernels a step "
+        f"{ctl_run['device_kernels_per_step']} against "
+        f"{flat['device_kernels_per_step']}; timeline {len(events)} events;"
+        f" on {card}")
+    log(f"[negotiated] timeline, medians: a response waits "
+        f"{spans['negotiation_wait_ms']:.3f} ms from its first name's "
+        f"enqueue to the executor, which runs "
+        f"{spans['executor_ms']:.3f} ms ({spans['executor_ms_per_step']:.3f}"
+        f" ms a step); a tensor is in flight "
+        f"{spans['tensor_inflight_ms']:.3f} ms; a step's gradients take "
+        f"{spans['gradients_first_enqueue_to_last_finish_ms']:.3f} ms from "
+        f"the first enqueue to the last finish")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1521,6 +1666,9 @@ def main() -> int:
         report["compressed"]["int8"]["bytes_per_pass"], card)
     report["sequence_parallel"] = phase_sequence_parallel(torch, fa, card)
     hvd.shutdown()
+    # 11. the negotiated eager plane: the native controller attached
+    report["negotiated"] = phase_negotiated(
+        torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps, losses, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -1535,6 +1683,8 @@ def main() -> int:
                         for p in ("ring", "ulysses")})
         by_path.update({f"ring4_{c}": seq[f"ring4_{c}"]["launches"][name]
                         for c in ("causal", "full")})
+        by_path["negotiated"] = \
+            report["negotiated"]["controller"]["launches"][name]
         assert all(by_path.values()), (name, by_path)
         kernels.append(dict(name=name, route="cuda", source=SOURCE,
                             replaces=replaces, launches=launches[name],

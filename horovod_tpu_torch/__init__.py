@@ -10,24 +10,31 @@ backward overlap, Adasum's delta model), ZeRO stages 1-3
 engine (``checkpoint``, ``utils.checkpoint``), the input pipeline
 (``data``), the ``DeviceMesh`` (``mesh()``, ``parallel.mesh``), the GSPMD
 ZeRO plane (``gspmd``), sequence-parallel attention (ring and Ulysses,
-``parallel``), and the transformer's attention on hand-written CUDA
-flash-attention kernels.
+``parallel``), the negotiated eager plane of the native controller
+(``init(use_controller=True)``: named collectives in any order per rank,
+fused, with the response cache, stall inspector and timeline; ``eager``,
+``dispatch``, ``native``), and the transformer's attention on
+hand-written CUDA flash-attention kernels.
 Imports neither JAX nor ``horovod_tpu``.
 """
 
-from .core.basics import (cross_rank, cross_size, device, init,
+from .core.basics import (ccl_built, cross_rank, cross_size, cuda_built,
+                          ddl_built, device, gloo_built, init,
                           is_homogeneous, is_initialized, local_rank,
-                          local_size, mesh, rank, shutdown, size)
-from .core.exceptions import (DataStallError, HorovodInternalError,
-                              HorovodTpuError, HostsUpdatedInterrupt,
-                              NotInitializedError)
+                          local_size, mesh, mpi_built, mpi_threads_supported,
+                          nccl_built, process_count, process_rank, rank,
+                          rocm_built, shutdown, size, start_timeline,
+                          stop_timeline)
+from .core.exceptions import (DataStallError, DuplicateNameError,
+                              HorovodInternalError, HorovodTpuError,
+                              HostsUpdatedInterrupt, NotInitializedError)
 from .ops.collective import (Adasum, Average, Max, Min, Product, ReduceOp,
                              Sum, allgather, allgather_async, allreduce,
                              allreduce_, allreduce_async, alltoall,
                              alltoall_async, barrier, broadcast, broadcast_,
                              broadcast_async, grouped_allreduce, join, poll,
                              reducescatter, synchronize)
-from .ops import gspmd, overlap
+from .ops import dispatch, eager, gspmd, overlap
 from .ops.compression import Compression
 from .ops.sync_batch_norm import sync_batch_norm
 from .optimizers import (DistributedOptimizer, ZeroShardedOptimizer,

@@ -12,6 +12,13 @@ whose hosts hold different numbers of processes trains over the world as
 before; only the ``("local", "cross")`` axis is refused there.
 ``mesh()`` is the ``torch.distributed`` ``DeviceMesh`` of the reference's
 ``mesh()``, built on first use (reference basics.py:305-425).
+
+With ``use_controller=True`` (or ``HVD_TPU_CONTROLLER_ADDR`` set),
+``init()`` also attaches the native controller of the eager negotiated
+plane and makes the process group its device executor alone runs on,
+then probes the schedule dispatch table (reference basics.py:163-190).
+A controller that was asked for and cannot be built, reached, or lined up
+with the torch world raises.
 """
 
 from __future__ import annotations
@@ -70,8 +77,31 @@ def _is_grid(size: int, topo, dev: torch.device) -> bool:
                                  for r, row in enumerate(table))
 
 
+def _attach_controller(rank: int, size: int, local_size: int) -> None:
+    """Attach the native controller, make its executor's process group
+    (collective over the world: every rank, in the same order) and run
+    the dispatch bootstrap.  The controller's rendezvous and the torch
+    world must agree on every rank's place."""
+    from ..native import runtime as native_runtime
+    from ..ops import dispatch
+    group = dist.new_group(list(range(size)))
+    ctl = native_runtime.attach(rank=rank, size=size, local_size=local_size)
+    if (ctl.rank(), ctl.size()) != (dist.get_rank(), dist.get_world_size()):
+        ctl.shutdown()
+        raise RuntimeError(
+            f"the native controller's rendezvous put this process at rank "
+            f"{ctl.rank()} of {ctl.size()}, the torch world at rank "
+            f"{dist.get_rank()} of {dist.get_world_size()}; set "
+            "HVD_TPU_CONTROLLER_RANK/SIZE (or RANK/SIZE) to the torch "
+            "world's")
+    global_state.controller = ctl
+    global_state.controller_group = group
+    dispatch.bootstrap(ctl, ctl.config, local_size)
+
+
 def init(device: DeviceLike = None, init_method: Optional[str] = None,
-         mesh=None, axes: Optional[Sequence[str]] = None) -> None:
+         mesh=None, axes: Optional[Sequence[str]] = None,
+         use_controller: Optional[bool] = None) -> None:
     """Initialize the runtime and the ``torch.distributed`` world.
 
     Args:
@@ -85,6 +115,8 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
         ``mesh()`` builds one on first use.
       axes: kept as the default mesh's hint, as the reference keeps it
         (``_build_default_mesh``).
+      use_controller: attach the native controller (``ops.eager``);
+        ``None`` attaches it when ``HVD_TPU_CONTROLLER_ADDR`` is set.
     """
     if global_state.initialized:
         return
@@ -158,18 +190,36 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
         else tuple(axes)
     global_state.device = dev
     global_state.owns_process_group = owns
+    if use_controller is None:
+        use_controller = bool(_cfg.get_env(_cfg.CONTROLLER_ADDR))
+    if use_controller:
+        try:
+            _attach_controller(rank, size, local_size)
+        except BaseException:
+            if owns:
+                dist.destroy_process_group()
+            global_state.reset()
+            raise
     global_state.initialized = True
 
 
 def shutdown() -> None:
-    """Tear down the runtime; destroys the process groups ``init()`` made
+    """Tear down the runtime: the native controller first (it blocks until
+    every rank has asked to leave), then the process groups ``init()`` made
     (all of them with the world, when ``init()`` made the world)."""
+    ctl = global_state.controller
+    if ctl is not None:
+        from ..ops import dispatch
+        global_state.controller = None
+        dispatch.reset()
+        ctl.shutdown()
     if dist.is_initialized():
         if global_state.owns_process_group:
             dist.destroy_process_group()
         else:
             for group in (global_state.local_group,
-                          global_state.cross_group):
+                          global_state.cross_group,
+                          global_state.controller_group):
                 if group is not None:
                     dist.destroy_process_group(group)
     global_state.reset()
@@ -247,3 +297,73 @@ def is_homogeneous() -> bool:
     """True when every node has the same number of processes."""
     _check_init()
     return global_state.size % max(global_state.cross_size, 1) == 0
+
+
+def process_rank() -> int:
+    """Rank of this process: one process per GPU, so ``rank()``."""
+    _check_init()
+    return global_state.rank
+
+
+def process_count() -> int:
+    """Number of processes: ``size()``."""
+    _check_init()
+    return global_state.size
+
+
+def mpi_threads_supported() -> bool:
+    """API parity; there is no MPI in the port."""
+    return False
+
+
+# Build-capability queries (reference common/util.py:137-220), answered for
+# the port's build: its collectives are torch.distributed's, so NCCL and
+# gloo are there where torch has them; the native controller is the
+# gloo-analog control plane, as in the reference.
+
+def mpi_built(verbose: bool = False) -> bool:
+    return False
+
+
+def gloo_built(verbose: bool = False) -> bool:
+    return dist.is_available() and dist.is_gloo_available()
+
+
+def nccl_built(verbose: bool = False) -> bool:
+    return dist.is_available() and dist.is_nccl_available()
+
+
+def ddl_built(verbose: bool = False) -> bool:
+    return False
+
+
+def ccl_built(verbose: bool = False) -> bool:
+    return False
+
+
+def cuda_built(verbose: bool = False) -> bool:
+    return torch.version.cuda is not None
+
+
+def rocm_built(verbose: bool = False) -> bool:
+    return getattr(torch.version, "hip", None) is not None
+
+
+def start_timeline(filename: str, mark_cycles: bool = False) -> None:
+    """Start the Chrome-trace timeline of the negotiated plane at run time
+    (reference horovod_start_timeline, operations.cc:740-769).  Needs the
+    native controller; without one it warns, as the reference does."""
+    del mark_cycles  # the runtime marks cycles whenever the timeline is on
+    _check_init()
+    if global_state.controller is None:
+        import warnings
+        warnings.warn("start_timeline: no native controller attached; the "
+                      "timeline records the negotiated plane only")
+        return
+    global_state.controller.start_timeline(filename)
+
+
+def stop_timeline() -> None:
+    _check_init()
+    if global_state.controller is not None:
+        global_state.controller.stop_timeline()

@@ -9,8 +9,9 @@ topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...) and the wire knobs
 ``ZERO_PREFETCH``, ``ZERO_QUANT_GATHER``) and the input pipeline's
 (``DATA_PREFETCH``, ``DATA_QUEUE_DEPTH``, ``DATA_STALL_TIMEOUT_SECONDS``,
 and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
-``MESH_AXES`` and the hierarchical schedule's ``HIERARCHICAL_ALLREDUCE`` /
-``HIERARCHICAL_ALLGATHER``, with the reference's defaults and clamps
+``MESH_AXES``, the hierarchical schedule's ``HIERARCHICAL_ALLREDUCE`` /
+``HIERARCHICAL_ALLGATHER`` and the native controller's
+(``ControllerConfig``), with the reference's defaults and clamps
 (config.py:296-320, :475-524).  The attention switch ``HVD_TPU_FLASH`` is
 not one of them: the reference reads it under that one name
 (parallel/ring_attention.py), and so does the port.
@@ -18,6 +19,7 @@ not one of them: the reference reads it under that one name
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -69,6 +71,29 @@ MESH_AXES = "MESH_AXES"
 # set (reference config.py:42-48, :480-489).
 HIERARCHICAL_ALLREDUCE = "HIERARCHICAL_ALLREDUCE"
 HIERARCHICAL_ALLGATHER = "HIERARCHICAL_ALLGATHER"
+
+# The native controller of the eager negotiated plane (native/,
+# ops/eager.py), with the reference's names and defaults (config.py:16-54,
+# :250-292, :448-494): the coordinator's address and this process's
+# place, the fusion threshold (64 MiB), the background cycle (1 ms), the
+# response cache's capacity (1024), the timeline file and its cycle marks,
+# the stall inspector (the warning window is STALL_CHECK_TIME_SECONDS
+# above), the init-time schedule probe of ops/dispatch.py, and the
+# autotuner's switch, which the port refuses until it has the tuner.
+CONTROLLER_ADDR = "CONTROLLER_ADDR"
+CONTROLLER_RANK = "CONTROLLER_RANK"
+CONTROLLER_SIZE = "CONTROLLER_SIZE"
+FUSION_THRESHOLD = "FUSION_THRESHOLD"
+CYCLE_TIME = "CYCLE_TIME"
+CACHE_CAPACITY = "CACHE_CAPACITY"
+TIMELINE = "TIMELINE"
+TIMELINE_MARK_CYCLES = "TIMELINE_MARK_CYCLES"
+STALL_CHECK_DISABLE = "STALL_CHECK_DISABLE"
+STALL_SHUTDOWN_TIME_SECONDS = "STALL_SHUTDOWN_TIME_SECONDS"
+SCHEDULE_PROBE = "SCHEDULE_PROBE"
+SCHEDULE_PROBE_SEED = "SCHEDULE_PROBE_SEED"
+SCHEDULE_PROBE_REPS = "SCHEDULE_PROBE_REPS"
+AUTOTUNE = "AUTOTUNE"
 
 
 def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -190,3 +215,56 @@ def hierarchical_pin(kind: str) -> Optional[bool]:
     if get_env(_HIERARCHICAL[kind]) is None:
         return None
     return hierarchical(kind)
+
+
+@dataclasses.dataclass
+class ControllerConfig:
+    """The native controller's knobs as ``from_env`` reads them."""
+    fusion_threshold_bytes: int = 64 * 1024 * 1024
+    cycle_time_ms: float = 1.0
+    cache_capacity: int = 1024
+    timeline_filename: str = ""
+    timeline_mark_cycles: bool = False
+    stall_check_disable: bool = False
+    stall_warning_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 0.0
+    schedule_probe: bool = True
+    schedule_probe_seed: int = 0
+    schedule_probe_reps: int = 2
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
+    hierarchical_allreduce_pin: Optional[bool] = None
+    hierarchical_allgather_pin: Optional[bool] = None
+    compression: str = "none"
+    autotune: bool = False
+
+    @classmethod
+    def from_env(cls) -> "ControllerConfig":
+        d = cls()
+
+        def integer(name, default):
+            val = get_int(name)
+            return default if val is None else val
+
+        return cls(
+            fusion_threshold_bytes=integer(FUSION_THRESHOLD,
+                                           d.fusion_threshold_bytes),
+            cycle_time_ms=get_float(CYCLE_TIME, d.cycle_time_ms),
+            cache_capacity=integer(CACHE_CAPACITY, d.cache_capacity),
+            timeline_filename=get_env(TIMELINE, "") or "",
+            timeline_mark_cycles=get_bool(TIMELINE_MARK_CYCLES),
+            stall_check_disable=get_bool(STALL_CHECK_DISABLE),
+            stall_warning_time_seconds=stall_warning_seconds(),
+            stall_shutdown_time_seconds=get_float(
+                STALL_SHUTDOWN_TIME_SECONDS, d.stall_shutdown_time_seconds),
+            schedule_probe=get_bool(SCHEDULE_PROBE, d.schedule_probe),
+            schedule_probe_seed=integer(SCHEDULE_PROBE_SEED,
+                                        d.schedule_probe_seed),
+            schedule_probe_reps=max(1, integer(SCHEDULE_PROBE_REPS,
+                                               d.schedule_probe_reps)),
+            hierarchical_allreduce=hierarchical("allreduce"),
+            hierarchical_allgather=hierarchical("allgather"),
+            hierarchical_allreduce_pin=hierarchical_pin("allreduce"),
+            hierarchical_allgather_pin=hierarchical_pin("allgather"),
+            compression=compression(),
+            autotune=get_bool(AUTOTUNE))

@@ -36,6 +36,13 @@ class NotInitializedError(HorovodTpuError):
             "first")
 
 
+class DuplicateNameError(HorovodTpuError):
+    """Two in-flight eager collectives used the same tensor name.
+
+    Mirrors the reference's DUPLICATE_NAME_ERROR (common.h:169).
+    """
+
+
 class DataStallError(HorovodTpuError):
     """The input pipeline produced no batch within the stall window.
 

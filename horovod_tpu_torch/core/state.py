@@ -5,7 +5,8 @@ topology (rank/size/local/cross, reference common.h:119-123), the process
 groups of the two-level (local, cross) topology, the device this process
 computes on, the ``DeviceMesh`` (built on first use of ``mesh()``) and the
 axis hint ``init()`` took for it, the session wire and schedule knobs
-``init()`` read, and whether ``init()`` created the ``torch.distributed``
+``init()`` read, the native controller ``init()`` attached with the process
+group of its device executor, and whether ``init()`` created the ``torch.distributed``
 process group (and so must destroy it).
 """
 
@@ -46,6 +47,10 @@ class GlobalState:
     hierarchical_allreduce_pin: Optional[bool] = None
     hierarchical_allgather_pin: Optional[bool] = None
     mesh: Any = None            # torch DeviceMesh; built lazily by mesh()
+    # The native controller of the eager negotiated plane (None = not
+    # attached) and the process group its device executor alone runs on.
+    controller: Any = None
+    controller_group: Any = None
     mesh_axes_hint: Optional[tuple] = None
 
     def reset(self) -> None:

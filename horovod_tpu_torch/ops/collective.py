@@ -22,6 +22,17 @@ local rank j // cross_size of host j % cross_size.
 hierarchical schedule over ``("local", "cross")``, the only axis whose
 Adasum takes ``compression=`` (on its intra-node phases).
 
+With the native controller attached (``init(use_controller=True)``), a
+call over the world goes to ``ops.eager``: ``name=`` is its negotiation
+key (auto-named in call order when None), a name enqueued twice while in
+flight raises ``DuplicateNameError``, and ranks may issue calls in any
+order.  There ``compression=`` follows the reference's eager rules
+(collective.py:480-600): a cast wire compresses around the negotiated
+call; a quantized wire rounds the contribution and the result to its
+grid, and the bytes are compressed by the coordinator's stamped wire
+format inside the executor.  Calls over ``("local", "cross")`` stay on
+the groups of the two-level topology, as without a controller.
+
 ``compression`` (``Compression.{fp16,bf16,int8,int4}``, a name, or None for
 the ``HVD_TPU_COMPRESSION`` session default) routes Sum/Average of floating
 tensors through the two-pass schedules of ``ops.quantization``, whose
@@ -34,12 +45,14 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..core import handles as _handles
 from ..core.basics import _check_init
 from ..core.state import global_state
+from . import eager as E
 from . import quantization as Q
 
 
@@ -173,6 +186,55 @@ def _compressed_allreduce(tensor, op, axis, comp, prescale, postscale):
 
 
 # ---------------------------------------------------------------------------
+# the negotiated plane (a controller is attached)
+# ---------------------------------------------------------------------------
+
+def _negotiated(axis) -> bool:
+    """Whether a call over ``axis`` goes through the native controller."""
+    return global_state.controller is not None and axis is None
+
+
+def _negotiated_wire(tensor, op, compression):
+    """The compressor of a negotiated reduction, or None (numpy arrays
+    take none)."""
+    if isinstance(tensor, np.ndarray):
+        return None
+    return _wire(tensor, op, compression)
+
+
+def _qdq(x: torch.Tensor, spec) -> torch.Tensor:
+    """``x`` in fp32, rounded to the quantized wire's grid (flat blocks
+    from element 0)."""
+    flat = x.reshape(-1).to(torch.float32)
+    return Q.qdq(flat, spec).view(x.shape)
+
+
+def _negotiated_allreduce(tensor, op, prescale, postscale, name,
+                          compression) -> int:
+    """The handle of a negotiated allreduce; a cast wire compresses
+    around it, a quantized wire rounds the contribution and the result to
+    its grid."""
+    comp = _negotiated_wire(tensor, op, compression)
+    if comp is None:
+        return E.allreduce_async(tensor, op, name, prescale, postscale)
+    if comp.bits is None:
+        cx, ctx = comp.compress(tensor)
+        inner = E.allreduce_async(cx, op, name, prescale, postscale)
+
+        def finish():
+            return comp.decompress(synchronize(inner), ctx)
+    else:
+        spec = comp.spec()
+        inner = E.allreduce_async(_qdq(tensor, spec), op, name, prescale,
+                                  postscale)
+
+        def finish():
+            return _qdq(synchronize(inner), spec).to(tensor.dtype)
+    return _handles.handle_manager.allocate(_handles.Handle(
+        poll_fn=lambda: poll(inner), wait_fn=finish))
+
+
+# ---------------------------------------------------------------------------
 # allreduce
 # ---------------------------------------------------------------------------
 
@@ -243,6 +305,10 @@ def allreduce_(tensor: torch.Tensor, op: int = Average,
     _check_init()
     _check_op(op)
     axis = _check_axis(axis_name)
+    if _negotiated(axis):
+        return tensor.copy_(synchronize(_negotiated_allreduce(
+            tensor, op, prescale_factor, postscale_factor, None,
+            compression)))
     if op == Adasum:
         return tensor.copy_(_adasum(tensor, axis, compression,
                                     prescale_factor, postscale_factor))
@@ -257,11 +323,14 @@ def allreduce(tensor: torch.Tensor, op: int = Average, axis_name=None,
               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
               name: Optional[str] = None, compression=None) -> torch.Tensor:
     """Allreduce a tensor across the world; returns a new tensor.  ``name``
-    is accepted for API parity with the reference."""
-    del name
+    is the negotiation key under a controller."""
     _check_init()
     _check_op(op)
     axis = _check_axis(axis_name)
+    if _negotiated(axis):
+        return synchronize(_negotiated_allreduce(
+            tensor, op, prescale_factor, postscale_factor, name,
+            compression))
     if op == Adasum:
         return _adasum(tensor, axis, compression, prescale_factor,
                        postscale_factor)
@@ -283,12 +352,22 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], op: int = Average,
     (the reference's fusion of a group, operations.cc:1041-1048).  On a
     compressed wire each member goes alone, as in the reference
     (collective.py:636-643): fusing would move the quantization blocks.
-    So does Adasum, whose coefficients are the whole tensor's."""
-    del name
+    So does Adasum, whose coefficients are the whole tensor's.  Under a
+    controller every member is enqueued as ``{name}.{i}`` before any is
+    waited on, and the runtime fuses them (reference
+    collective.py:580-600); a quantized wire rounds each member to its
+    grid first."""
     _check_init()
     _check_op(op)
-    _check_axis(axis_name)
+    axis = _check_axis(axis_name)
     tensors = list(tensors)
+    if _negotiated(axis):
+        comp = _resolve_compression(compression)
+        if comp is not None and comp.bits is not None:
+            tensors = [_qdq(t, comp.spec()).to(t.dtype)
+                       if _compressible(t, op) else t for t in tensors]
+        return E.grouped_allreduce(tensors, op, name, prescale_factor,
+                                   postscale_factor)
     if op == Adasum or _resolve_compression(compression) is not None:
         return [allreduce(t, op, axis_name, prescale_factor,
                           postscale_factor, compression=compression)
@@ -361,11 +440,12 @@ def allgather(tensor: torch.Tensor, axis_name=None,
               name: Optional[str] = None) -> torch.Tensor:
     """Gather tensors from all members, concatenated along dim 0; dim 0
     may differ between members (reference eager.py:814-847)."""
-    del name
     _check_init()
     axis = _check_axis(axis_name)
-    if tensor.dim() == 0:
+    if len(tensor.shape) == 0:
         raise ValueError("allgather needs a tensor of at least one dimension")
+    if _negotiated(axis):
+        return E.allgather(tensor, name=name)
     if axis is None:
         return _gather_rows(tensor, None)
     out = tensor
@@ -377,6 +457,8 @@ def allgather(tensor: torch.Tensor, axis_name=None,
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
     """In-place broadcast of the root's value; returns ``tensor``."""
     _check_init()
+    if _negotiated(None):
+        return tensor.copy_(E.broadcast(tensor, root_rank))
     dist.broadcast(tensor, src=root_rank)
     return tensor
 
@@ -386,12 +468,14 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0, axis_name=None,
     """Broadcast the root member's value to all members; returns a new
     tensor.  Over ``("local", "cross")``, ``root_rank`` is the root's index
     on that axis."""
-    del name
     _check_init()
-    ranks = _axis_ranks(_check_axis(axis_name))
+    axis = _check_axis(axis_name)
+    ranks = _axis_ranks(axis)
     if not 0 <= root_rank < len(ranks):
         raise ValueError(f"root_rank {root_rank} is not a member of the "
                          f"axis of {len(ranks)}")
+    if _negotiated(axis):
+        return E.broadcast(tensor, root_rank, name=name)
     return broadcast_(tensor.clone(), ranks[root_rank])
 
 
@@ -435,9 +519,10 @@ def alltoall(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
     member order and an int32 CPU tensor of their row counts (reference
     eager.py:878-916).  Over ``("local", "cross")`` the members are the
     joint axis' and so is their order."""
-    del name
     _check_init()
     axis = _check_axis(axis_name)
+    if _negotiated(axis):
+        return E.alltoall(tensor, splits, name=name)
     if axis is None:
         work, result = _issue_alltoall(tensor, splits)
         work.wait()
@@ -464,16 +549,28 @@ def reducescatter(tensor: torch.Tensor, op: int = Average, axis_name=None,
     (collective.py:745).  ``compression`` routes it through the one-pass
     compressed reduce-scatter (compressed wire, fp32 accumulation,
     full-precision output shard); an explicit compressor with an op other
-    than Sum/Average raises."""
-    del name
+    than Sum/Average raises.  Under a controller it is the negotiated
+    allreduce's chunk (reference eager.py:917-927), a quantized wire
+    rounding each destination chunk to its own grid."""
     _check_init()
     _check_op(op)
     axis = _check_axis(axis_name)
     world = global_state.size
-    rows = tensor.shape[0] if tensor.dim() else 0
-    if tensor.dim() == 0 or rows % world:
+    rows = tensor.shape[0] if len(tensor.shape) else 0
+    if len(tensor.shape) == 0 or rows % world:
         raise ValueError(f"reducescatter dim0 {rows} not divisible by "
                          f"{world}")
+    if _negotiated(axis):
+        comp = _negotiated_wire(tensor, op, compression)
+        if comp is None:
+            return E.reducescatter(tensor, op, name=name)
+        if comp.bits is None:
+            cx, ctx = comp.compress(tensor)
+            return comp.decompress(E.reducescatter(cx, op, name=name), ctx)
+        chunks = tensor.reshape((world, -1))
+        x = torch.stack([_qdq(c, comp.spec()) for c in chunks])
+        return E.reducescatter(x.view(tensor.shape), op,
+                               name=name).to(tensor.dtype)
     comp = _wire(tensor, op, compression)
     op = Sum if op == Sum else Average
     if axis is not None:
@@ -506,8 +603,12 @@ def communicator_size() -> int:
 
 
 def barrier() -> None:
-    """Block until every rank has reached the barrier."""
+    """Block until every rank has reached the barrier (a negotiated
+    barrier under a controller)."""
     _check_init()
+    if _negotiated(None):
+        E.barrier()
+        return
     dev = global_state.device
     if dev is not None and dev.type == "cuda":
         dist.barrier(device_ids=[dev.index])
@@ -517,8 +618,13 @@ def barrier() -> None:
 
 def join() -> int:
     """Signal this rank has no more data; returns the last rank to join.
-    With no negotiating controller there is nothing pending to proxy, so
-    join is a barrier that returns size - 1 (reference eager.py:940-952)."""
+    Under a controller the joined rank's peers go on with zeros in its
+    place until every rank has joined.  With no negotiating controller
+    there is nothing pending to proxy, so join is a barrier that returns
+    size - 1 (reference eager.py:940-952)."""
+    _check_init()
+    if _negotiated(None):
+        return E.join()
     barrier()
     return global_state.size - 1
 
@@ -530,7 +636,9 @@ def join() -> int:
 # handle; poll() is the Work's is_completed(), synchronize() waits and
 # finishes the result (Average division, postscale, cuts).  A compressed
 # allreduce runs the synchronous compressed path and wraps its result, as
-# the reference does without a controller (collective.py:829-841).
+# the reference does without a controller (collective.py:829-841).  Under
+# a controller the op is in flight in the native runtime after *_async
+# returns; poll() asks the runtime, synchronize() finishes the op.
 # ---------------------------------------------------------------------------
 
 def _allocate(work=None, finish=None, result=None) -> int:
@@ -549,9 +657,11 @@ def allreduce_async(tensor: torch.Tensor, op: int = Average,
                     prescale_factor: float = 1.0,
                     postscale_factor: float = 1.0,
                     compression=None) -> int:
-    del name
     _check_init()
     _check_op(op)
+    if _negotiated(None):
+        return _negotiated_allreduce(tensor, op, prescale_factor,
+                                     postscale_factor, name, compression)
     if op == Adasum:
         return _allocate(result=_adasum(tensor, None, compression,
                                         prescale_factor, postscale_factor))
@@ -566,17 +676,19 @@ def allreduce_async(tensor: torch.Tensor, op: int = Average,
 
 
 def allgather_async(tensor: torch.Tensor, name: Optional[str] = None) -> int:
-    del name
     _check_init()
-    if tensor.dim() == 0:
+    if len(tensor.shape) == 0:
         raise ValueError("allgather needs a tensor of at least one dimension")
+    if _negotiated(None):
+        return E.allgather_async(tensor, name=name)
     return _allocate(*_issue_gather(tensor, None))
 
 
 def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
                     name: Optional[str] = None) -> int:
-    del name
     _check_init()
+    if _negotiated(None):
+        return E.broadcast_async(tensor, root_rank, name=name)
     out = tensor.clone()
     work = dist.broadcast(out, src=root_rank, async_op=True)
     return _allocate(work, lambda: out)
@@ -584,8 +696,9 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
 
 def alltoall_async(tensor: torch.Tensor, splits=None,
                    name: Optional[str] = None) -> int:
-    del name
     _check_init()
+    if _negotiated(None):
+        return E.alltoall_async(tensor, splits, name=name)
     work, result = _issue_alltoall(tensor, splits)
     return _allocate(work, lambda: result)
 

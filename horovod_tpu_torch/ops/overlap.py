@@ -19,6 +19,12 @@ produces them), in forward order for the ZeRO-3 parameter gather.
   parameter gather: a Function per bucket whose forward all-gathers flat
   shards into full tensors and whose backward reduce-scatters the
   cotangents into shard gradients.
+* On the eager negotiated plane (a native controller attached),
+  :class:`EagerBucketQueue` launches each bucket's leaves as named
+  asynchronous allreduces, which the runtime fuses, and
+  :class:`EagerGatherQueue` prefetches ZeRO-3 parameter buckets; the
+  session's bucket size (:func:`set_session_bucket_bytes`) is what
+  ``overlap=None`` defers to first.
 
 Bit parity: every tensor is padded to a multiple of the quantization block
 before it enters a bucket's flat buffer, so no block straddles two tensors
@@ -138,18 +144,39 @@ def default_bucket_bytes() -> int:
     return _cfg.overlap_bucket_bytes()
 
 
+# The session's bucket size, set by the autotuner in the reference (its
+# bucket-size categorical): None = not set, 0 = overlap off, > 0 = bytes.
+# Rank-local, so it reaches only the negotiated plane, whose per-leaf
+# names do not depend on the bucket structure.
+_session_bucket_bytes: Optional[int] = None
+
+
+def set_session_bucket_bytes(n: Optional[int]) -> None:
+    """0 = overlap off, > 0 = bucket bytes, None = back to the knobs."""
+    global _session_bucket_bytes
+    _session_bucket_bytes = None if n is None else max(0, int(n))
+
+
+def session_bucket_bytes() -> Optional[int]:
+    return _session_bucket_bytes
+
+
 def resolve_bucket_bytes(overlap) -> Optional[int]:
     """Normalize an ``overlap=`` argument to bucket bytes, or None (off).
 
-    ``None`` defers to the session (``HVD_TPU_OVERLAP`` on/off, sized by
-    ``HVD_TPU_OVERLAP_BUCKET_BYTES``); ``True`` buckets at the session
+    ``None`` defers to the session: the session value when one is set,
+    else ``HVD_TPU_OVERLAP`` on/off, sized by
+    ``HVD_TPU_OVERLAP_BUCKET_BYTES``; ``True`` buckets at the session
     size; ``False`` or 0 is off; a positive int is the size in bytes."""
+    session = _session_bucket_bytes
     if overlap is None:
+        if session is not None:
+            return session or None
         return default_bucket_bytes() if _cfg.overlap() else None
     if overlap is False:
         return None
     if overlap is True:
-        return default_bucket_bytes()
+        return session or default_bucket_bytes()
     n = int(overlap)
     return n if n > 0 else None
 
@@ -195,7 +222,8 @@ def _record_stream(t: torch.Tensor) -> None:
 
 
 def issue_bucket_allreduce(leaves, op, axis, comp, prescale: float = 1.0,
-                           postscale: float = 1.0, keep_sent: bool = False):
+                           postscale: float = 1.0, keep_sent: bool = False,
+                           names: Optional[Sequence[str]] = None):
     """Start one bucket's allreduce.  Returns ``(work, finish)``:
     ``finish()`` after ``work.wait()`` gives ``(reduced leaves, sent)``,
     ``sent`` the per-leaf flat fp32 values the first pass of a quantized
@@ -203,9 +231,14 @@ def issue_bucket_allreduce(leaves, op, axis, comp, prescale: float = 1.0,
 
     The uncompressed wire issues ``dist.all_reduce(async_op=True)``; a
     compressed wire runs its two-pass schedule now (its ``work`` is done).
+    Under a native controller the uncompressed wire over the world submits
+    each leaf under its name in ``names`` instead, and the runtime
+    negotiates and fuses them (a bucket's concatenation is its fusion
+    buffer's job there).
     """
     from . import collective as C
     from . import quantization as Q
+    from ..core.state import global_state
     if op == C.Adasum:
         # Adasum weighs by whole-tensor norms: concatenating leaves would
         # change the result, not only the schedule.
@@ -213,6 +246,12 @@ def issue_bucket_allreduce(leaves, op, axis, comp, prescale: float = 1.0,
                          "(norm-weighted reduction is not concatenation-"
                          "invariant)")
     comp = _active_comp(comp, leaves[0], op)
+    if comp is None and axis is None and global_state.controller is not None:
+        handles = [C.allreduce_async(x, op, name=nm,
+                                     prescale_factor=prescale,
+                                     postscale_factor=postscale)
+                   for x, nm in zip(leaves, names or [None] * len(leaves))]
+        return C._Done, lambda: ([C.synchronize(h) for h in handles], None)
     if comp is None:
         buf = _concat_flat(leaves, 1)
         x = C._prepare(buf, prescale, postscale)
@@ -567,3 +606,250 @@ class GradHooks:
     def remove(self) -> None:
         for h in self._handles:
             h.remove()
+
+
+# ---------------------------------------------------------------------------
+# the eager / negotiated plane: asynchronous bucket queues
+# ---------------------------------------------------------------------------
+
+def _union_seconds(spans: List[Tuple[float, float]]) -> float:
+    """Wall time covered by the union of ``[start, end]`` spans."""
+    union, cursor = 0.0, None
+    for start, end in sorted(spans):
+        if cursor is None or start > cursor:
+            union += end - start
+        elif end > cursor:
+            union += end - cursor
+        cursor = end if cursor is None else max(cursor, end)
+    return union
+
+
+class EagerBucketQueue:
+    """Launch per-bucket asynchronous allreduces as buckets materialize;
+    collect them in launch order (port of the reference's
+    ``EagerBucketQueue``).
+
+    The caller drives the interleave::
+
+        q = EagerBucketQueue(plan, op=hvd.Average, name=f"step{i % 2}")
+        for b, idxs in enumerate(plan.buckets):
+            grads = compute_bucket(b)           # backward slice
+            q.launch(b, grads)                  # in flight now
+        reduced = q.finish()                    # flat list, leaf order
+
+    Under a native controller the runtime negotiates and fuses each bucket
+    while the caller computes the next; tensors on the runtime's device
+    take the device plane.  Names carry the leaf index
+    (``{name}.{leaf}``), so every rank submits the same names whatever its
+    bucket sizes.  ``donate=True`` reduces C-contiguous float numpy
+    buffers in place on the host plane.  ``finish`` keeps the measured
+    comm-hidden ratio — the share of the wire's wall time the caller did
+    not spend blocked — in ``comm_hidden_ratio``, with the exposed and
+    hidden seconds (the reference feeds its metrics registry, which the
+    port gets with ROADMAP queue 1 item 9)."""
+
+    def __init__(self, plan: BucketPlan, op=None, compression=None,
+                 prescale_factor: float = 1.0,
+                 postscale_factor: float = 1.0,
+                 name: Optional[str] = None, donate: bool = False):
+        from . import collective as C
+        self._plan = plan
+        self._op = C.Average if op is None else op
+        self._comp = compression
+        self._prescale = prescale_factor
+        self._postscale = postscale_factor
+        self._base = name or "overlap"
+        self._donate = donate
+        self._inflight = {}      # bucket -> (finishers, submit_s, launched)
+        self._launch_order: List[int] = []
+        self.comm_hidden_ratio: Optional[float] = None
+        self.exposed_s = 0.0
+        self.hidden_s = 0.0
+
+    def _submit_one(self, tensor, name: str) -> Callable[[], Any]:
+        """A zero-argument finisher of one leaf's asynchronous
+        allreduce."""
+        import numpy as np
+
+        from ..core.state import global_state
+        from . import collective as C
+        from . import eager as E
+        comp = self._comp
+        if comp is None or getattr(comp, "wire", "none") == "none":
+            # The per-leaf C.allreduce takes the session wire; so must
+            # the buckets, or overlap would change the values.
+            comp = C._resolve_compression(None)
+        if isinstance(tensor, np.ndarray):
+            comp = None
+        elif comp is not None:
+            comp = _active_comp(comp, tensor, self._op)
+        ctl = global_state.controller
+        if comp is None and ctl is not None and \
+                E._on_device_plane(tensor, ctl):
+            return E.allreduce_device_async(
+                tensor, int(self._op), name=name, prescale=self._prescale,
+                postscale=self._postscale)
+        if comp is None and self._donate and ctl is not None and \
+                isinstance(tensor, np.ndarray) and \
+                tensor.flags["C_CONTIGUOUS"] and \
+                tensor.dtype in (np.float32, np.float64):
+            h = E._ctl(ctl.allreduce_async_, tensor, tensor,
+                       op=int(self._op), prescale=self._prescale,
+                       postscale=self._postscale, name=name)
+
+            def fin(_h=h, _t=tensor):
+                E._ctl(ctl.wait, _h)
+                return _t
+            return fin
+        h = C.allreduce_async(tensor, op=self._op, name=name,
+                              prescale_factor=self._prescale,
+                              postscale_factor=self._postscale,
+                              compression=comp)
+        return lambda _h=h: C.synchronize(_h)
+
+    def launch(self, bucket: int, leaves: Sequence) -> None:
+        """Submit bucket ``bucket``'s leaves (plan order within the
+        bucket); returns once they are in flight."""
+        import time
+        idxs = self._plan.buckets[bucket]
+        if len(leaves) != len(idxs):
+            raise ValueError(f"bucket {bucket} holds {len(idxs)} leaves, "
+                             f"got {len(leaves)}")
+        t0 = time.perf_counter()
+        fins = [self._submit_one(x, f"{self._base}.{idxs[j]}")
+                for j, x in enumerate(leaves)]
+        now = time.perf_counter()
+        self._inflight[bucket] = (fins, now - t0, now)
+        self._launch_order.append(bucket)
+
+    def finish(self) -> List[Any]:
+        """Wait for every launched bucket (launch order) and return the
+        reduced leaves as a flat list in the plan's leaf order (None for
+        leaves of buckets never launched)."""
+        import time
+        out: List[Any] = [None] * self._plan.n_leaves
+        submit_total, blocked = 0.0, 0.0
+        spans: List[Tuple[float, float]] = []
+        for bucket in self._launch_order:
+            fins, submit_s, launched = self._inflight.pop(bucket)
+            t0 = time.perf_counter()
+            vals = [f() for f in fins]
+            now = time.perf_counter()
+            blocked += now - t0
+            spans.append((launched - submit_s, now))
+            submit_total += submit_s
+            for j, i in enumerate(self._plan.buckets[bucket]):
+                out[i] = vals[j]
+        self._launch_order = []
+        # In flight: the union of the buckets' [submit, collected] spans;
+        # exposed: submitting plus waiting; hidden: the rest.
+        union = _union_seconds(spans)
+        if union > 0:
+            exposed = min(submit_total + blocked, union)
+            self.comm_hidden_ratio = max(0.0, 1.0 - exposed / union)
+            self.exposed_s += exposed
+            self.hidden_s += union - exposed
+        return out
+
+
+class EagerGatherQueue:
+    """ZeRO-3 forward prefetch on the eager / negotiated plane (port of
+    the reference's ``EagerGatherQueue``): launch per-bucket asynchronous
+    parameter allgathers ahead of the layers that use them, take each
+    bucket just in time::
+
+        plan = plan_buckets(param_templates, order="forward")
+        q = EagerGatherQueue(plan, like=param_templates)
+        for b in range(plan.n_buckets):
+            q.launch(b, shards_of_bucket(b))    # in flight now
+        for b in range(plan.n_buckets):
+            params_b = q.take(b)                # blocks only if not done
+            compute_layer(params_b)
+        q.drain()
+
+    A bucket's shards go as one concatenated allgather named
+    ``{name}.{first leaf}``; ``take`` reassembles the full leaves from the
+    rank-major gathered buffer (each leaf's shard is its flat elements
+    zero-padded to a multiple of the world, split in world parts).
+    ``drain`` keeps the exposed and hidden gather seconds on the queue."""
+
+    def __init__(self, plan: BucketPlan, like: Sequence,
+                 name: Optional[str] = None, world: Optional[int] = None):
+        from . import collective as C
+        if len(like) != plan.n_leaves:
+            raise ValueError(f"plan covers {plan.n_leaves} leaves, template "
+                             f"has {len(like)}")
+        self._plan = plan
+        self._like = list(like)
+        self._world = int(world) if world else C.communicator_size()
+        self._base = name or "zero.gather"
+        self._inflight = {}      # bucket -> (handle, submit_s, launched)
+        self._taken: dict = {}
+        self._submit_total = 0.0
+        self._blocked = 0.0
+        self._spans: List[Tuple[float, float]] = []
+        self.exposed_s = 0.0
+        self.hidden_s = 0.0
+
+    def launch(self, bucket: int, shards: Sequence) -> None:
+        """Submit bucket ``bucket``'s shard allgather; returns once it is
+        in flight."""
+        import time
+
+        from . import collective as C
+        idxs = self._plan.buckets[bucket]
+        if len(shards) != len(idxs):
+            raise ValueError(f"bucket {bucket} holds {len(idxs)} leaves, "
+                             f"got {len(shards)}")
+        cat = torch.cat([s.reshape(-1) for s in shards])
+        self._taken.pop(bucket, None)   # a relaunch replaces the result
+        t0 = time.perf_counter()
+        h = C.allgather_async(cat, name=f"{self._base}.{idxs[0]}")
+        submit_s = time.perf_counter() - t0
+        self._submit_total += submit_s
+        self._inflight[bucket] = (h, submit_s, time.perf_counter())
+
+    def take(self, bucket: int) -> List[Any]:
+        """The bucket's full leaves; blocks only for the part of the
+        gather the caller's compute did not hide."""
+        import time
+
+        from . import collective as C
+        if bucket in self._taken:
+            return self._taken[bucket]
+        h, submit_s, launched = self._inflight.pop(bucket)
+        t0 = time.perf_counter()
+        gathered = C.synchronize(h)
+        now = time.perf_counter()
+        self._blocked += now - t0
+        self._spans.append((launched - submit_s, now))
+        idxs = self._plan.buckets[bucket]
+        ks = [self._shard_k(i) for i in idxs]
+        grid = gathered.reshape(-1).view(self._world, sum(ks))
+        outs, off = [], 0
+        for i, k in zip(idxs, ks):
+            like = self._like[i]
+            flat = grid[:, off: off + k].reshape(-1)
+            outs.append(flat[: math.prod(like.shape)].view(like.shape)
+                        .to(like.dtype))
+            off += k
+        self._taken[bucket] = outs
+        return outs
+
+    def _shard_k(self, leaf: int) -> int:
+        size = math.prod(self._like[leaf].shape)
+        return (size + (-size) % self._world) // self._world
+
+    def drain(self) -> None:
+        """Take any bucket not taken yet and keep the exposed and hidden
+        gather seconds."""
+        for bucket in sorted(self._inflight):
+            self.take(bucket)
+        union = _union_seconds(self._spans)
+        if union > 0:
+            exposed = min(self._submit_total + self._blocked, union)
+            self.exposed_s += exposed
+            self.hidden_s += union - exposed
+        self._spans = []
+        self._submit_total = 0.0
+        self._blocked = 0.0

@@ -71,12 +71,15 @@ def resolve_wire(compression):
 
 def choose_schedule(kind: str, nbytes: int) -> str:
     """Flat vs hierarchical for one payload of ``kind`` ("allreduce" or
-    "allgather"): the explicit ``HVD_TPU_HIERARCHICAL_*`` pin, then the
-    boolean, else flat — the values ``init()`` read, or the environment
-    before ``init()``.  The reference consults its probed dispatch table
-    before both; the port gets that table with the eager negotiated
-    plane (ROADMAP queue 1 item 3), so ``nbytes`` does not decide yet."""
-    del nbytes
+    "allgather"), the reference's precedence: the active dispatch table
+    (``ops.dispatch``, probed or pinned at ``init()`` with a controller)
+    for this payload first, then the explicit ``HVD_TPU_HIERARCHICAL_*``
+    pin, then the boolean, else flat — the values ``init()`` read, or the
+    environment before ``init()``."""
+    from . import dispatch as D
+    table = D.active_table()
+    if table is not None and kind in D.KINDS:
+        return table.choose(kind, int(nbytes))
     if global_state.initialized:
         pin = getattr(global_state, f"hierarchical_{kind}_pin", None)
         flag = getattr(global_state, f"hierarchical_{kind}", False)
@@ -322,8 +325,9 @@ def plan_allreduce_step(sizes: Sequence[int], local_size: int = 1,
                         spec: Optional[QuantSpec] = None,
                         wire_dtype=None) -> StepWireBytes:
     """Price one step's gradient allreduces: per leaf, the schedule
-    :func:`choose_schedule` selects (hierarchical only where a real
-    (local, cross) split exists), summed over the leaves."""
+    :func:`choose_schedule` selects — the dispatch table's verdict for
+    the leaf's fp32 bytes where one is active (hierarchical only where a
+    real (local, cross) split exists), summed over the leaves."""
     raw = sent = 0
     hier_avail = local_size > 1 and cross_size > 1
     for n in sizes:

@@ -137,6 +137,12 @@ class DistributedOptimizer:
     applied to ``op=Adasum``, whose reduction is not
     concatenation-invariant.
 
+    Under a native controller (``init(use_controller=True)``) the
+    uncompressed gradients go as named asynchronous allreduces,
+    ``DistributedOptimizer.grad.{i}`` for parameter ``i``, which the
+    runtime negotiates and fuses, and which its response cache recognizes
+    from the second step on.
+
     ``compression`` (``Compression.{fp16,bf16,int8,int4}`` or a name) is
     taken only from the caller; the ``HVD_TPU_COMPRESSION`` session default
     does not reach the optimizer.  With a quantized wire and Sum/Average,
@@ -241,7 +247,8 @@ class DistributedOptimizer:
                                 keep_sent) for i, g in zip(idxs, grads)]
         work, finish = O.issue_bucket_allreduce(
             grads, self.op, self.axis, self.compression,
-            self.prescale_factor, self.postscale_factor, keep_sent)
+            self.prescale_factor, self.postscale_factor, keep_sent,
+            names=[f"DistributedOptimizer.grad.{i}" for i in idxs])
         self._inflight.append((idxs, grads, work, finish))
 
     def synchronize(self) -> None:

@@ -4,9 +4,10 @@ of four gloo ranks that run them.  ``results``: one start
 test_torch_port_collectives.py and test_torch_port_compressed_optimizer.py
 read, so a test process starts the ranks once for both.  ``part_results``:
 one start per part of ``_torch_port_training_workers`` (overlap, adasum,
-zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt) and of
-``_torch_port_parallel_workers`` (gspmd, ring) for the test file of that
-part.  The ranks fork from a server that imported torch once
+zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt), of
+``_torch_port_parallel_workers`` (gspmd, ring) and of
+``_torch_port_eager_workers`` (native, cache, eager, dispatch) for the test
+file of that part.  The ranks fork from a server that imported torch once
 for all four."""
 
 import functools
@@ -70,6 +71,7 @@ GSPMD_PARAMS = {"param.w": np.linspace(-1.0, 1.0, 96, dtype=np.float32)
                 .reshape(32, 3),
                 "param.b": np.linspace(0.5, 2.0, 16, dtype=np.float32),
                 "param.c": np.linspace(0.0, 1.0, 5, dtype=np.float32)}
+NEGOTIATED_PARTS = ("native", "cache", "eager", "dispatch")
 ZERO_PARAMS = {"w": np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(4, 3),
                "b": np.linspace(0.5, 2.0, 16, dtype=np.float32)}
 
@@ -77,7 +79,9 @@ ZERO_PARAMS = {"w": np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(4, 3),
 @functools.lru_cache(maxsize=None)
 def part_inputs(part: str) -> dict:
     """The seeded inputs of one part, per rank along axis 0 where they
-    differ between ranks."""
+    differ between ranks (the negotiated plane's parts seed their own)."""
+    if part in NEGOTIATED_PARTS:
+        return {}
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
                                  "sbn": 14, "ckpt": 15, "gspmd": 16,
                                  "ring": 17}[part])
@@ -145,7 +149,8 @@ def _spawn(body, out):
     mp.get_context("forkserver").set_forkserver_preload(
         ["torch", "torch._dynamo", "horovod_tpu_torch",
          "_torch_port_workers", "_torch_port_training_workers",
-         "_torch_port_checkpoint_workers", "_torch_port_parallel_workers"])
+         "_torch_port_checkpoint_workers", "_torch_port_parallel_workers",
+         "_torch_port_eager_workers"])
     mp.start_processes(body, args=(WORLD, f"{out}/rendezvous", str(out)),
                        nprocs=WORLD, join=True, start_method="forkserver")
 
@@ -161,12 +166,14 @@ def _save_lm(out) -> None:
 def part_results(tmp_path_factory, part: str, prepare=None) -> list:
     """The four ranks' results of one part of
     ``_torch_port_training_workers`` (or ``_torch_port_checkpoint_workers``
-    for "ckpt", ``_torch_port_parallel_workers`` for "gspmd" and "ring"),
+    for "ckpt", ``_torch_port_parallel_workers`` for "gspmd" and "ring",
+    ``_torch_port_eager_workers`` for the negotiated plane's parts),
     from one start of the ranks per part and test process.
     ``prepare(out_dir)`` writes what the ranks read beyond the part's
     inputs, before they start; ``part_dir(part)`` is that directory."""
     if part not in _PARTS:
         import _torch_port_checkpoint_workers as ckpt_workers
+        import _torch_port_eager_workers as eager_workers
         import _torch_port_parallel_workers as par_workers
         import _torch_port_training_workers as workers
         out = tmp_path_factory.mktemp(f"{part}_pool")
@@ -182,7 +189,11 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "sbn": workers.sync_batch_norm_part,
                 "ckpt": ckpt_workers.checkpoint_part,
                 "gspmd": par_workers.gspmd_part,
-                "ring": par_workers.ring_part}[part], out)
+                "ring": par_workers.ring_part,
+                "native": eager_workers.native_part,
+                "cache": eager_workers.cache_part,
+                "eager": eager_workers.eager_part,
+                "dispatch": eager_workers.dispatch_part}[part], out)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
                         for r in range(WORLD)]
     return _PARTS[part]
@@ -203,3 +214,26 @@ def results(tmp_path_factory) -> dict:
             _RESULTS[name] = [torch.load(os.path.join(out, f"{name}{r}.pt"))
                               for r in range(world)]
     return _RESULTS
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free localhost ports."""
+    import socket
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def write_ports(n: int):
+    """A ``prepare`` hook of ``part_results``: ``ports.json`` with ``n``
+    free ports for the ranks' controllers."""
+    def prepare(out):
+        with open(os.path.join(out, "ports.json"), "w") as f:
+            json.dump(free_ports(n), f)
+    return prepare

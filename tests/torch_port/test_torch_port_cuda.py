@@ -534,3 +534,43 @@ def test_cuda_gspmd_stage3_step_matches_the_flat_plane(cuda_device):
             "ratio_to_ideal"] == 1.0
     finally:
         hvd.shutdown()
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.cuda
+def test_cuda_negotiated_executor_orders_after_a_side_stream(cuda_device,
+                                                             monkeypatch):
+    """The native controller's device executor on CUDA tensors at world 1
+    on NCCL: tensors made on a side stream and submitted there (no
+    synchronize between the producers and the submit) come back right on
+    that stream, fused in one response, equal to the tensors themselves
+    (the sum over one rank; Average divides by 1)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    monkeypatch.setenv("HVD_TPU_CONTROLLER_ADDR", f"127.0.0.1:{_free_port()}")
+    hvd.init(use_controller=True)
+    try:
+        ctl = global_state.controller
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            a = torch.randn(2048, 2048, device=cuda_device)
+            xs = [a @ a + i for i in range(4)]     # long producers
+            hs = [hvd.allreduce_async(x, op=hvd.Sum, name=f"side.{i}")
+                  for i, x in enumerate(xs)]
+            outs = [hvd.synchronize(h) for h in hs]
+            same = [torch.equal(o, x) for o, x in zip(outs, xs)]
+            avg = hvd.allreduce(xs[0], name="side.avg")
+            same.append(torch.equal(avg, xs[0]))
+        assert all(same), same
+        assert ctl.stats()["names"] == 5
+        assert max(ctl.stats()["names_per_response"]) > 1
+    finally:
+        hvd.shutdown()

@@ -90,6 +90,26 @@ def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     assert proc.stdout.strip() == "ok"
 
 
+def test_native_builds_and_imports_without_jax():
+    """The native runtime, its controller and the negotiated plane's
+    modules import, build and load in an interpreter where ``import jax``
+    fails."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "from horovod_tpu_torch.native import _build, controller, "
+            "runtime\n"
+            "from horovod_tpu_torch.ops import dispatch, eager\n"
+            "assert _build.build().startswith(_build.BUILD_DIR)\n"
+            "controller.load_library()\n"
+            "bad = [m for m in sys.modules if m == 'horovod_tpu' or "
+            "m.startswith('horovod_tpu.') or m == 'jax']\n"
+            "assert not [m for m in bad if sys.modules[m] is not None], bad\n"
+            "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_init_refuses_cpu_fallback():
     proc = _run("import horovod_tpu_torch as h\nh.init()", env=NO_GPU)
     assert proc.returncode != 0
