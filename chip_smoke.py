@@ -113,7 +113,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              names per response, response-cache hits a step (every
              gradient from step 1 on), host step, peak memory; a
              timeline written and parsed (every gradient's name,
-             NEGOTIATE and DEVICE_COLLECTIVE events).
+             NEGOTIATE and DEVICE_COLLECTIVE events);
+12. modes  — the flagship (AdamW(3e-4, wd 1e-4), world 1 on NCCL) with
+             (a) remat=True against remat=False through the
+             data-parallel step, 3 steps each: losses within rtol 1e-6,
+             flash_fwd 16 launches a step against 8, dQ and dK/dV 8;
+             on a (dp, pp, mp) = (1, 1, 1) mesh (a mesh Transformer
+             through make_train_step, a plain AdamW over the shards):
+             (b) GPipe and 1F1B
+             at 4 microbatches, 3 steps each: step-0 losses bit-equal,
+             step-0 gradients within atol 5e-5 + rtol 1e-4 of each other
+             and within 2e-2 normwise of the unpipelined step's, launches
+             a step (GPipe 32 of each kernel, 1F1B 64 forward launches:
+             its backward replays every stage forward); (c) megatron,
+             ring and ulysses attention, 10 steps each: losses equal to
+             phase 4's bit for bit; (d) MoE with 8 experts, capacity
+             factor 1.25, top_k 1 and 2, 5 steps each: losses finite and
+             falling, every kernel once per layer per step, dropped
+             routes a step, host step and peak memory.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -123,6 +140,7 @@ chiprun_out/chip_smoke.json.  Without a CUDA device it exits non-zero and
 prints no result.
 """
 
+import gc
 import json
 import math
 import os
@@ -1475,6 +1493,201 @@ def phase_negotiated(torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
     return out
 
 
+# Phase 12: the parallel modes at world 1.  Step-0 gradients of GPipe and
+# 1F1B against each other (the reference's 1F1B bar, summation order
+# only), and each against the unpipelined step normwise (bf16, as phase
+# 4's kernel-vs-plain bar); losses of remat against none.
+TOL_PIPE = dict(atol=5e-5, rtol=1e-4)
+TOL_REMAT_LOSS = 1e-6
+MOE_EXPERTS, MOE_CAPACITY = 8, 1.25
+
+
+def mode_run(torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps,
+             mesh=None, keep_grads=False, on_step=None):
+    """``n_steps`` of a fresh seed-0 flagship through ``make_train_step``
+    with AdamW(3e-4, wd 1e-4): on ``mesh`` a plain optimizer over the
+    shards, else ``DistributedOptimizer``.  Returns losses, host step
+    (median of steps 1..), peak bytes allocated above the run's start,
+    the kernels' launches a step and, with ``keep_grads``, step 0's
+    gradients."""
+    gc.collect()     # the last run's model and optimizer, held in cycles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = tfm.Transformer(cfg, par, seed=0, mesh=mesh)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+    if mesh is None:
+        opt = hvd.DistributedOptimizer(opt)
+    step = tfm.make_train_step(cfg, par, model, opt)
+    fa.reset_launches()
+    losses, times, grads = [], [], None
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        loss = step(tokens, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if i == 0 and keep_grads:     # on the host: out of the peak
+            grads = {n: p.grad.to("cpu", copy=True)
+                     for n, p in model.named_parameters()}
+        if on_step is not None:
+            on_step(i)
+    launches = dict(fa.launches)
+    out = {"losses": losses, "step_times_s": times,
+           "step_s": statistics.median(times[1:]),
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "launches": launches,
+           "launches_per_step": {n: c / n_steps for n, c in launches.items()}}
+    assert all(math.isfinite(x) for x in losses), losses
+    return out, grads
+
+
+def grad_diffs(a, b):
+    """Per parameter: (the largest excess of |a - b| over atol + rtol |b|
+    of ``TOL_PIPE``, ≤ 0 where allclose holds; ||a - b|| / ||b||)."""
+    out = {}
+    for n, g in b.items():
+        d = (a[n] - g).abs()
+        excess = (d - TOL_PIPE["atol"] - TOL_PIPE["rtol"] * g.abs()).max()
+        out[n] = (excess.item(), ((a[n] - g).norm()
+                                  / g.norm().clamp_min(1e-30)).item())
+    return out
+
+
+def phase_modes(torch, hvd, tfm, fa, cfg, tokens, labels, n_steps,
+                phase4_losses, card):
+    """Phase 12: remat, the pipeline schedules, the attention modes and
+    MoE on a (1, 1, 1) mesh; returns the report."""
+    from horovod_tpu_torch.parallel import moe as moe_lib
+    report = {}
+    hvd.init()
+    mesh = hvd.parallel.create_mesh({"dp": 1, "pp": 1, "mp": 1})
+    P = tfm.ParallelConfig
+
+    # (a) remat against none, the data-parallel path.
+    runs = {}
+    for remat in (False, True):
+        runs[remat], _ = mode_run(torch, hvd, tfm, fa,
+                                  cfg._replace(remat=remat), P(), tokens,
+                                  labels, 3)
+    plain, remat = runs[False], runs[True]
+    for a, b in zip(remat["losses"], plain["losses"]):
+        assert abs(a - b) <= TOL_REMAT_LOSS * abs(b), (remat, plain)
+    want = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    for n, k in want.items():
+        assert remat["launches_per_step"][n] == k * cfg.n_layers, remat
+        assert plain["launches_per_step"][n] == cfg.n_layers, plain
+    report["remat"] = {"remat": remat, "none": plain}
+    log(f"[modes] (a) remat: losses {remat['losses']} against "
+        f"{plain['losses']}; launches a step {remat['launches_per_step']} "
+        f"against {plain['launches_per_step']}; host step "
+        f"{remat['step_s'] * 1e3:.3f} ms against "
+        f"{plain['step_s'] * 1e3:.3f} ms; peak allocated "
+        f"{remat['peak_bytes'] / 2**20:.1f} MiB against "
+        f"{plain['peak_bytes'] / 2**20:.1f} MiB; on {card}")
+
+    # (b) GPipe and 1F1B at pp 1 and 4 microbatches, against each other
+    # and the unpipelined step.
+    pipe, grads = {}, {}
+    for label, par in (("unpipelined", P()),
+                       ("gpipe", P(n_microbatches=4)),
+                       ("1f1b", P(n_microbatches=4, pp_schedule="1f1b"))):
+        pipe[label], grads[label] = mode_run(
+            torch, hvd, tfm, fa, cfg, par, tokens, labels, 3, mesh=mesh,
+            keep_grads=True)
+    assert pipe["gpipe"]["losses"][0] == pipe["1f1b"]["losses"][0], pipe
+    assert abs(pipe["gpipe"]["losses"][0] - phase4_losses[0]) <= TOL_LOSS
+    between = grad_diffs(grads["1f1b"], grads["gpipe"])
+    against = {label: grad_diffs(grads[label], grads["unpipelined"])
+               for label in ("gpipe", "1f1b")}
+    assert all(e <= 0 for e, _ in between.values()), between
+    assert all(r <= TOL_MODEL_GRAD_REL for d in against.values()
+               for _, r in d.values()), against
+    mb = 4 * cfg.n_layers
+    assert pipe["gpipe"]["launches_per_step"] == {
+        n: mb for n in KERNELS}, pipe["gpipe"]
+    assert pipe["1f1b"]["launches_per_step"] == {
+        "flash_fwd": 2 * mb, "flash_bwd_dq": mb, "flash_bwd_dkv": mb}, \
+        pipe["1f1b"]
+    del grads
+    report["pipeline"] = dict(pipe, grads_1f1b_vs_gpipe=between,
+                              grads_vs_unpipelined=against)
+    log(f"[modes] (b) pp 1, 4 microbatches: step-0 loss gpipe "
+        f"{pipe['gpipe']['losses'][0]} == 1f1b {pipe['1f1b']['losses'][0]}"
+        f" (unpipelined {pipe['unpipelined']['losses'][0]}); step-0 "
+        f"gradients 1f1b vs gpipe within atol 5e-5 + rtol 1e-4 (largest "
+        f"normwise {max(r for _, r in between.values()):.3g}), vs the "
+        f"unpipelined step normwise at most "
+        f"{max(r for d in against.values() for _, r in d.values()):.3g}; "
+        f"launches a step gpipe {pipe['gpipe']['launches_per_step']}, 1f1b "
+        f"{pipe['1f1b']['launches_per_step']}; host step gpipe "
+        f"{pipe['gpipe']['step_s'] * 1e3:.3f} ms, 1f1b "
+        f"{pipe['1f1b']['step_s'] * 1e3:.3f} ms, unpipelined "
+        f"{pipe['unpipelined']['step_s'] * 1e3:.3f} ms; peak "
+        f"{pipe['gpipe']['peak_bytes'] / 2**20:.1f} / "
+        f"{pipe['1f1b']['peak_bytes'] / 2**20:.1f} / "
+        f"{pipe['unpipelined']['peak_bytes'] / 2**20:.1f} MiB")
+
+    # (c) the attention modes at mp 1: phase 4's step, bit for bit.
+    report["attention"] = {}
+    for mode in ("megatron", "ring", "ulysses"):
+        run, _ = mode_run(torch, hvd, tfm, fa, cfg._replace(attn_mode=mode),
+                          P(), tokens, labels, n_steps, mesh=mesh)
+        assert run["losses"] == phase4_losses, (mode, run["losses"],
+                                                phase4_losses)
+        assert run["launches_per_step"] == {
+            n: cfg.n_layers for n in KERNELS}, run
+        report["attention"][mode] = run
+    log(f"[modes] (c) megatron, ring and ulysses at mp 1 on the mesh: "
+        f"{n_steps} losses each equal to phase 4's bit for bit; host step "
+        + ", ".join(f"{m} {r['step_s'] * 1e3:.3f} ms"
+                    for m, r in report["attention"].items()))
+
+    # (d) MoE: 8 experts, capacity factor 1.25, top_k 1 and 2.
+    report["moe"] = {}
+    tokens_per_step = tokens.numel()
+    for top_k in (1, 2):
+        dropped = []
+        per_step = []
+        orig = moe_lib.moe_layer
+
+        def counting(*args, **kwargs):
+            out, st = orig(*args, return_stats=True, **kwargs)
+            dropped.append(st.dropped)
+            return out
+
+        def on_step(i):     # the step's MoE layers, each routed once
+            assert len(dropped) == cfg.n_layers, (i, len(dropped))
+            per_step.append(float(sum(d.item() for d in dropped)))
+            dropped.clear()
+
+        moe_cfg = cfg._replace(n_experts=MOE_EXPERTS,
+                               capacity_factor=MOE_CAPACITY, top_k=top_k)
+        moe_lib.moe_layer = counting
+        try:
+            run, _ = mode_run(torch, hvd, tfm, fa, moe_cfg, P(), tokens,
+                              labels, 5, mesh=mesh, on_step=on_step)
+        finally:
+            moe_lib.moe_layer = orig
+        assert run["losses"][-1] < run["losses"][0], run["losses"]
+        assert run["launches_per_step"] == {
+            n: cfg.n_layers for n in KERNELS}, run
+        routed = tokens_per_step * top_k * cfg.n_layers
+        run.update(dropped_per_step=per_step, routed_per_step=routed,
+                   capacity=moe_lib.expert_capacity(
+                       tokens_per_step, MOE_EXPERTS, MOE_CAPACITY, top_k))
+        report["moe"][f"top{top_k}"] = run
+        log(f"[modes] (d) MoE {MOE_EXPERTS} experts, capacity factor "
+            f"{MOE_CAPACITY}, top_k {top_k} (capacity {run['capacity']} "
+            f"slots an expert): losses {run['losses']}; dropped routes a "
+            f"step {per_step} of {routed}; host step "
+            f"{run['step_s'] * 1e3:.3f} ms (median of steps 1-4); peak "
+            f"allocated {run['peak_bytes'] / 2**20:.1f} MiB; launches a "
+            f"step {run['launches_per_step']}; on {card}")
+    hvd.shutdown()
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1578,7 +1791,7 @@ def main() -> int:
     hvd.init()
     cfg = tfm.TransformerConfig(vocab_size=8192, d_model=512, n_heads=8,
                                 d_ff=2048, n_layers=8, seq_len=512,
-                                dtype=torch.bfloat16)
+                                dtype=torch.bfloat16, remat=False)
     par = tfm.ParallelConfig()
     batch, n_steps = 8, 10
     model = tfm.Transformer(cfg, par, seed=0)
@@ -1669,6 +1882,9 @@ def main() -> int:
     # 11. the negotiated eager plane: the native controller attached
     report["negotiated"] = phase_negotiated(
         torch, hvd, tfm, fa, cfg, par, tokens, labels, n_steps, losses, card)
+    # 12. the parallel modes on a (1, 1, 1) mesh, and remat
+    report["modes"] = phase_modes(torch, hvd, tfm, fa, cfg, tokens, labels,
+                                  n_steps, losses, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -1685,6 +1901,14 @@ def main() -> int:
                         for c in ("causal", "full")})
         by_path["negotiated"] = \
             report["negotiated"]["controller"]["launches"][name]
+        modes = report["modes"]
+        by_path["remat"] = modes["remat"]["remat"]["launches"][name]
+        by_path.update({f"{s}_pp1_micro4": modes["pipeline"][s]["launches"]
+                        [name] for s in ("gpipe", "1f1b")})
+        by_path.update({f"{m}_mp1": r["launches"][name]
+                        for m, r in modes["attention"].items()})
+        by_path.update({f"moe_{k}": r["launches"][name]
+                        for k, r in modes["moe"].items()})
         assert all(by_path.values()), (name, by_path)
         kernels.append(dict(name=name, route="cuda", source=SOURCE,
                             replaces=replaces, launches=launches[name],

@@ -1,5 +1,5 @@
-"""Flagship model: decoder-only Transformer LM, data-parallel training half
-(port of horovod_tpu/models/transformer.py, dense, dp only).
+"""Flagship model: decoder-only Transformer LM composed with dp / pp / tp /
+sp / ep (port of horovod_tpu/models/transformer.py, training).
 
 The parameter tree and shapes are the reference's (``init_params``,
 transformer.py:79-123): layer weights stacked as (n_pp, layers_per_stage,
@@ -9,25 +9,51 @@ that tree as parameters, so its ``state_dict`` keys are the tree's paths
 (``embed``, ``layers.wqkv``, …) and ``convert.params_from_jax`` loads the
 reference's parameters into it.
 
+Two ways to train it:
+
+* **data parallel** (``make_train_step(cfg, par, model, optimizer)``):
+  every rank holds the whole tree, runs the serial forward on its rows
+  and ``DistributedOptimizer`` (or ZeRO) averages the gradients over the
+  world.  Dense MLPs only.
+* **on a (dp, pp, mp) mesh** (``Transformer(cfg, par, mesh=)``, a
+  ``DeviceMesh`` with those dimension names, then the same
+  ``make_train_step`` with a plain optimizer): every rank holds its shard
+  of the tree by ``param_specs`` and runs ``forward_loss``, the
+  reference's per-device
+  body: batch over dp, GPipe or 1F1B microbatches over pp, Megatron
+  tp + SP (or ring / Ulysses attention) over mp, MoE experts over dp.
+  ``make_loss_fn`` differentiates it as the reference differentiates its
+  ``shard_map`` from outside: the loss's cotangent is divided by the
+  mesh size and each parameter's gradient is summed over the mesh axes
+  its spec leaves unnamed, so after ``loss.backward()`` every shard holds
+  the reference's gradient of that shard.
+
 Compute dtype defaults to bfloat16; normalization, softmax, logits and
 loss are fp32, with the tied fp32 embedding as the vocab head.
-The configs carry only the fields this port reads; ``remat``, MoE routing
-and pipeline scheduling are not ported yet (ROADMAP.md).
+``remat=True`` (the reference's default) recomputes each layer in the
+backward.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.basics import DeviceLike, resolve_device
 from ..ops.collective import Average, allreduce
+from ..parallel import moe as moe_lib
+from ..parallel import pipeline as pp_lib
 from ..parallel import ring_attention as ra
+from ..parallel import tensor_parallel as tp
+from ..parallel.ulysses import ulysses_attention
+
+AXES = ("dp", "pp", "mp")
 
 
 class TransformerConfig(NamedTuple):
@@ -37,9 +63,12 @@ class TransformerConfig(NamedTuple):
     d_ff: int = 2048
     n_layers: int = 8
     seq_len: int = 512
-    n_experts: int = 0            # 0 → dense MLP (the only mode ported)
-    attn_mode: str = "megatron"   # the only mode ported
+    n_experts: int = 0            # 0 → dense MLP; >0 → switch MoE
+    capacity_factor: float = 1.25
+    attn_mode: str = "megatron"   # "megatron" (tp heads) | "ring" | "ulysses" (sp)
     dtype: Any = torch.bfloat16
+    remat: bool = True
+    top_k: int = 1                # MoE routes per token
 
     @property
     def head_dim(self) -> int:
@@ -47,41 +76,40 @@ class TransformerConfig(NamedTuple):
 
 
 class ParallelConfig(NamedTuple):
-    """Only pp = mp = 1 is ported; the data-parallel width is the world
-    size of ``init()``."""
+    """The mesh's (dp, pp, mp) and the pipeline's microbatching.  The
+    data-parallel path (no mesh) reads none of it: its width is the
+    world size of ``init()``."""
+    dp: int = 1
     pp: int = 1
-    mp: int = 1
+    mp: int = 1                   # shared tensor/sequence axis
+    n_microbatches: int = 1
+    pp_schedule: str = "gpipe"    # "gpipe" | "1f1b" (bounded-stash backward)
 
-
-def _check_ported(cfg: TransformerConfig, par: ParallelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers are not ported yet (ROADMAP.md "
-                                  "queue 1: ring, Ulysses, pp, tp and MoE)")
-    if cfg.attn_mode != "megatron" or par.pp != 1 or par.mp != 1:
-        raise NotImplementedError(
-            f"attn_mode={cfg.attn_mode!r}, pp={par.pp}, mp={par.mp}: only "
-            "data parallelism is ported (ROADMAP.md queue 1: ring, Ulysses, "
-            "pp, tp and MoE)")
+    @property
+    def axis_names(self) -> Tuple[str, str, str]:
+        return AXES
 
 
 def init_params(cfg: TransformerConfig, par: Optional[ParallelConfig] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Dict[str, Any]:
-    """The full parameter tree, fp32 on the CPU, drawn from ``generator``:
-    normal(0, 0.02) weights, output projections scaled by
+    """The full (unsharded) parameter tree, fp32 on the CPU, drawn from
+    ``generator``: normal(0, 0.02) weights, output projections scaled by
     1/sqrt(2 n_layers), ones for the norms (reference init_params)."""
     par = par or ParallelConfig()
-    _check_ported(cfg, par)
     d, ff, v, s = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.seq_len
     h, hd = cfg.n_heads, cfg.head_dim
-    n_pp, lps = par.pp, cfg.n_layers // par.pp
+    n_pp = par.pp
+    if cfg.n_layers % n_pp != 0:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp {n_pp}")
+    lps = cfg.n_layers // n_pp
     std = 0.02
     out_std = std / math.sqrt(2 * cfg.n_layers)
 
     def rand(*shape, scale=std):
         return torch.randn(shape, generator=generator) * scale
 
-    return {
+    params = {
         "embed": rand(v, d),
         "pos": rand(s, d),
         "final_norm": torch.ones(d),
@@ -90,27 +118,151 @@ def init_params(cfg: TransformerConfig, par: Optional[ParallelConfig] = None,
             "ln2": torch.ones(n_pp, lps, d),
             "wqkv": rand(n_pp, lps, d, 3 * h * hd),
             "wo": rand(n_pp, lps, h * hd, d, scale=out_std),
-            "w1": rand(n_pp, lps, d, ff),
-            "w2": rand(n_pp, lps, ff, d, scale=out_std),
         },
     }
+    layers = params["layers"]
+    if cfg.n_experts > 0:
+        if cfg.n_experts % par.dp != 0:
+            raise ValueError("n_experts must be divisible by dp (=ep) degree")
+        e = cfg.n_experts
+        layers["gate"] = rand(n_pp, lps, d, e)
+        layers["w_in"] = rand(n_pp, lps, e, d, ff)
+        layers["w_out"] = rand(n_pp, lps, e, ff, d, scale=out_std)
+    else:
+        layers["w1"] = rand(n_pp, lps, d, ff)
+        layers["w2"] = rand(n_pp, lps, ff, d, scale=out_std)
+    return params
+
+
+def param_specs(cfg: TransformerConfig, par: ParallelConfig
+                ) -> Dict[str, Any]:
+    """The tree of ``init_params`` with, per leaf, the mesh axis that
+    shards each of its dims (None: not sharded): the reference's
+    PartitionSpecs as tuples."""
+    megatron = cfg.attn_mode == "megatron"
+    layers: Dict[str, Any] = {
+        "ln1": ("pp",),
+        "ln2": ("pp",),
+        # Megatron: qkv column-parallel (heads over mp), wo row-parallel.
+        # Ring/Ulysses: attention weights replicated over mp.
+        "wqkv": ("pp", None, None, "mp") if megatron else ("pp",),
+        "wo": ("pp", None, "mp", None) if megatron else ("pp",),
+    }
+    if cfg.n_experts > 0:
+        layers["gate"] = ("pp",)
+        layers["w_in"] = ("pp", None, "dp", None, None)   # experts over dp
+        layers["w_out"] = ("pp", None, "dp", None, None)
+    else:
+        layers["w1"] = ("pp", None, None, "mp")
+        layers["w2"] = ("pp", None, "mp", None)
+    return {"embed": (), "pos": (), "final_norm": (), "layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# The mesh: this rank's place on it, its shards of the tree
+# ---------------------------------------------------------------------------
+
+class _Axes:
+    """This rank's place on a (dp, pp, mp) mesh: each axis's process
+    group, size and this rank's index on it."""
+
+    def __init__(self, mesh):
+        if tuple(mesh.mesh_dim_names or ()) != AXES:
+            raise ValueError(f"the mesh's dimensions must be {AXES}, got "
+                             f"{mesh.mesh_dim_names}")
+        self.group = {a: mesh.get_group(a) for a in AXES}
+        self.size = dict(zip(AXES, (int(n) for n in mesh.mesh.shape)))
+        self.index = dict(zip(AXES, mesh.get_coordinate()))
+
+    def check(self, par: ParallelConfig) -> None:
+        want = dict(dp=par.dp, pp=par.pp, mp=par.mp)
+        if self.size != want:
+            raise ValueError(f"the mesh is {self.size}, the config {want}")
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _map(fn, tree, specs):
+    """``tree`` with each leaf ``fn(leaf, its spec)``."""
+    return {k: _map(fn, v, specs[k]) if isinstance(v, dict)
+            else fn(v, specs[k]) for k, v in tree.items()}
+
+
+def _tree(params) -> Dict[str, Any]:
+    """The parameter tree of a ``Transformer`` (or a tree itself)."""
+    if isinstance(params, Transformer):
+        return {"embed": params.embed, "pos": params.pos,
+                "final_norm": params.final_norm,
+                "layers": dict(params.layers.items())}
+    return params
+
+
+def shard_params(cfg: TransformerConfig, par: ParallelConfig,
+                 tree: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's shard of the full tree (``init_params``' or
+    ``convert.params_from_jax``'s, nested): each dim a spec names cut into
+    the axis's size and the chunk at this rank's coordinate taken."""
+    ax = _Axes(mesh)
+    ax.check(par)
+
+    def cut(t, spec):
+        for dim, axis in enumerate(spec):
+            if axis is None:
+                continue
+            n = ax.size[axis]
+            if t.shape[dim] % n:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                                 f"divide over {axis}={n}")
+            chunk = t.shape[dim] // n
+            t = t.narrow(dim, ax.index[axis] * chunk, chunk)
+        return t.clone()
+
+    return _map(cut, tree, param_specs(cfg, par))
+
+
+def gather_params(cfg: TransformerConfig, par: ParallelConfig, shards,
+                  mesh) -> Dict[str, Any]:
+    """The inverse of :func:`shard_params`: every rank gets the full tree
+    (all-gathers over the axes each spec names).  ``shards`` is a tree or
+    a ``Transformer``; gradients gather with ``{k: p.grad}`` trees."""
+    ax = _Axes(mesh)
+    ax.check(par)
+
+    def gather(t, spec):
+        t = t.detach()
+        for dim, axis in enumerate(spec):
+            if axis is not None and ax.size[axis] > 1:
+                t = tp._all_gather(t, ax.group[axis], dim)
+        return t
+
+    return _map(gather, _tree(shards), param_specs(cfg, par))
 
 
 class Transformer(nn.Module):
-    """The parameter tree of ``init_params`` as an ``nn.Module``.
+    """The parameter tree of ``init_params`` as an ``nn.Module`` (with
+    ``mesh``, this rank's shard of it).
 
     ``forward(tokens)`` gives fp32 logits, ``forward(tokens, labels)`` the
-    mean next-token cross entropy.
+    mean next-token cross entropy; on a mesh only the latter, through
+    ``make_loss_fn`` (tokens and labels this rank's dp rows).
     """
 
     def __init__(self, cfg: TransformerConfig,
                  par: Optional[ParallelConfig] = None, *, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         super().__init__()
-        self.cfg, self.par = cfg, par or ParallelConfig()
+        self.cfg, self.par, self.mesh = cfg, par or ParallelConfig(), mesh
         dev = resolve_device(device)
         tree = init_params(cfg, self.par,
                            torch.Generator().manual_seed(seed))
+        if mesh is not None:
+            tree = shard_params(cfg, self.par, tree, mesh)
         self.embed = nn.Parameter(tree["embed"].to(dev))
         self.pos = nn.Parameter(tree["pos"].to(dev))
         self.final_norm = nn.Parameter(tree["final_norm"].to(dev))
@@ -119,10 +271,20 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.mesh is not None:
+            if labels is None:
+                raise ValueError("on a mesh the model computes the loss: "
+                                 "pass labels")
+            return make_loss_fn(self.cfg, self.par, self.mesh)(
+                self, tokens, labels)
         if labels is None:
             return serial_forward_logits(self.cfg, self, tokens)
         return serial_forward_loss(self.cfg, self, tokens, labels)
 
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
 
 def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     xf = x.float()
@@ -130,18 +292,22 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (xf * torch.rsqrt(var + 1e-6) * scale).to(x.dtype)
 
 
+def _split_heads(qkv: torch.Tensor, head_dim: int):
+    """q, k, v of a fused projection (b, s, heads * 3 * head_dim), heads
+    outermost: strided views, which the kernels read in place."""
+    b, s = qkv.shape[:2]
+    qkv = qkv.view(b, s, qkv.shape[-1] // (3 * head_dim), 3, head_dim)
+    return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+
+
 def _attention_block(cfg: TransformerConfig, lp: Dict[str, torch.Tensor],
                      x: torch.Tensor) -> torch.Tensor:
     """Pre-norm causal self-attention; returns the residual branch.  ``lp``
     holds the layer's weights, matmul weights already in x's dtype."""
     h = _rmsnorm(x, lp["ln1"])
-    qkv = h @ lp["wqkv"]
-    b, s = qkv.shape[:2]
-    qkv = qkv.view(b, s, cfg.n_heads, 3, cfg.head_dim)
-    # Strided views: the kernels read them in place, no copy.
-    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    q, k, v = _split_heads(h @ lp["wqkv"], cfg.head_dim)
     o = ra.full_attention(q, k, v, causal=True)
-    return o.reshape(b, s, -1) @ lp["wo"]
+    return o.reshape(*x.shape[:2], -1) @ lp["wo"]
 
 
 def _mlp_block(cfg: TransformerConfig, lp: Dict[str, torch.Tensor],
@@ -152,29 +318,99 @@ def _mlp_block(cfg: TransformerConfig, lp: Dict[str, torch.Tensor],
     return u @ lp["w2"]
 
 
+def _mesh_attention_block(cfg: TransformerConfig, ax: _Axes,
+                          lp: Dict[str, torch.Tensor],
+                          x: torch.Tensor) -> torch.Tensor:
+    """x: (mb, s_local, d), sequence-sharded over mp.  Megatron gathers
+    the sequence, runs its heads and reduce-scatters the sequence back;
+    ring and Ulysses keep the sequence sharded through attention."""
+    mp = ax.group["mp"]
+    h = _rmsnorm(x, lp["ln1"])
+    if cfg.attn_mode == "megatron":
+        hg = tp.gather_sequence(h, mp, dim=1)                 # (mb, S, d)
+        q, k, v = _split_heads(tp.column_parallel(hg, lp["wqkv"]),
+                               cfg.head_dim)
+        o = ra.full_attention(q, k, v, causal=True)
+        return tp.row_parallel(o.reshape(*hg.shape[:2], -1), lp["wo"], mp,
+                               scatter_sequence=True)
+    q, k, v = _split_heads(h @ lp["wqkv"], cfg.head_dim)
+    if cfg.attn_mode == "ulysses":
+        o = ulysses_attention(q, k, v, mp, causal=True)
+    elif cfg.attn_mode == "ring":
+        o = ra.ring_attention(q, k, v, mp, causal=True)
+    else:
+        raise ValueError(f"unknown attn_mode {cfg.attn_mode!r} "
+                         "(megatron | ring | ulysses)")
+    return o.reshape(*x.shape[:2], -1) @ lp["wo"]
+
+
+def _mesh_mlp_block(cfg: TransformerConfig, ax: _Axes,
+                    lp: Dict[str, torch.Tensor],
+                    x: torch.Tensor) -> torch.Tensor:
+    h = _rmsnorm(x, lp["ln2"])
+    if cfg.n_experts > 0:
+        mb, s_local, d = h.shape
+        params = moe_lib.MoEParams(gate=lp["gate"].float(), w_in=lp["w_in"],
+                                   w_out=lp["w_out"])
+        y = moe_lib.moe_layer(params, h.reshape(mb * s_local, d),
+                              ax.group["dp"],
+                              capacity_factor=cfg.capacity_factor,
+                              top_k=cfg.top_k)
+        return y.reshape(mb, s_local, d).to(x.dtype)
+    mp = ax.group["mp"]
+    hg = tp.gather_sequence(h, mp, dim=1)
+    u = F.gelu(tp.column_parallel(hg, lp["w1"]), approximate="tanh")
+    return tp.row_parallel(u, lp["w2"], mp, scatter_sequence=True)
+
+
 _MATMUL_WEIGHTS = ("wqkv", "wo", "w1", "w2")
 
 
-def _layer_params(model: Transformer, dtype):
-    """Per-layer parameter dicts, the matmul weights cast to the compute
-    dtype: one cast and one unbind per stacked tensor (whose backward is one
-    cast and one stack), not one of each per layer."""
-    per = {}
-    for k, t in model.layers.items():
-        t = t.flatten(0, 1)
-        per[k] = (t.to(dtype) if k in _MATMUL_WEIGHTS else t).unbind(0)
+def _layer_params(stacks: Dict[str, torch.Tensor], dtype):
+    """Per-layer parameter dicts of (n_layers, …) stacks, the dense matmul
+    weights cast to the compute dtype: one cast and one unbind per stacked
+    tensor (whose backward is one cast and one stack), not one of each per
+    layer.  MoE weights stay fp32, as the reference's moe_layer takes
+    them."""
+    per = {k: (t.to(dtype) if k in _MATMUL_WEIGHTS else t).unbind(0)
+           for k, t in stacks.items()}
     n = len(next(iter(per.values())))
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
+def _run_layers(cfg: TransformerConfig, layer_fn, layers, x):
+    """``layer_fn(lp, x)`` over the layers, each recomputed in the
+    backward under ``cfg.remat``."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in layers:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer_fn, lp, x,
+                                                  use_reentrant=False)
+        else:
+            x = layer_fn(lp, x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# The data-parallel path: the serial forward on every rank
+# ---------------------------------------------------------------------------
+
 def serial_forward_logits(cfg: TransformerConfig, model: Transformer,
                           tokens: torch.Tensor) -> torch.Tensor:
-    """Training-path forward: fp32 logits (B, S, V)."""
+    """Training-path forward of the whole tree: fp32 logits (B, S, V).
+    Dense MLP only, as the reference's serial oracle."""
+    if cfg.n_experts:
+        raise ValueError("the serial forward covers the dense configuration;"
+                         " MoE runs on a (dp, pp, mp) mesh (mesh=)")
+
+    def layer(lp, x):
+        x = x + _attention_block(cfg, lp, x)
+        return x + _mlp_block(cfg, lp, x)
+
     s_in = tokens.shape[1]
     x = (model.embed[tokens] + model.pos[None, :s_in]).to(cfg.dtype)
-    for lp in _layer_params(model, cfg.dtype):
-        x = x + _attention_block(cfg, lp, x)
-        x = x + _mlp_block(cfg, lp, x)
+    stacks = {k: t.flatten(0, 1) for k, t in model.layers.items()}
+    x = _run_layers(cfg, layer, _layer_params(stacks, cfg.dtype), x)
     hidden = _rmsnorm(x, model.final_norm)
     return hidden.float() @ model.embed.float().t()
 
@@ -188,18 +424,6 @@ def serial_forward_loss(cfg: TransformerConfig, model: Transformer,
                            labels.reshape(-1))
 
 
-def forward_loss(cfg: TransformerConfig, par: ParallelConfig,
-                 model: Transformer, tokens: torch.Tensor,
-                 labels: torch.Tensor) -> torch.Tensor:
-    """The loss averaged over the data-parallel ranks, as the reference's
-    ``pmean`` over dp gives it (transformer.py:280).  Its value is the dp
-    mean; its gradient is this rank's own, so ``DistributedOptimizer``
-    averages the gradients once, as before, and the update is the
-    reference's.  At world 1 the value is the rank's loss."""
-    _check_ported(cfg, par)
-    return _dp_mean(serial_forward_loss(cfg, model, tokens, labels))
-
-
 def _dp_mean(local: torch.Tensor) -> torch.Tensor:
     """``local``'s value averaged over the world, its gradient its own."""
     # local - local.detach() is exactly 0, so every rank holds the same
@@ -209,21 +433,196 @@ def _dp_mean(local: torch.Tensor) -> torch.Tensor:
         (local - local.detach())
 
 
+def _check_data_parallel(par: ParallelConfig) -> None:
+    if par.pp != 1 or par.mp != 1:
+        raise ValueError(f"pp={par.pp}, mp={par.mp}: pipeline and tensor "
+                         "parallelism run on a (dp, pp, mp) mesh (mesh=)")
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: the reference's per-device body
+# ---------------------------------------------------------------------------
+
+def _pmean(x: torch.Tensor, group) -> torch.Tensor:
+    n = tp._size(group)
+    return x if n == 1 else tp.psum(x, group) / n
+
+
+def _make_stage_fn(cfg: TransformerConfig, ax: _Axes):
+    """stage_fn(stage_params, act) over this stage's layers."""
+
+    def layer(lp, act):
+        act = act + _mesh_attention_block(cfg, ax, lp, act)
+        return act + _mesh_mlp_block(cfg, ax, lp, act)
+
+    def stage_fn(stage_params, act):
+        return _run_layers(cfg, layer,
+                           _layer_params(stage_params, cfg.dtype), act)
+
+    return stage_fn
+
+
+def _mesh_forward_loss(cfg: TransformerConfig, par: ParallelConfig,
+                       ax: _Axes, params: Dict[str, Any],
+                       tokens: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    mp_size = ax.size["mp"]
+    if cfg.seq_len % mp_size:
+        raise ValueError(f"seq_len {cfg.seq_len} does not divide over "
+                         f"mp={mp_size}")
+    s_local = cfg.seq_len // mp_size
+    lo = ax.index["mp"] * s_local
+    seq = slice(lo, lo + s_local)
+    # This mp member's sequence chunk of the (replicated) embedding.
+    x = (params["embed"][tokens[:, seq]] + params["pos"][None, seq]).to(
+        cfg.dtype)
+
+    xs = pp_lib.stack_microbatches(x, par.n_microbatches)
+    stage_params = {k: v[0] for k, v in params["layers"].items()}
+    stage_fn = _make_stage_fn(cfg, ax)
+    if par.pp_schedule == "1f1b":
+        out = pp_lib.pipeline_apply_1f1b(stage_fn, stage_params, xs,
+                                         ax.group["pp"])
+    elif par.pp_schedule == "gpipe":
+        out = pp_lib.pipeline_apply(stage_fn, stage_params, xs,
+                                    ax.group["pp"], remat=cfg.remat)
+    else:
+        raise ValueError(
+            f"unknown pp_schedule {par.pp_schedule!r} (gpipe | 1f1b)")
+    hidden = _rmsnorm(pp_lib.unstack_microbatches(out),
+                      params["final_norm"])
+    logits = hidden.float() @ params["embed"].float().t()
+    loss_local = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 labels[:, seq].reshape(-1))
+    # Mean over sequence chunks (mp) and batch shards (dp); the loss is
+    # valid only on the last pipeline stage: a masked psum over pp.
+    loss = _pmean(_pmean(loss_local, ax.group["mp"]), ax.group["dp"])
+    if ax.size["pp"] == 1:
+        return loss
+    mask = pp_lib.last_stage_mask(ax.group["pp"], device=loss.device)
+    return tp.psum(loss * mask, ax.group["pp"])
+
+
+def forward_loss(cfg: TransformerConfig, par: ParallelConfig, model,
+                 tokens: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Without a mesh: the loss averaged over the data-parallel ranks,
+    as the reference's ``pmean`` over dp gives it (transformer.py:280).
+    Its value is the dp mean; its gradient is this rank's own, so
+    ``DistributedOptimizer`` averages the gradients once, as before, and
+    the update is the reference's.  At world 1 the value is the rank's
+    loss.
+
+    ``model`` a mesh ``Transformer``: the reference's per-device body on
+    its shards, on ``model.mesh``, and this rank's dp rows: the
+    replicated scalar loss.  Differentiate it through ``make_loss_fn``."""
+    if getattr(model, "mesh", None) is not None:
+        ax = _Axes(model.mesh)
+        ax.check(par)
+        return _mesh_forward_loss(cfg, par, ax, _tree(model), tokens, labels)
+    _check_data_parallel(par)
+    return _dp_mean(serial_forward_loss(cfg, model, tokens, labels))
+
+
+class _Enter(torch.autograd.Function):
+    """A shard entering the per-rank body: the identity, whose backward
+    sums the gradient over the mesh axes its spec does not name (the
+    transpose of ``shard_map``'s input)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        for group in ctx.groups:
+            g = tp._psum(g, group)
+        return g, None
+
+
+class _Leave(torch.autograd.Function):
+    """The replicated loss leaving the per-rank body: the identity, whose
+    backward divides the cotangent by the mesh size (the transpose of
+    ``shard_map``'s replicated output)."""
+
+    @staticmethod
+    def forward(ctx, loss, n):
+        ctx.n = n
+        return loss.view_as(loss)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def make_loss_fn(cfg: TransformerConfig, par: ParallelConfig, mesh
+                 ) -> Callable:
+    """``loss_of(params, tokens, labels)``: the per-rank body of
+    :func:`forward_loss` on ``mesh``, differentiable as the reference's
+    ``shard_map`` (check_vma=False) is from outside.  ``params``: a mesh
+    ``Transformer`` built on ``mesh`` or a shard tree cut for it
+    (``shard_params``); tokens and labels: this rank's dp rows, int64
+    (B / dp, seq_len).  After ``loss.backward()`` each shard's ``.grad``
+    is the reference's gradient of that shard: the local cotangent
+    1/(dp·mp) on the last stage, and every gradient summed over the axes
+    its spec leaves unnamed."""
+    ax = _Axes(mesh)
+    ax.check(par)
+    n = ax.size["dp"] * ax.size["pp"] * ax.size["mp"]
+    specs = param_specs(cfg, par)
+
+    def enter(t, spec):
+        groups = [ax.group[a] for a in AXES
+                  if a not in spec and ax.size[a] > 1]
+        return _Enter.apply(t, groups) if groups else t
+
+    def loss_of(params, tokens, labels):
+        if isinstance(params, Transformer) and (
+                params.mesh is None or params.mesh != mesh):
+            raise ValueError("the model's shards were cut for another mesh "
+                             f"({params.mesh}), not {mesh}")
+        local = _map(enter, _tree(params), specs)
+        loss = _mesh_forward_loss(cfg, par, ax, local, tokens, labels)
+        return _Leave.apply(loss, n) if n > 1 else loss
+
+    return loss_of
+
+
 def make_train_step(cfg: TransformerConfig, par: ParallelConfig,
                     model: Transformer, optimizer) -> Callable:
     """``train_step(tokens, labels) -> loss``: forward, backward and one
-    (distributed) optimizer step.  The loss returned is the dp mean of
-    ``forward_loss``, detached, the same on every rank, as the reference's
-    ``train_step`` returns it.
+    optimizer step.
 
+    ``model.mesh`` None: the data-parallel step.
+    The loss returned is the dp mean of ``forward_loss``, detached, the
+    same on every rank, as the reference's ``train_step`` returns it.
     ``optimizer`` is a ``DistributedOptimizer`` (or any optimizer) over
     ``model``'s parameters, updated in place, or a ``ZeroShardedOptimizer``
     built on ``model``: at stage 2 the step reduces the gradients into
     shards before the update; at stage 3 the forward runs on the gathered
     parameters (``torch.func.functional_call``) and the step updates the
-    shards, not ``model``'s own parameters."""
+    shards, not ``model``'s own parameters.
+
+    On a mesh (``model.mesh``, the one its shards were cut for; the
+    reference's ``mesh`` argument has no counterpart, as the module holds
+    it): ``model`` holds this rank's shards, tokens and labels are its dp
+    rows, and ``optimizer`` is a plain torch optimizer over the shards
+    (the gradients are already the reference's, reduced by
+    ``make_loss_fn``), as the reference steps optax on its sharded tree."""
+    if model.mesh is not None:
+        loss_of = make_loss_fn(cfg, par, model.mesh)
+
+        def mesh_step(tokens: torch.Tensor, labels: torch.Tensor):
+            optimizer.zero_grad(set_to_none=True)
+            loss = loss_of(model, tokens, labels)
+            loss.backward()
+            optimizer.step()
+            return loss.detach()
+
+        return mesh_step
+
     from ..optimizers import ZeroShardedOptimizer
-    _check_ported(cfg, par)
+    _check_data_parallel(par)
     stage = optimizer.stage if isinstance(optimizer, ZeroShardedOptimizer) \
         else 0
 
@@ -257,11 +656,20 @@ def synthetic_batch(cfg: TransformerConfig, batch: int, seed: int = 1,
             torch.from_numpy(labels).to(dev))
 
 
+def _mlp_flops_per_token(cfg: TransformerConfig) -> float:
+    """Per-token per-layer MLP matmul-FLOPs: dense 4 d ff; MoE routes
+    top_k experts per token (top_k · 4 d ff) plus the 2 d E gate."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.n_experts > 0:
+        return cfg.top_k * 4.0 * d * ff + 2.0 * d * cfg.n_experts
+    return 4.0 * d * ff
+
+
 def train_flops_per_seq(cfg: TransformerConfig) -> float:
     """Matmul-FLOPs for one causal-LM training sequence (train = 3x fwd):
-    per token 8d^2 (qkv + proj) + 4 d ff (mlp) per layer + 2dV vocab head;
+    per token 8d^2 (qkv + proj) + the MLP's per layer + 2dV vocab head;
     causal attention 2 S^2 d per layer per sequence."""
     d, L, s, v = cfg.d_model, cfg.n_layers, cfg.seq_len, cfg.vocab_size
-    dense = s * (L * (8.0 * d * d + 4.0 * d * cfg.d_ff) + 2.0 * d * v)
+    dense = s * (L * (8.0 * d * d + _mlp_flops_per_token(cfg)) + 2.0 * d * v)
     attn = L * 2.0 * s * s * d
     return 3.0 * (dense + attn)

@@ -227,16 +227,44 @@ def allgather_scheduled(x: torch.Tensor, axis: Axis,
     return Q.compressed_allgather(x, group, spec=spec, wire_dtype=wire_dtype)
 
 
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all, whose backward sends the gradient's rows back
+    the same way: an all-to-all is its own transpose."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return Q._all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return Q._all_to_all(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Row p of ``x`` (dim 0 = the group's size) to member p, row s of the
+    result from member s; differentiable.  ``group`` is a process group,
+    None (the world) or an axis of one member."""
+    if Q._size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group)
+
+
 def all_to_all_wire(v: torch.Tensor, axis_name, quant: Optional[QuantSpec],
                     mesh=None) -> torch.Tensor:
     """Exchange the rows of ``v`` (leading dim = the axis size) over
     ``axis_name``: row p goes to member p, row s of the result came from
     member s.  On the quantized wire each row is quantized on its own
     (the receiver needs no metadata of another row) and the payload and
-    the fp32 scales travel as two all-to-alls; the output is then fp32."""
+    the fp32 scales travel as two all-to-alls; the output is then fp32.
+    The plain wire is differentiable; the quantized one is not yet."""
     group = Q._group(_group(axis_name, mesh))
     if quant is None:
-        return Q._all_to_all(v, group)
+        return all_to_all(v, group)
+    if torch.is_grad_enabled() and v.requires_grad:
+        raise NotImplementedError(
+            "the quantized all-to-all wire has no gradient yet (ROADMAP.md "
+            "queue 1 item 6, moe_transformer's dispatch_bits)")
     row_elems = int(v[0].numel())
     row_shape = tuple(v.shape[1:])
     pairs = [Q.quantize(row, quant) for row in v]

@@ -19,30 +19,8 @@ from typing import Optional
 
 import torch
 
+from ..ops.xla_collectives import all_to_all
 from . import ring_attention as ra
-
-
-class _AllToAll(torch.autograd.Function):
-    """``all_to_all_single`` of the rows of ``x`` (dim 0 = the axis size:
-    row p to member p, row s of the result from member s), whose backward
-    sends the gradient's rows back the same way."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _exchange(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _exchange(g, ctx.group), None
-
-
-def _exchange(x, group):
-    import torch.distributed as dist
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
 
 
 def _seq_to_head_sharded(x, group, sp):
@@ -50,7 +28,7 @@ def _seq_to_head_sharded(x, group, sp):
     *lead, b, s, h, d = x.shape
     n = len(lead)
     rows = x.reshape(*lead, b, s, sp, h // sp, d).movedim(n + 2, 0)
-    rows = _AllToAll.apply(rows, group)          # row s: member s's seq
+    rows = all_to_all(rows, group)          # row s: member s's seq
     return rows.movedim(0, n + 1).reshape(*lead, b, sp * s, h // sp, d)
 
 
@@ -59,7 +37,7 @@ def _head_to_seq_sharded(x, group, sp):
     *lead, b, s, hp, d = x.shape
     n = len(lead)
     rows = x.reshape(*lead, b, sp, s // sp, hp, d).movedim(n + 1, 0)
-    rows = _AllToAll.apply(rows, group)          # row s: member s's heads
+    rows = all_to_all(rows, group)          # row s: member s's heads
     return rows.movedim(0, n + 2).reshape(*lead, b, s // sp, sp * hp, d)
 
 

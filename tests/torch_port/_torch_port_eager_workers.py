@@ -172,10 +172,13 @@ def native_part(rank, world, rendezvous, out_dir):
     err = os.open(os.path.join(out_dir, f"stderr{rank}.txt"),
                   os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
     os.dup2(err, 2)
+    # The stall warning after 1 s; the shutdown window only on the second
+    # controller, below, so that a rank slowed by a loaded host elsewhere
+    # in the part is not shut down.
     torch, hvd, ctl = _init_ctl(
         rank, world, out_dir, "native", _ports(out_dir)[0],
         env={"HVD_TPU_STALL_CHECK_TIME_SECONDS": "1",
-             "HVD_TPU_STALL_SHUTDOWN_TIME_SECONDS": "5"})
+             "HVD_TPU_STALL_SHUTDOWN_TIME_SECONDS": "0"})
     res = {}
     res["host"] = host_plane_ops(_port_host_ops(torch, hvd), rank, world)
     # Rank-permuted enqueue order, device and host plane together.
@@ -231,7 +234,12 @@ def native_part(rank, world, rendezvous, out_dir):
         time.sleep(1.6)
         res["stalled"] = ctl.stalled()
     res["late"] = hvd.synchronize(h)
-    # Stall shutdown: only rank 0 submits "never".
+    hvd.shutdown()
+    # Stall shutdown (a 5 s window): only rank 0 submits "never"; the
+    # others stay up 3 s past the window.
+    torch, hvd, ctl = _init_ctl(
+        rank, world, out_dir, "native_shutdown", _ports(out_dir)[1],
+        env={"HVD_TPU_STALL_SHUTDOWN_TIME_SECONDS": "5"})
     if rank == 0:
         try:
             hvd.allreduce(torch.ones(4), name="never")
@@ -239,7 +247,7 @@ def native_part(rank, world, rendezvous, out_dir):
         except hvd.HorovodInternalError as e:
             res["never"] = str(e)
     else:
-        time.sleep(5.8)
+        time.sleep(8.0)
     # Shutdown errors an op still pending on it.
     h = hvd.allreduce_async(torch.ones(2), name="orphan") if rank == 0 \
         else None
@@ -359,6 +367,9 @@ def eager_part(rank, world, rendezvous, out_dir):
     res["int8_wire"] = (ctl.wire_compression(),
                         s1["bytes_raw"] - s0["bytes_raw"],
                         s1["bytes_sent"] - s0["bytes_sent"])
+    # Every round re-stamps the wire, so rank 0 may take the stamp back
+    # only once every rank has read the one w8 ran on.
+    hvd.barrier()
     if rank == 0:
         ctl.set_wire_compression("none")
     hvd.barrier()

@@ -6,8 +6,9 @@ read, so a test process starts the ranks once for both.  ``part_results``:
 one start per part of ``_torch_port_training_workers`` (overlap, adasum,
 zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt), of
 ``_torch_port_parallel_workers`` (gspmd, ring) and of
-``_torch_port_eager_workers`` (native, cache, eager, dispatch) for the test
-file of that part.  The ranks fork from a server that imported torch once
+``_torch_port_eager_workers`` (native, cache, eager, dispatch) and of
+``_torch_port_modes_workers`` (units, modes, moe) for the test file of that
+part.  The ranks fork from a server that imported torch once
 for all four."""
 
 import functools
@@ -84,7 +85,8 @@ def part_inputs(part: str) -> dict:
         return {}
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
                                  "sbn": 14, "ckpt": 15, "gspmd": 16,
-                                 "ring": 17}[part])
+                                 "ring": 17, "units": 21, "modes": 22,
+                                 "moe": 23}[part])
 
     def normal(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -124,6 +126,27 @@ def part_inputs(part: str) -> dict:
         # (B, S, H, D) over the whole sequence; 4 heads split over 4
         # members, 64 rows a member (one tile of the reference's kernel).
         return {n: normal(1, 256, 4, 32) for n in ("q", "k", "v", "ct")}
+    if part in ("modes", "moe"):
+        tokens = rng.integers(0, 61, (8, 16))
+        return {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    if part == "units":
+        d, ff, e, t = 8, 16, 8, 16
+        return {
+            # tensor parallel: x (4, 8) @ w1 (8, 16) @ w2 (16, 8); h (2, 8,
+            # 16) row-parallel over the sequence; seq (2, 8, 6) gathered;
+            # emb (32, 8) vocab-parallel; a cotangent row per member.
+            "x": normal(4, 8), "w1": normal(8, 16), "w2": normal(16, 8),
+            "ct_row": normal(WORLD, 4, 8), "h": normal(2, 8, 16),
+            "ct_scatter": normal(WORLD, 2, 2, 8), "seq": normal(2, 8, 6),
+            "ct_gather": normal(WORLD, 2, 8, 6), "emb": normal(32, 8),
+            "labels": np.array([0, 5, 17, 31]), "ct_ce": normal(WORLD, 4),
+            # pipeline: 4 tanh stages of (4, 4), 4 microbatches of (2, 4).
+            "ws": normal(WORLD, 4, 4, scale=0.5), "xs": normal(4, 2, 4),
+            # MoE: 8 experts (2 a member), 16 tokens a member.
+            "gate": normal(d, e, scale=d ** -0.5),
+            "w_in": normal(e, d, ff, scale=d ** -0.5),
+            "w_out": normal(e, ff, d, scale=ff ** -0.5),
+            "x_moe": normal(WORLD * t, d), "ct_moe": normal(WORLD * t, d)}
     if part == "zero":
         # Per-rank distinct rows, so the mean over ranks is a reduction.
         return dict(ZERO_PARAMS, x=np.arange(WORLD * 4, dtype=np.float32)
@@ -150,7 +173,7 @@ def _spawn(body, out):
         ["torch", "torch._dynamo", "horovod_tpu_torch",
          "_torch_port_workers", "_torch_port_training_workers",
          "_torch_port_checkpoint_workers", "_torch_port_parallel_workers",
-         "_torch_port_eager_workers"])
+         "_torch_port_eager_workers", "_torch_port_modes_workers"])
     mp.start_processes(body, args=(WORLD, f"{out}/rendezvous", str(out)),
                        nprocs=WORLD, join=True, start_method="forkserver")
 
@@ -167,13 +190,15 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
     """The four ranks' results of one part of
     ``_torch_port_training_workers`` (or ``_torch_port_checkpoint_workers``
     for "ckpt", ``_torch_port_parallel_workers`` for "gspmd" and "ring",
-    ``_torch_port_eager_workers`` for the negotiated plane's parts),
+    ``_torch_port_eager_workers`` for the negotiated plane's parts,
+    ``_torch_port_modes_workers`` for "units", "modes" and "moe"),
     from one start of the ranks per part and test process.
     ``prepare(out_dir)`` writes what the ranks read beyond the part's
     inputs, before they start; ``part_dir(part)`` is that directory."""
     if part not in _PARTS:
         import _torch_port_checkpoint_workers as ckpt_workers
         import _torch_port_eager_workers as eager_workers
+        import _torch_port_modes_workers as modes_workers
         import _torch_port_parallel_workers as par_workers
         import _torch_port_training_workers as workers
         out = tmp_path_factory.mktemp(f"{part}_pool")
@@ -193,7 +218,10 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "native": eager_workers.native_part,
                 "cache": eager_workers.cache_part,
                 "eager": eager_workers.eager_part,
-                "dispatch": eager_workers.dispatch_part}[part], out)
+                "dispatch": eager_workers.dispatch_part,
+                "units": modes_workers.units_part,
+                "modes": modes_workers.modes_part,
+                "moe": modes_workers.moe_part}[part], out)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
                         for r in range(WORLD)]
     return _PARTS[part]
@@ -216,18 +244,36 @@ def results(tmp_path_factory) -> dict:
     return _RESULTS
 
 
+# Controllers' ports: a block of 1000 a pytest worker, above 13000 and
+# below both the reference tests' fixed ports (26000 up) and the kernel's
+# ephemeral range.
+PORT_BASE, PORT_TOP, PORT_BLOCK = 13000, 26000, 1000
+
+
 def free_ports(n: int) -> list:
-    """``n`` distinct free localhost ports."""
+    """``n`` distinct free localhost ports, from this pytest worker's
+    block.  A port that ``bind(0)`` hands out comes from the ephemeral
+    range, where any socket opened before the controller binds it
+    (gloo's, another worker's) may take it meanwhile; in the block only
+    a chosen port is taken."""
+    import random
     import socket
-    socks = []
-    for _ in range(n):
-        s = socket.socket()
-        s.bind(("127.0.0.1", 0))
-        socks.append(s)
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
-    return ports
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        top = min(PORT_TOP, int(f.read().split()[0]))
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")[2:]
+    n_blocks = max(1, (top - PORT_BASE) // PORT_BLOCK)
+    lo = PORT_BASE + PORT_BLOCK * (int(worker or 0) % n_blocks)
+    ports = []
+    for port in random.sample(range(lo, lo + PORT_BLOCK), PORT_BLOCK):
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        ports.append(port)
+        if len(ports) == n:
+            return ports
+    raise RuntimeError(f"no {n} free ports in {lo}-{lo + PORT_BLOCK - 1}")
 
 
 def write_ports(n: int):
@@ -237,3 +283,129 @@ def write_ports(n: int):
         with open(os.path.join(out, "ports.json"), "w") as f:
             json.dump(free_ports(n), f)
     return prepare
+
+
+# ---------------------------------------------------------------------------
+# the parallel modes: the reference's parameters, loss and gradients
+# ---------------------------------------------------------------------------
+
+def _mode_configs(case):
+    shape, cf, pf = case
+    from _torch_port_modes_workers import TINY
+    cfg = tfm_jax.TransformerConfig(dtype=jnp.float32,
+                                    **{**TINY, "remat": False, **cf})
+    return cfg, tfm_jax.ParallelConfig(*shape, **pf)
+
+
+@functools.lru_cache(maxsize=None)
+def _mode_params(cases_name: str, key: str):
+    import _torch_port_modes_workers as W
+    cases = getattr(W, cases_name)
+    cfg, par = _mode_configs(cases[key])
+    return tfm_jax.init_params(jax.random.PRNGKey(list(cases).index(key)),
+                               cfg, par)
+
+
+def write_mode_params(*cases_names: str):
+    """A ``prepare`` hook of ``part_results``: ``params_<key>.npz``, the
+    reference's parameters of every case of ``_torch_port_modes_workers``'
+    tables ``cases_names``, as ``convert.params_from_jax`` gives them."""
+    import _torch_port_modes_workers as W
+
+    def prepare(out):
+        for cases_name in cases_names:
+            cases = getattr(W, cases_name)
+            for key in {W.case_params_key(cases, n) for n in cases}:
+                np.savez(os.path.join(out, f"params_{key}.npz"),
+                         **{k: v.numpy() for k, v in convert.params_from_jax(
+                             _mode_params(cases_name, key)).items()})
+    return prepare
+
+
+def _flat_np(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_np(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v, np.float32)
+    return out
+
+
+def mode_reference(cases_name: str, name: str, part: str):
+    """The reference's loss and flat gradients of one case: jitted
+    ``jax.value_and_grad(make_loss_fn(cfg, par, mesh))`` on a (dp, pp,
+    mp) mesh of 4 CPU devices, on the part's global batch.  The
+    reference's remat changes no value, so a case with remat is held to
+    the same computation without it (one compile the fewer)."""
+    import _torch_port_modes_workers as W
+    cases = getattr(W, cases_name)
+    shape, cf, pf = cases[name]
+    return _mode_reference(cases_name, W.case_params_key(cases, name), part,
+                           shape,
+                           tuple(sorted((k, v) for k, v in cf.items()
+                                        if k != "remat")),
+                           tuple(sorted(pf.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _mode_reference(cases_name, params_key, part, shape, cf, pf):
+    from jax.sharding import Mesh
+    cfg, par = _mode_configs((shape, dict(cf), dict(pf)))
+    params = _mode_params(cases_name, params_key)
+    mesh = Mesh(np.array(jax.devices()[:WORLD]).reshape(
+        par.dp, par.pp, par.mp), ("dp", "pp", "mp"))
+    data = part_inputs(part)
+    loss, grads = jax.jit(jax.value_and_grad(
+        tfm_jax.make_loss_fn(cfg, par, mesh)))(
+            params, jnp.asarray(data["tokens"], jnp.int32),
+            jnp.asarray(data["labels"], jnp.int32))
+    return float(loss), _flat_np(grads)
+
+
+def _flat_specs(tree, prefix=""):
+    """{path: PartitionSpec} of a reference spec tree."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_specs(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def mode_results(tmp_path_factory, part: str, cases_name: str,
+                 extra=()) -> list:
+    """``part_results`` of a mode part, the reference's computations of
+    its cases (and of ``extra`` tables' parameters) run meanwhile in a
+    thread of this process."""
+    import concurrent.futures
+    import _torch_port_modes_workers as W
+    cases = getattr(W, cases_name)
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        ref = ex.submit(lambda: [mode_reference(cases_name, n, part)
+                                 for n in cases])
+        out = part_results(tmp_path_factory, part,
+                           prepare=write_mode_params(cases_name, *extra))
+        ref.result()
+    return out
+
+
+MODE_LOSS_RTOL = 1e-5
+# The reference's own 1F1B bar (tests/test_moe_pipeline.py:245-246).
+MODE_GRAD_BAR = dict(atol=5e-5, rtol=1e-4)
+
+
+def check_mode_case(ranks, cases_name: str, name: str, part: str) -> None:
+    """Every rank's loss (equal on all), and the gathered gradients,
+    against the reference's."""
+    want_loss, want = mode_reference(cases_name, name, part)
+    got = ranks[0][name]
+    assert sorted(got["grads"]) == sorted(want)
+    for r in ranks:
+        assert torch.equal(r[name]["loss"], got["loss"])
+    assert abs(float(got["loss"]) - want_loss) <= \
+        MODE_LOSS_RTOL * abs(want_loss)
+    for leaf, g in want.items():
+        np.testing.assert_allclose(got["grads"][leaf].numpy(), g,
+                                   **MODE_GRAD_BAR, err_msg=leaf)

@@ -272,7 +272,7 @@ def _lm_runs(torch, hvd, out_dir, rank, world):
     import numpy as np
     from horovod_tpu_torch.models import transformer as tfm
     lm = np.load(os.path.join(out_dir, "lm.npz"))
-    cfg = tfm.TransformerConfig(dtype=torch.float32,
+    cfg = tfm.TransformerConfig(dtype=torch.float32, remat=False,
                                 **json.loads(str(lm["cfg"])))
     shard = len(lm["tokens"]) // world
     tokens, labels = (torch.from_numpy(lm[k][rank * shard:

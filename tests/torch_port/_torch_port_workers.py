@@ -21,7 +21,7 @@ def _train_step_loss(rank: int, world: int, out_dir: str) -> dict:
     from horovod_tpu_torch.models import transformer as tfm
 
     data = np.load(os.path.join(out_dir, "lm.npz"))
-    cfg = tfm.TransformerConfig(dtype=torch.float32,
+    cfg = tfm.TransformerConfig(dtype=torch.float32, remat=False,
                                 **json.loads(str(data["cfg"])))
     model = tfm.Transformer(cfg, device="cpu")
     model.load_state_dict({k[len("param."):]: torch.from_numpy(data[k])
@@ -443,7 +443,7 @@ def two_rank_optimizer(rank: int, world: int, init_method: str,
                                     [p.detach() for p in ps2]]
 
         lm = np.load(os.path.join(out_dir, "lm.npz"))
-        cfg = tfm.TransformerConfig(dtype=torch.float32,
+        cfg = tfm.TransformerConfig(dtype=torch.float32, remat=False,
                                     **json.loads(str(lm["cfg"])))
         model = tfm.Transformer(cfg, device="cpu")
         model.load_state_dict({k[len("param."):]: torch.from_numpy(lm[k])

@@ -316,7 +316,8 @@ def test_cuda_zero_train_step_launches(cuda_device, stage):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import transformer as tfm
     cfg = tfm.TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
-                                d_ff=512, n_layers=2, seq_len=256)
+                                d_ff=512, n_layers=2, seq_len=256,
+                                remat=False)
     par = tfm.ParallelConfig()
     adamw = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=1e-4)
     hvd.init()
@@ -496,7 +497,8 @@ def test_cuda_gspmd_stage3_step_matches_the_flat_plane(cuda_device):
     from horovod_tpu_torch.models import transformer as tfm
     from horovod_tpu_torch.ops import gspmd
     cfg = tfm.TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
-                                d_ff=512, n_layers=2, seq_len=256)
+                                d_ff=512, n_layers=2, seq_len=256,
+                                remat=False)
     par = tfm.ParallelConfig()
     adamw = functools.partial(torch.optim.AdamW, lr=3e-4, weight_decay=1e-4)
     hvd.init()

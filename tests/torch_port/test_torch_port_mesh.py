@@ -124,3 +124,25 @@ def test_is_homogeneous_matches_reference(world1, size, cross):
         (state_jax.global_state.initialized, state_jax.global_state.size,
          state_jax.global_state.cross_size) = old
     assert hvd.is_homogeneous() == (size % cross == 0)
+
+
+def test_mesh_step_takes_the_model_s_mesh(world1):
+    """The mesh step reads the mesh from the model its shards were cut
+    for; ``make_loss_fn`` refuses a model cut for no mesh (at world 1
+    every (1, 1, 1) mesh equals every other)."""
+    import torch
+    from horovod_tpu_torch.models import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=61, d_model=32, n_heads=4,
+                                d_ff=48, n_layers=2, seq_len=16,
+                                dtype=torch.float32, remat=False)
+    par = tfm.ParallelConfig()
+    mesh = mesh_lib.create_mesh({"dp": 1, "pp": 1, "mp": 1})
+    tokens, labels = tfm.synthetic_batch(cfg, 2, device="cpu")
+    model = tfm.Transformer(cfg, par, seed=0, device="cpu", mesh=mesh)
+    want = tfm.make_loss_fn(cfg, par, mesh)(model, tokens, labels).item()
+    step = tfm.make_train_step(cfg, par, model,
+                               torch.optim.SGD(model.parameters(), lr=0.1))
+    assert step(tokens, labels).item() == want
+    stray = tfm.Transformer(cfg, par, seed=0, device="cpu")
+    with pytest.raises(ValueError, match="another mesh"):
+        tfm.make_loss_fn(cfg, par, mesh)(stray, tokens, labels)

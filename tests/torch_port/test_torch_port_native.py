@@ -92,7 +92,7 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 @pytest.fixture(scope="module")
 def native(tmp_path_factory):
     return pool.part_results(tmp_path_factory, "native",
-                             prepare=pool.write_ports(1))
+                             prepare=pool.write_ports(2))
 
 
 @pytest.fixture(scope="module")

@@ -74,7 +74,10 @@ def test_source_names_no_jax_or_reference(path):
 @pytest.mark.parametrize("module", [
     "horovod_tpu_torch.parallel.mesh", "horovod_tpu_torch.parallel.ulysses",
     "horovod_tpu_torch.parallel.ring_attention",
-    "horovod_tpu_torch.ops.gspmd", "horovod_tpu_torch.ops.xla_collectives"])
+    "horovod_tpu_torch.ops.gspmd", "horovod_tpu_torch.ops.xla_collectives",
+    "horovod_tpu_torch.parallel.tensor_parallel",
+    "horovod_tpu_torch.parallel.moe", "horovod_tpu_torch.parallel.pipeline",
+    "horovod_tpu_torch.models.transformer"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     """Each module of the mesh, the GSPMD plane and sequence parallelism,
     imported first in a fresh interpreter where ``import jax`` fails."""

@@ -67,7 +67,7 @@ def test_adamw_steps_track_optax(world1, n_steps):
     tokens = rng.integers(0, SMALL["vocab_size"], (2, SMALL["seq_len"]))
     labels = np.roll(tokens, -1, axis=1)
 
-    cfg = tfm.TransformerConfig(dtype=torch.float32, **SMALL)
+    cfg = tfm.TransformerConfig(dtype=torch.float32, remat=False, **SMALL)
     par = tfm.ParallelConfig()
     model = tfm.Transformer(cfg, par, device="cpu")
     model.load_state_dict(convert.params_from_jax(params))
@@ -353,7 +353,7 @@ def test_two_ranks_train_step_averages_gradients_once(two_ranks):
 def test_world1_train_step_returns_serial_loss(world1, lm_case):
     """At world 1 the dp mean is the rank's own loss, exactly."""
     _, params, tokens, labels = lm_case
-    cfg = tfm.TransformerConfig(dtype=torch.float32, **SMALL)
+    cfg = tfm.TransformerConfig(dtype=torch.float32, remat=False, **SMALL)
     model = tfm.Transformer(cfg, device="cpu")
     model.load_state_dict(convert.params_from_jax(params))
     tok, lab = torch.from_numpy(tokens), torch.from_numpy(labels)

@@ -26,7 +26,7 @@ def _configs(dtype):
     jd, td = {"float32": (jnp.float32, torch.float32),
               "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     return (tfm_jax.TransformerConfig(dtype=jd, **SMALL),
-            tfm.TransformerConfig(dtype=td, **SMALL))
+            tfm.TransformerConfig(dtype=td, remat=False, **SMALL))
 
 
 def _batch(b=2, seed=0):
@@ -192,9 +192,26 @@ def test_model_defaults_to_cuda():
 @pytest.mark.parametrize("change", [dict(n_experts=2),
                                     dict(attn_mode="ring")])
 def test_unported_modes_raise(change):
-    cfg = tfm.TransformerConfig(**{**SMALL, **change})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.init_params(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.init_params(tfm.TransformerConfig(**SMALL),
-                        tfm.ParallelConfig(pp=2))
+    """MoE and the sequence-parallel modes are ported: their trees are the
+    reference's.  What raises is the data-parallel path (no mesh) given
+    what needs a (dp, pp, mp) mesh: MoE layers, pp or mp above 1; and
+    the reference's own refusals."""
+    cfg = tfm.TransformerConfig(dtype=torch.float32, **{**SMALL, **change})
+    cfg_j = tfm_jax.TransformerConfig(dtype=jnp.float32,
+                                      **{**SMALL, **change})
+    for pp in (1, 2):
+        ref = _flat(tfm_jax.init_params(jax.random.PRNGKey(0), cfg_j,
+                                        tfm_jax.ParallelConfig(pp=pp)))
+        got = _flat(tfm.init_params(cfg, tfm.ParallelConfig(pp=pp)))
+        assert {k: v.shape for k, v in got.items()} == \
+            {k: v.shape for k, v in ref.items()}
+    model = tfm.Transformer(cfg, device="cpu")
+    tokens, labels = (torch.from_numpy(a) for a in _batch())
+    with pytest.raises(ValueError, match="mesh"):
+        if cfg.n_experts:
+            model(tokens, labels)
+        else:
+            tfm.forward_loss(cfg, tfm.ParallelConfig(pp=2), model, tokens,
+                             labels)
+    with pytest.raises(ValueError, match="divisible"):
+        tfm.init_params(cfg, tfm.ParallelConfig(pp=3, dp=4))

@@ -57,7 +57,7 @@ def rank_main(rank, world, rendezvous, stages, out_path):
     try:
         cfg = tfm.TransformerConfig(vocab_size=8192, d_model=512, n_heads=8,
                                     d_ff=2048, n_layers=8, seq_len=512,
-                                    dtype=torch.float32)
+                                    dtype=torch.float32, remat=False)
         tokens, labels = tfm.synthetic_batch(cfg, 1, seed=rank,
                                              device="cpu")
         batch = (tokens[:, :16], labels[:, :16])

@@ -152,10 +152,10 @@ def rank_main(rank, world, ports, device, small, out_path):
     from horovod_tpu_torch.models import transformer as tfm
     cfg = tfm.TransformerConfig(
         vocab_size=256, d_model=64, n_heads=4, d_ff=128, n_layers=2,
-        seq_len=32, dtype=torch.float32) if small else \
+        seq_len=32, dtype=torch.float32, remat=False) if small else \
         tfm.TransformerConfig(vocab_size=8192, d_model=512, n_heads=8,
                               d_ff=2048, n_layers=8, seq_len=512,
-                              dtype=torch.bfloat16)
+                              dtype=torch.bfloat16, remat=False)
     par = tfm.ParallelConfig()
 
     def init(controller: bool, run: int):

@@ -147,10 +147,10 @@ def zero_planes(torch, dist, hvd, dev, world, small):
 
     cfg = tfm.TransformerConfig(
         vocab_size=256, d_model=64, n_heads=4, d_ff=128, n_layers=2,
-        seq_len=32, dtype=torch.float32) if small else \
+        seq_len=32, dtype=torch.float32, remat=False) if small else \
         tfm.TransformerConfig(vocab_size=8192, d_model=512, n_heads=8,
                               d_ff=2048, n_layers=8, seq_len=512,
-                              dtype=torch.bfloat16)
+                              dtype=torch.bfloat16, remat=False)
     par = tfm.ParallelConfig()
     batch = tfm.synthetic_batch(cfg, 2 if small else 8,
                                 seed=1 + dist.get_rank(), device=dev)

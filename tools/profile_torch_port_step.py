@@ -64,7 +64,7 @@ def main() -> int:
     hvd.init()
     cfg = tfm.TransformerConfig(vocab_size=8192, d_model=512, n_heads=8,
                                 d_ff=2048, n_layers=8, seq_len=512,
-                                dtype=torch.bfloat16)
+                                dtype=torch.bfloat16, remat=False)
     par = tfm.ParallelConfig()
     model = tfm.Transformer(cfg, par, seed=0)
     opt = hvd.DistributedOptimizer(torch.optim.AdamW(
