@@ -130,11 +130,38 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              phase 4's bit for bit; (d) MoE with 8 experts, capacity
              factor 1.25, top_k 1 and 2, 5 steps each: losses finite and
              falling, every kernel once per layer per step, dropped
-             routes a step, host step and peak memory.
+             routes a step, host step and peak memory;
+13. serving — world 1 on NCCL, 8 slots, 16-token pages, 512 tokens a
+             slot.  (a) tfm.prefill (bf16, phase 4's weights) of 16-, 200-
+             and 512-token prompts: flash_fwd 8 launches a call, dQ and
+             dK/dV none; the last row's logits within 1e-2 normwise of
+             the same call on the plain attention (HVD_TPU_FLASH=0) and of
+             serial_forward_logits' row, argmax equal where the top-2
+             margin exceeds 1e-2; flash_fwd timed at (1, 512, 8, 64)
+             against its bound, its plain version and SDPA.  (b) fp32
+             weights at the same widths (TF32 off), 12 requests, the odd
+             ones sampled: token for token co-batched = alone, continuous
+             = static, prefix cache on = off (shared 64-token prefixes),
+             prefill_chunk 64 = 0, speculative (2-layer self-draft, k 4) =
+             plain greedy, a hot-swapped engine = a cold one; 3 greedy
+             requests' tokens = serial_forward_logits' argmax over the
+             growing sequence; one decode shape.  (c) bf16: train phase
+             4's model 4 steps, commit step 4 (serving.save_params);
+             ServingService cold-loads it and serves 32 streamed HMAC
+             requests over HTTP (an unsigned one refused); commit step 8,
+             the watcher hot-swaps it (weights bit-equal to a cold load)
+             and 8 later requests equal a cold engine's alone, as 8 of the
+             first equal step 4's alone; the engine alone on the same
+             load: continuous occupancy above static's, decode tokens/s,
+             iteration latency, decode MFU, TTFT, peak memory, the KV
+             pool's bytes, one profiled full decode iteration's launches
+             and device-busy share; chunked and speculative against plain
+             in bf16 printed with the first differing token's margin.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
-path, each counted from 0 just before it ran), and
+path, each counted from 0 just before it ran; flash_fwd's entry also
+holds its timing at the serving prefill shape), and
 ``{"ok": true, "device": {...}}``.  Detailed numbers also go to
 chiprun_out/chip_smoke.json.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -1688,6 +1715,550 @@ def phase_modes(torch, hvd, tfm, fa, cfg, tokens, labels, n_steps,
     return report
 
 
+# Phase 13: serving on the flagship.  The geometry: 8 slots, 16-token
+# pages, 512 tokens a slot (2 x 8 layers x 257 pages x 16 x 8 x 64 bf16:
+# a 67,371,008-byte pool).  (a) prefill prompt lengths; (b) the fp32
+# exactness drills' schedules; (c) the train→serve loop's load.
+SERVE_GEOMETRY = dict(slots=8, page_tokens=16, max_len=512)
+PREFILL_LENS = (16, 200, 512)
+ARGMAX_MARGIN = 1e-2      # argmax must agree where the top-2 gap exceeds it
+SERVE_SECRET = "chip-smoke-serving"
+SERVE_LOAD = dict(seed=7, n=32, rate_rps=0.0, prompt_lens=(16, 256),
+                  output_lens=(16, 64), vocab=8192)
+AFTER_SWAP_LOAD = dict(SERVE_LOAD, seed=8, n=8)
+DRILL_LOAD = dict(n=12, prompt_lens=(16, 160), output_lens=(8, 32))
+DRILL_PREFIX = dict(prefix=64, suffix=(8, 64), outputs=(8, 24))
+DRILL_CHUNK = 64
+DRAFT = dict(layers=2, k=4)
+PROFILE_REQUEST = dict(prompt=128, outputs=64)
+
+
+def top2_margin(torch, row):
+    top = row.float().topk(2).values
+    return (top[0] - top[1]).item()
+
+
+def stream_generate(addr, payload, secret):
+    """POST one streamed /serve/generate with the HMAC signature; returns
+    (tokens, seconds to the first token, seconds to the done record)."""
+    import urllib.request
+    from horovod_tpu_torch.runner.rendezvous import _signature
+    body = json.dumps(dict(payload, stream=True)).encode()
+    req = urllib.request.Request(f"http://{addr}/serve/generate", data=body)
+    req.add_header("X-HVD-Signature",
+                   _signature(secret, "POST", "serve", "generate", body))
+    t0 = time.monotonic()
+    toks, first, done = [], None, None
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        for line in resp:
+            rec = json.loads(line)
+            if "token" in rec:
+                toks.append(rec["token"])
+                first = first if first is not None else time.monotonic() - t0
+            elif rec.get("done"):
+                assert rec["tokens"] == toks, rec
+                done = time.monotonic() - t0
+            else:
+                raise AssertionError(f"serving error record {rec}")
+    assert done is not None, toks
+    return toks, first, done
+
+
+def serve_over_http(addr, schedule, secret):
+    """Fire every request of ``schedule`` at once, one streaming client
+    thread each; returns ({id: (tokens, ttft, total)}, wall seconds)."""
+    import threading
+    out, errors = {}, []
+
+    def one(req):
+        try:
+            out[req.id] = stream_generate(addr, {
+                "id": req.id, "tokens": list(req.prompt),
+                "max_new_tokens": req.max_new_tokens,
+                "temperature": req.temperature, "seed": req.seed}, secret)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append((req.id, repr(e)))
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(r,)) for _, r in schedule]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not errors, errors
+    assert len(out) == len(schedule), sorted(out)
+    return out, time.monotonic() - t0
+
+
+def drive_timed(S, engine, schedule, continuous=True):
+    """``loadgen.drive`` with each ``engine.step`` (prefill_chunk 0: the
+    decode iterations) and ``admit`` (the prefills) timed on the host."""
+    step, admit, steps, admits = engine.step, engine.admit, [], []
+
+    def timed(fn, log_):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            log_.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    engine.step, engine.admit = timed(step, steps), timed(admit, admits)
+    try:
+        out = S.drive(engine, schedule, continuous=continuous)
+    finally:
+        del engine.step, engine.admit
+    out.update(step_s=steps, admit_s=admits)
+    return out
+
+
+def tokens_of(result):
+    return {rid: r["tokens"] for rid, r in result["results"].items()}
+
+
+def first_difference_margin(torch, tfm, cfg, params, prompt, a, b):
+    """Where two outputs of one prompt part: (index, a's token, b's token,
+    the top-2 margin of the logits there over the common prefix, one
+    decode_verify call on a fresh pool), or None."""
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        return None
+    seq = list(prompt) + list(a[:j])
+    page = SERVE_GEOMETRY["page_tokens"]
+    n = -(-len(seq) // page)
+    dev = tfm._tree(params)["embed"].device
+    kv = tfm.init_kv_pages(cfg, n + 1, page, device=dev)
+    toks = torch.zeros((1, n * page), dtype=torch.long, device=dev)
+    toks[0, :len(seq)] = torch.tensor(seq, device=dev)
+    tables = torch.arange(1, n + 1, device=dev)[None]
+    logits, _ = tfm.decode_verify(cfg, params, toks,
+                                  torch.zeros(1, dtype=torch.long,
+                                              device=dev), kv, tables)
+    return j, a[j], b[j], top2_margin(torch, logits[0, len(seq) - 1])
+
+
+def decode_flops(tfm, cfg, schedule, results):
+    """Matmul-FLOPs of the decode iterations of a finished run: each
+    token after the first attends the prompt and the tokens before it."""
+    total = 0.0
+    for _, req in schedule:
+        n = len(results[req.id]["tokens"])
+        plen = len(req.prompt)
+        total += sum(tfm.decode_flops_per_token(cfg, plen + j + 1)
+                     for j in range(n - 1))
+    return total
+
+
+def busy_share(torch, engine, n_steps):
+    """Profile ``n_steps`` decode iterations of a full engine: kernel
+    launches and device-busy time (union of kernel intervals) a step,
+    over the host's wall."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted((e.time_range.start, e.time_range.end)
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False))
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    busy, (cur_s, cur_e) = 0.0, kernels[0]
+    for s, e in kernels[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s                                   # microseconds
+    return {"steps": n_steps, "wall_ms_per_step": wall / n_steps * 1e3,
+            "busy_ms_per_step": busy / n_steps / 1e3,
+            "busy_share": busy / 1e6 / wall,
+            "launches_per_step": len(kernels) / n_steps}
+
+
+def phase_serving(torch, hvd, tfm, fa, cfg, par, model, tokens, labels,
+                  card):
+    """Phase 13: the serving plane on the flagship; returns the report.
+    ``model`` is phase 4's trained model (fp32 master weights)."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import serving as S
+    report = {}
+    hvd.init()
+    dev = hvd.device()
+
+    # (a) prefill through flash_fwd, bf16, against the plain attention
+    # and the training forward's row.
+    rng = __import__("numpy").random.default_rng(13)
+    page = SERVE_GEOMETRY["page_tokens"]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PREFILL_LENS]
+
+    def prefill_all():
+        out = []
+        for p in prompts:
+            s = -(-len(p) // page) * page
+            toks = torch.zeros(s, dtype=torch.long, device=dev)
+            toks[:len(p)] = torch.from_numpy(p)
+            kv = tfm.init_kv_pages(cfg, s // page + 1, page)
+            rows = torch.arange(1, s // page + 1, device=dev)
+            out.append(tfm.prefill(cfg, model, toks, len(p), kv, rows)[0])
+        torch.cuda.synchronize()
+        return out
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    kernel_rows = prefill_all()
+    prefill_wall = time.perf_counter() - t0
+    prefill_launches = dict(fa.launches)
+    assert prefill_launches == {
+        "flash_fwd": cfg.n_layers * len(PREFILL_LENS), "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0}, prefill_launches
+    os.environ["HVD_TPU_FLASH"] = "0"
+    plain_rows = prefill_all()
+    del os.environ["HVD_TPU_FLASH"]
+    prefill_report = []
+    with torch.no_grad():
+        for p, got, plain in zip(prompts, kernel_rows, plain_rows):
+            serial = tfm.serial_forward_logits(
+                cfg, model, torch.from_numpy(p).to(dev)[None])[0, -1]
+            rel = {name: ((got - ref).norm() / ref.norm()).item()
+                   for name, ref in (("plain", plain), ("serial", serial))}
+            margin = top2_margin(torch, plain)
+            assert all(r <= TOL_REL for r in rel.values()), (len(p), rel)
+            if margin > ARGMAX_MARGIN:
+                assert got.argmax() == plain.argmax() == serial.argmax(), \
+                    (len(p), margin)
+            prefill_report.append({"length": len(p), "rel": rel,
+                                   "top2_margin": margin,
+                                   "argmax": int(got.argmax())})
+    shape = (1, PREFILL_LENS[-1], cfg.n_heads, cfg.head_dim)
+    q, k, v, _ = rand_qkv(torch, shape[0], shape[1], shape[1], *shape[2:],
+                          seed=13)
+    fargs = (True, 1.0 / math.sqrt(cfg.head_dim), 0, 0)
+    bnd = bounds(*shape)["flash_fwd"]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    F = torch.nn.functional
+    kernel_timing = {
+        "shape": shape,
+        "ms": time_ms(torch, lambda: fa.flash_fwd(q, k, v, *fargs), 50),
+        "plain_ms": time_ms(torch, lambda: fa.attention_with_lse_plain(
+            q, k, v, *fargs), 10),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 50),
+        "bound_ms": bnd[0], "bound_by": bnd[1]}
+    report["prefill"] = {"rows": prefill_report,
+                         "launches": prefill_launches,
+                         "launches_per_call": {
+                             n: c / len(PREFILL_LENS)
+                             for n, c in prefill_launches.items()},
+                         "wall_s_three_calls": prefill_wall,
+                         "flash_fwd_timing": kernel_timing}
+    log(f"[serving] (a) prefill of {PREFILL_LENS} tokens (bf16, phase 4's "
+        f"weights): flash_fwd {prefill_launches['flash_fwd']} launches "
+        f"({cfg.n_layers} a call), dQ/dKV 0; last-row logits normwise vs "
+        f"plain attention / serial forward: "
+        + ", ".join(f"{r['length']}: {r['rel']['plain']:.3g} / "
+                    f"{r['rel']['serial']:.3g} (top-2 margin "
+                    f"{r['top2_margin']:.3g})" for r in prefill_report)
+        + f"; flash_fwd at {shape} {kernel_timing['ms']:.4f} ms "
+        f"(bound {bnd[0]:.4f} ms by {bnd[1]}), plain "
+        f"{kernel_timing['plain_ms']:.4f} ms, SDPA "
+        f"{kernel_timing['library_ms']:.4f} ms; on {card}")
+
+    # (b) exactness drills in fp32 at the flagship's widths.
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg32 = cfg._replace(dtype=torch.float32)
+    log(f"[serving] (b) fp32 drills: torch.backends.cuda.matmul.allow_tf32"
+        f" = {torch.backends.cuda.matmul.allow_tf32}; on {card}")
+
+    def engine32(params=model, **kw):
+        return S.DecodeEngine(cfg32, params, **{**SERVE_GEOMETRY, **kw})
+
+    def drill_schedule(greedy_only=False, seed=11):
+        sched = S.synthetic_workload(seed, DRILL_LOAD["n"], 0.0,
+                                     prompt_lens=DRILL_LOAD["prompt_lens"],
+                                     output_lens=DRILL_LOAD["output_lens"],
+                                     vocab=cfg.vocab_size)
+        if not greedy_only:        # odd requests sample, seeded
+            for i, (_, r) in enumerate(sched):
+                if i % 2:
+                    r.temperature, r.seed = 1.0, 100 + i
+        return sched
+
+    def same(name, a, b):
+        assert a == b, (name, {k: (a[k], b.get(k)) for k in a
+                               if a[k] != b.get(k)})
+
+    drills = {}
+    base_engine = engine32()
+    base = tokens_of(S.drive(base_engine, drill_schedule()))
+    assert base_engine.decode_traces == 1, base_engine.stats()
+    alone_engine = engine32()
+    alone = {}
+    for _, r in drill_schedule():
+        alone.update(tokens_of(S.drive(alone_engine, [(0.0, r)])))
+    same("co-batched vs alone", base, alone)
+    static = S.drive(engine32(), drill_schedule(), continuous=False)
+    same("continuous vs static", base, tokens_of(static))
+
+    heads = [list(rng.integers(0, cfg.vocab_size, DRILL_PREFIX["prefix"]))
+             for _ in range(4)]
+
+    def prefix_schedule():
+        r2 = __import__("numpy").random.default_rng(17)
+        lo, hi = DRILL_PREFIX["suffix"]
+        return [(0.0, S.Request(
+            id=f"x{i}", prompt=[int(t) for t in heads[i % 4] + list(
+                r2.integers(0, cfg.vocab_size, int(r2.integers(lo, hi))))],
+            max_new_tokens=int(r2.integers(*DRILL_PREFIX["outputs"])),
+            submit_seq=i)) for i in range(DRILL_LOAD["n"])]
+
+    cached_engine = engine32(prefix_cache=True)
+    on = tokens_of(S.drive(cached_engine, prefix_schedule()))
+    off = tokens_of(S.drive(engine32(prefix_cache=False), prefix_schedule()))
+    same("prefix cache on vs off", on, off)
+    drills["prefix_cache"] = cached_engine.stats()["prefix_cache"]
+    assert drills["prefix_cache"]["hits"] > 0, drills
+    chunked = tokens_of(S.drive(engine32(prefill_chunk=DRILL_CHUNK),
+                                drill_schedule()))
+    same(f"prefill_chunk {DRILL_CHUNK} vs 0", base, chunked)
+    draft = S.DraftSpec(cfg=tfm.draft_config(cfg32, DRAFT["layers"]),
+                        params=tfm.draft_params_from(model, DRAFT["layers"]),
+                        k=DRAFT["k"])
+    spec_engine = engine32(draft=draft)
+    greedy = tokens_of(S.drive(engine32(), drill_schedule(True)))
+    speculative = tokens_of(S.drive(spec_engine, drill_schedule(True)))
+    same("speculative vs plain greedy", greedy, speculative)
+    drills["speculative"] = spec_engine.stats()["speculative"]
+    other = tfm._tree(tfm.Transformer(cfg32, par, seed=5))
+    sched, half = drill_schedule(), DRILL_LOAD["n"] // 2
+    hot_engine = engine32()
+    S.drive(hot_engine, sched[:half])
+    hot_engine.swap_params(other, "seed5")
+    hot = tokens_of(S.drive(hot_engine, sched[half:]))
+    assert hot_engine.params_tag == "seed5" and hot_engine.swaps == 1
+    cold = tokens_of(S.drive(engine32(other), drill_schedule()[half:]))
+    same("hot swap vs cold", hot, cold)
+    os.environ["HVD_TPU_FLASH"] = "0"
+    checked = 0
+    with torch.no_grad():
+        for _, r in [x for x in drill_schedule() if not x[1].temperature][:3]:
+            seq = list(r.prompt)
+            for tok in base[r.id]:
+                row = tfm.serial_forward_logits(
+                    cfg32, model, torch.tensor([seq], device=dev))[0, -1]
+                assert int(row.argmax()) == tok, (r.id, len(seq))
+                seq.append(tok)
+                checked += 1
+    del os.environ["HVD_TPU_FLASH"]
+    repeats = sum(sum(1 for a, b in zip(t, t[1:]) if a == b)
+                  for t in base.values())
+    drills.update(checked_against_serial=checked,
+                  tokens=sum(len(t) for t in base.values()),
+                  repeated_previous_token=repeats)
+    report["drills_fp32"] = drills
+    sp = drills["speculative"]
+    log(f"[serving] (b) token for token on {DRILL_LOAD['n']} requests (odd "
+        f"ones sampled at temperature 1, seeded): co-batched = alone, "
+        f"continuous = static, "
+        f"prefix cache on = off ({drills['prefix_cache']['hits']} hits, "
+        f"{drills['prefix_cache']['tokens_reused']} tokens reused), "
+        f"prefill_chunk {DRILL_CHUNK} = 0, speculative ({DRAFT['layers']}-"
+        f"layer self-draft, k {DRAFT['k']}) = plain greedy "
+        f"(accepted/proposed {sp['accepted']}/{sp['proposed']}"
+        f" = {sp['acceptance_rate']}), hot swap = cold; {checked} tokens "
+        f"equal to serial_forward_logits' argmax; decode_traces 1; "
+        f"{repeats} of {drills['tokens']} tokens repeat the one before; on "
+        f"{card}")
+    del base_engine, alone_engine, cached_engine, spec_engine, hot_engine
+    gc.collect()
+
+    # (c) the train→serve loop in bf16: train, commit, serve over HTTP,
+    # commit again, hot swap, hold to a cold engine.
+    ckpt_root = tempfile.mkdtemp(prefix="hvd_serving_")
+    ckpt = os.path.join(ckpt_root, "ckpt")
+    try:
+        trainee = tfm.Transformer(cfg, par, seed=0)
+        hvd.broadcast_parameters(trainee.state_dict())
+        train = tfm.make_train_step(cfg, par, trainee, hvd.DistributedOptimizer(
+            torch.optim.AdamW(trainee.parameters(), lr=3e-4,
+                              weight_decay=1e-4)))
+        losses = [train(tokens, labels).item() for _ in range(4)]
+        S.save_params(ckpt, trainee, 4)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        svc = S.ServingService(cfg, checkpoint_dir=ckpt, secret=SERVE_SECRET,
+                               port=0, swap_poll_s=0.1, **SERVE_GEOMETRY)
+        assert svc.engine.params_tag == 4
+        kv_bytes = sum(t.numel() * t.element_size()
+                       for t in svc.engine._kv.values())
+        addr = f"127.0.0.1:{svc.serve()}"
+        try:
+            import urllib.error
+            import urllib.request
+            try:
+                urllib.request.urlopen(urllib.request.Request(
+                    f"http://{addr}/serve/generate",
+                    data=b'{"tokens": [1, 2, 3]}'), timeout=30)
+            except urllib.error.HTTPError as e:
+                assert e.code == 403, e.code
+            else:
+                raise AssertionError("an unsigned request was served")
+            load = S.synthetic_workload(**SERVE_LOAD)
+            served, wall = serve_over_http(addr, load, SERVE_SECRET)
+            peak = torch.cuda.max_memory_allocated() - mem0
+            ttft = sorted(t for _, (_, t, _) in served.items())
+            engine_ttft = sorted(t for t, _ in svc.engine.ttft_samples)
+            n_tok = sum(len(t) for t, _, _ in served.values())
+            assert all(len(served[r.id][0]) == r.max_new_tokens
+                       for _, r in load)
+            # Commit step 8; the watcher parks it, the loop applies it.
+            losses += [train(tokens, labels).item() for _ in range(4)]
+            S.save_params(ckpt, trainee, 8)
+            deadline = time.monotonic() + 60
+            while svc.engine.params_tag != 8 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            assert svc.engine.params_tag == 8, svc.engine.params_tag
+            after = S.synthetic_workload(**AFTER_SWAP_LOAD)
+            served8, _ = serve_over_http(addr, after, SERVE_SECRET)
+            hot_params = svc.engine._params
+            stats = svc.status()
+        finally:
+            svc.close()
+        p8, _ = S.load_params(ckpt, svc.like, step=8)
+        for name, t in tfm._tree(p8).items():
+            ref = hot_params[name]
+            if isinstance(t, dict):
+                assert all(torch.equal(t[k], ref[k]) for k in t), name
+            else:
+                assert torch.equal(t, ref), name
+        cold8 = S.DecodeEngine(cfg, p8, **SERVE_GEOMETRY)
+        for _, r in S.synthetic_workload(**AFTER_SWAP_LOAD):
+            got = tokens_of(S.drive(cold8, [(0.0, r)]))[r.id]
+            assert got == served8[r.id][0], ("hot swap vs cold", r.id)
+        p4, _ = S.load_params(ckpt, svc.like, step=4)
+        cold4 = S.DecodeEngine(cfg, p4, **SERVE_GEOMETRY)
+        for _, r in S.synthetic_workload(**SERVE_LOAD)[:8]:
+            got = tokens_of(S.drive(cold4, [(0.0, r)]))[r.id]
+            assert got == served[r.id][0], ("co-batched vs alone", r.id)
+        # The engine alone on the same schedule: continuous vs static,
+        # decode time, MFU, then chunked and speculative (printed).
+        runs = {}
+        for label, kw, cont in (("continuous", {}, True),
+                                ("static", {}, False),
+                                ("chunked", {"prefill_chunk": DRILL_CHUNK},
+                                 True)):
+            e = S.DecodeEngine(cfg, p4, **SERVE_GEOMETRY, **kw)
+            sched = S.synthetic_workload(**SERVE_LOAD)
+            runs[label] = drive_timed(S, e, sched, continuous=cont)
+            runs[label]["decode_traces"] = e.decode_traces
+        cont, stat = runs["continuous"], runs["static"]
+        assert cont["occupancy"] > stat["occupancy"], (cont["occupancy"],
+                                                      stat["occupancy"])
+        assert tokens_of(cont) == tokens_of(stat) == {
+            k: v[0] for k, v in served.items()}
+        flops = decode_flops(tfm, cfg, S.synthetic_workload(**SERVE_LOAD),
+                             cont["results"])
+        step_s = sum(cont["step_s"])
+        dec_tokens = cont["tokens"] - len(cont["results"])
+        mfu = flops / step_s / PEAK_BF16_FLOPS
+        greedy_load = S.synthetic_workload(**SERVE_LOAD)
+        spec_e = S.DecodeEngine(cfg, p4, **SERVE_GEOMETRY, draft=S.DraftSpec(
+            cfg=tfm.draft_config(cfg, DRAFT["layers"]),
+            params=tfm.draft_params_from(p4, DRAFT["layers"]), k=DRAFT["k"]))
+        spec_out = tokens_of(S.drive(spec_e, greedy_load))
+        divergence = {}
+        for label, other_out in (("chunked", tokens_of(runs["chunked"])),
+                                 ("speculative", spec_out)):
+            diffs = [(r.id, first_difference_margin(
+                torch, tfm, cfg, p4, r.prompt, tokens_of(cont)[r.id],
+                other_out[r.id])) for _, r in greedy_load]
+            diffs = [(rid, d) for rid, d in diffs if d is not None]
+            divergence[label] = {"requests_differing": len(diffs),
+                                 "first": diffs[0] if diffs else None}
+        # One profiled decode: the engine full, every slot decoding.
+        prof_e = S.DecodeEngine(cfg, p4, **SERVE_GEOMETRY)
+        for i in range(SERVE_GEOMETRY["slots"]):
+            prof_e.admit(S.Request(
+                id=f"b{i}", prompt=[int(t) for t in rng.integers(
+                    0, cfg.vocab_size, PROFILE_REQUEST["prompt"])],
+                max_new_tokens=PROFILE_REQUEST["outputs"]))
+        for _ in range(3):
+            prof_e.step()
+        profile = busy_share(torch, prof_e, 3)
+        token_lat = sorted(cont["step_s"])
+        http_tok_s = n_tok / wall
+        report["train_serve"] = {
+            "train_losses": losses, "kv_pool_bytes": kv_bytes,
+            "peak_bytes_serving": peak,
+            "http": {"requests": len(load), "tokens": n_tok, "wall_s": wall,
+                     "tokens_per_s": http_tok_s,
+                     "client_ttft_p50_s": S.loadgen.percentile(ttft, 0.5),
+                     "client_ttft_p99_s": S.loadgen.percentile(ttft, 0.99),
+                     "engine_ttft_p50_s": S.loadgen.percentile(engine_ttft,
+                                                              0.5),
+                     "engine_ttft_p99_s": S.loadgen.percentile(engine_ttft,
+                                                              0.99)},
+            "engine": {"decode_tokens": dec_tokens, "decode_s": step_s,
+                       "decode_tokens_per_s": dec_tokens / step_s,
+                       "iterations": len(cont["step_s"]),
+                       "iteration_p50_s": statistics.median(token_lat),
+                       "iteration_p99_s": S.loadgen.percentile(token_lat,
+                                                               0.99),
+                       "prefill_p50_s": statistics.median(cont["admit_s"]),
+                       "decode_flops": flops, "decode_mfu": mfu,
+                       "occupancy_continuous": cont["occupancy"],
+                       "occupancy_static": stat["occupancy"],
+                       "wall_continuous_s": cont["wall_s"],
+                       "wall_static_s": stat["wall_s"],
+                       "decode_traces": cont["decode_traces"]},
+            "profiled_decode": profile, "divergence_bf16": divergence,
+            "server_stats": {k: v for k, v in stats.items()
+                             if isinstance(v, (int, float, str))}}
+        ts = report["train_serve"]
+        log(f"[serving] (c) trained 4 steps (losses {losses[:4]}), committed"
+            f" step 4, ServingService cold-loaded it; an unsigned request "
+            f"refused (403); {len(load)} streamed HMAC requests, {n_tok} "
+            f"tokens in {wall:.3f} s over HTTP ({http_tok_s:.1f} tokens/s), "
+            f"TTFT p50/p99 client {ts['http']['client_ttft_p50_s']} / "
+            f"{ts['http']['client_ttft_p99_s']} s, at the engine "
+            f"{ts['http']['engine_ttft_p50_s']} / "
+            f"{ts['http']['engine_ttft_p99_s']} s; step 8 committed and "
+            f"hot-swapped between iterations (weights bit-equal to a cold "
+            f"load), {len(after)} later requests token for token equal to a "
+            f"cold engine on step 8 alone, 8 of the first equal to step 4 "
+            f"alone; on {card}")
+        en = ts["engine"]
+        log(f"[serving] (c) engine alone on the same {len(load)} requests: "
+            f"decode "
+            f"{en['decode_tokens_per_s']:.1f} tokens/s ({en['decode_tokens']}"
+            f" tokens in {en['decode_s']:.3f} s of {en['iterations']} "
+            f"iterations), iteration p50 {en['iteration_p50_s'] * 1e3:.3f} ms"
+            f" p99 {en['iteration_p99_s'] * 1e3:.3f} ms, prefill p50 "
+            f"{en['prefill_p50_s'] * 1e3:.3f} ms, decode MFU {mfu:.3g} of 989 "
+            f"TFLOP/s; occupancy continuous {cont['occupancy']:.4f} vs static "
+            f"{stat['occupancy']:.4f} (wall {cont['wall_s']:.3f} vs "
+            f"{stat['wall_s']:.3f} s); KV pool {kv_bytes:,} bytes, peak "
+            f"{peak / 2**20:.1f} MiB above the service's start; a profiled "
+            f"full decode iteration: {profile['launches_per_step']:.0f} "
+            f"kernel launches, device busy {profile['busy_ms_per_step']:.3f} "
+            f"of {profile['wall_ms_per_step']:.3f} ms "
+            f"({profile['busy_share']:.3f}); bf16 divergence (printed, not "
+            f"gated): {divergence}; on {card}")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    hvd.shutdown()
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1885,6 +2456,10 @@ def main() -> int:
     # 12. the parallel modes on a (1, 1, 1) mesh, and remat
     report["modes"] = phase_modes(torch, hvd, tfm, fa, cfg, tokens, labels,
                                   n_steps, losses, card)
+    # 13. serving: prefill through the kernel, the fp32 drills, the
+    # train→serve loop over HTTP
+    report["serving"] = phase_serving(torch, hvd, tfm, fa, cfg, par, model,
+                                      tokens, labels, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -1909,12 +2484,20 @@ def main() -> int:
                         for m, r in modes["attention"].items()})
         by_path.update({f"moe_{k}": r["launches"][name]
                         for k, r in modes["moe"].items()})
-        assert all(by_path.values()), (name, by_path)
+        serving = report["serving"]["prefill"]
+        by_path["serving.prefill"] = serving["launches"][name]
+        # The serving prefill is a forward: no backward kernel runs there.
+        assert all(v for p, v in by_path.items()
+                   if name == "flash_fwd" or p != "serving.prefill"), \
+            (name, by_path)
+        extra = ({"serving_prefill": serving["flash_fwd_timing"]}
+                 if name == "flash_fwd" else {})
         kernels.append(dict(name=name, route="cuda", source=SOURCE,
                             replaces=replaces, launches=launches[name],
                             launches_by_path=by_path,
                             max_abs_err=main_errs[name][0],
-                            rel_err=main_errs[name][1], **flag[name]))
+                            rel_err=main_errs[name][1], **flag[name],
+                            **extra))
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     report.update(card=card, device=device, kernels=kernels)

@@ -10,8 +10,9 @@ topology (``RANK``, ``SIZE``, ``LOCAL_RANK``, ...) and the wire knobs
 (``DATA_PREFETCH``, ``DATA_QUEUE_DEPTH``, ``DATA_STALL_TIMEOUT_SECONDS``,
 and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
 ``MESH_AXES``, the hierarchical schedule's ``HIERARCHICAL_ALLREDUCE`` /
-``HIERARCHICAL_ALLGATHER`` and the native controller's
-(``ControllerConfig``), with the reference's defaults and clamps
+``HIERARCHICAL_ALLGATHER``, the native controller's
+(``ControllerConfig``) and the serving plane's (``SERVING_*``, ``SPEC_K``,
+``TRACE_*``, ``SLO_*``), with the reference's defaults and clamps
 (config.py:296-320, :475-524).  The attention switch ``HVD_TPU_FLASH`` is
 not one of them: the reference reads it under that one name
 (parallel/ring_attention.py), and so does the port.
@@ -94,6 +95,35 @@ SCHEDULE_PROBE = "SCHEDULE_PROBE"
 SCHEDULE_PROBE_SEED = "SCHEDULE_PROBE_SEED"
 SCHEDULE_PROBE_REPS = "SCHEDULE_PROBE_REPS"
 AUTOTUNE = "AUTOTUNE"
+
+# The serving plane (serving/), with the reference's names, defaults and
+# clamps (config.py:152-178, :397-424, :578-610): the request plane's
+# port, address and HMAC secret, the decode slots and KV page geometry
+# (max_len 0 = the model's seq_len), the default output cap, the bounded
+# admission queue, the checkpoint watch cadence, the radix prefix cache,
+# chunked prefill (0 = the whole prompt), page-reservation aging, the
+# replica-wide TTFT target, speculative draft tokens a round (0 = off),
+# and request tracing's sample rate and trace-id seed; the SLO tracker's
+# attainment target, window and burn threshold.
+SERVING_PORT = "SERVING_PORT"
+SERVING_ADDR = "SERVING_ADDR"
+SERVING_SECRET = "SERVING_SECRET"
+SERVING_SLOTS = "SERVING_SLOTS"
+SERVING_PAGE_TOKENS = "SERVING_PAGE_TOKENS"
+SERVING_MAX_LEN = "SERVING_MAX_LEN"
+SERVING_MAX_NEW_TOKENS = "SERVING_MAX_NEW_TOKENS"
+SERVING_QUEUE_CAP = "SERVING_QUEUE_CAP"
+SERVING_SWAP_POLL_S = "SERVING_SWAP_POLL_S"
+SERVING_PREFIX_CACHE = "SERVING_PREFIX_CACHE"
+SERVING_PREFILL_CHUNK = "SERVING_PREFILL_CHUNK"
+SERVING_AGING_S = "SERVING_AGING_S"
+SERVING_SLO_TTFT_S = "SERVING_SLO_TTFT_S"
+SPEC_K = "SPEC_K"
+TRACE_SAMPLE = "TRACE_SAMPLE"
+TRACE_SEED = "TRACE_SEED"
+SLO_TARGET = "SLO_TARGET"
+SLO_WINDOW_S = "SLO_WINDOW_S"
+SLO_BURN_THRESHOLD = "SLO_BURN_THRESHOLD"
 
 
 def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -268,3 +298,88 @@ class ControllerConfig:
             hierarchical_allgather_pin=hierarchical_pin("allgather"),
             compression=compression(),
             autotune=get_bool(AUTOTUNE))
+
+
+def _integer(name: str, default: int) -> int:
+    val = get_int(name)
+    return default if val is None else val
+
+
+def serving_port() -> int:
+    return _integer(SERVING_PORT, 28643)
+
+
+def serving_addr() -> Optional[str]:
+    return get_env(SERVING_ADDR)
+
+
+def serving_secret() -> Optional[str]:
+    return get_env(SERVING_SECRET)
+
+
+def serving_slots() -> int:
+    return max(1, _integer(SERVING_SLOTS, 8))
+
+
+def serving_page_tokens() -> int:
+    return max(1, _integer(SERVING_PAGE_TOKENS, 16))
+
+
+def serving_max_len() -> int:
+    """The context a slot holds; 0 = the model's seq_len."""
+    return max(0, _integer(SERVING_MAX_LEN, 0))
+
+
+def serving_max_new_tokens() -> int:
+    return max(1, _integer(SERVING_MAX_NEW_TOKENS, 64))
+
+
+def serving_queue_cap() -> int:
+    """At least 1: a cap of 0 would shed every request at ingress."""
+    return max(1, _integer(SERVING_QUEUE_CAP, 64))
+
+
+def serving_swap_poll_s() -> float:
+    return max(0.05, get_float(SERVING_SWAP_POLL_S, 2.0))
+
+
+def serving_prefix_cache() -> bool:
+    return get_bool(SERVING_PREFIX_CACHE, True)
+
+
+def serving_prefill_chunk() -> int:
+    """Prompt tokens prefilled an iteration; 0 = the whole prompt."""
+    return max(0, _integer(SERVING_PREFILL_CHUNK, 0))
+
+
+def serving_aging_s() -> float:
+    return max(0.0, get_float(SERVING_AGING_S, 0.0))
+
+
+def serving_slo_ttft_s() -> float:
+    return max(0.0, get_float(SERVING_SLO_TTFT_S, 0.0))
+
+
+def spec_k() -> int:
+    """Draft tokens a speculative round, 0 (off) to 32."""
+    return min(32, max(0, _integer(SPEC_K, 0)))
+
+
+def trace_sample() -> float:
+    return min(1.0, max(0.0, get_float(TRACE_SAMPLE, 0.01)))
+
+
+def trace_seed() -> int:
+    return _integer(TRACE_SEED, 0)
+
+
+def slo_target() -> float:
+    return min(0.9999, max(0.5, get_float(SLO_TARGET, 0.99)))
+
+
+def slo_window_s() -> float:
+    return max(1.0, get_float(SLO_WINDOW_S, 300.0))
+
+
+def slo_burn_threshold() -> float:
+    return max(0.01, get_float(SLO_BURN_THRESHOLD, 1.0))

@@ -32,6 +32,14 @@ Compute dtype defaults to bfloat16; normalization, softmax, logits and
 loss are fp32, with the tied fp32 embedding as the vocab head.
 ``remat=True`` (the reference's default) recomputes each layer in the
 backward.
+
+Serving (``serving/`` builds its engine on them): ``init_kv_pages``, a
+paged KV pool updated in place; ``prefill`` (one prompt, its attention
+the ``flash_fwd`` kernel on a CUDA tensor), ``decode_step`` (every slot
+one token) and ``decode_verify`` (every slot K tokens: chunked prefill,
+prefix-cache suffixes, speculative verify), whose attention over the
+gathered pages is torch ops, as the reference's is ``jnp``; the draft
+helpers and ``decode_flops_per_token``.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from ..parallel import tensor_parallel as tp
 from ..parallel.ulysses import ulysses_attention
 
 AXES = ("dp", "pp", "mp")
+_NEG_INF = -1e30
 
 
 class TransformerConfig(NamedTuple):
@@ -411,8 +420,7 @@ def serial_forward_logits(cfg: TransformerConfig, model: Transformer,
     x = (model.embed[tokens] + model.pos[None, :s_in]).to(cfg.dtype)
     stacks = {k: t.flatten(0, 1) for k, t in model.layers.items()}
     x = _run_layers(cfg, layer, _layer_params(stacks, cfg.dtype), x)
-    hidden = _rmsnorm(x, model.final_norm)
-    return hidden.float() @ model.embed.float().t()
+    return _head(model, x)
 
 
 def serial_forward_loss(cfg: TransformerConfig, model: Transformer,
@@ -673,3 +681,255 @@ def train_flops_per_seq(cfg: TransformerConfig) -> float:
     dense = s * (L * (8.0 * d * d + _mlp_flops_per_token(cfg)) + 2.0 * d * v)
     attn = L * 2.0 * s * s * d
     return 3.0 * (dense + attn)
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill / decode over a paged KV cache (reference :380-708)
+# ---------------------------------------------------------------------------
+#
+# The KV pool is ``{"k", "v"}``, each (n_layers, n_pages, page_size,
+# n_heads, head_dim) in the compute dtype, updated IN PLACE (the reference
+# donates it through every call and takes the result back).  Physical
+# page 0 is the scratch page: unallocated page-table entries and inactive
+# slots point at it, and it is never read unmasked, so it may hold any
+# writer's values.
+#
+# JAX clamps an out-of-range gather index and drops an out-of-range
+# scatter update; PyTorch raises (on CUDA a device-side assert, which
+# kills the process).  Each place the reference leans on that is clamped
+# here explicitly: token and position rows (``_rows``), the write page of
+# a slot whose length has reached the table's extent (routed to scratch
+# page 0, where the reference drops the write), and ``decode_verify``'s
+# positions past the table (page 0, as the reference routes them).
+#
+# Numerics as the reference's: scores, softmax and PV in fp32 (masked
+# scores -1e30), normalization and the vocab head fp32, cache pages in
+# the compute dtype.  ``prefill``'s attention is ``full_attention``: the
+# ``flash_fwd`` kernel on a CUDA tensor.
+
+def init_kv_pages(cfg: TransformerConfig, n_pages: int, page_size: int,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The paged KV pool, zeros: ``k``/``v`` of shape (n_layers, n_pages,
+    page_size, n_heads, head_dim) in the compute dtype on ``device``."""
+    shape = (cfg.n_layers, int(n_pages), int(page_size), cfg.n_heads,
+             cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def _flat_layers(params) -> Dict[str, torch.Tensor]:
+    """The (n_pp, layers_per_stage, ...) layer stacks as (n_layers, ...)."""
+    return {k: v.reshape((-1,) + tuple(v.shape[2:]))
+            for k, v in _tree(params)["layers"].items()}
+
+
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` with JAX's gather semantics: a negative index counts
+    from the end, then every index is clamped into range."""
+    n = table.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return table[idx]
+
+
+def _moe_mlp_serving(cfg: TransformerConfig, lp: Dict[str, torch.Tensor],
+                     tok: torch.Tensor) -> torch.Tensor:
+    """Per-token routed MoE MLP for serving, (T, d) → (T, d): fp32 router
+    softmax, top-k (ties to the lower expert, as ``lax.top_k``), the raw
+    top-k probabilities as combine weights, every expert evaluated, no
+    capacity clamp (reference :427-456)."""
+    e = cfg.n_experts
+    tf = tok.float()
+    probs = torch.softmax(tf @ lp["gate"].float(), dim=-1)       # (T, E)
+    top_p, top_i = moe_lib._top_k(probs, cfg.top_k)
+    w = torch.zeros_like(probs)
+    for j in range(cfg.top_k):
+        w = w + F.one_hot(top_i[:, j], e).to(probs.dtype) * top_p[:, j:j + 1]
+    h = F.gelu(torch.einsum("td,edf->tef", tf, lp["w_in"].float()),
+               approximate="tanh")
+    y = torch.einsum("tef,efd->ted", h, lp["w_out"].float())
+    return torch.einsum("te,ted->td", w, y).to(tok.dtype)
+
+
+def _serving_layers(cfg: TransformerConfig, params):
+    """Per-layer weights: dense matmul weights in the compute dtype (one
+    cast a stack), the rest as stored."""
+    return _layer_params(_flat_layers(params), cfg.dtype)
+
+
+def _mlp(cfg: TransformerConfig, lp: Dict[str, torch.Tensor],
+         x: torch.Tensor) -> torch.Tensor:
+    """The MLP branch on (..., d): dense, or MoE routed per token."""
+    if cfg.n_experts == 0:
+        return _mlp_block(cfg, lp, x)
+    h = _rmsnorm(x, lp["ln2"])
+    return _moe_mlp_serving(cfg, lp, h.reshape(-1, h.shape[-1])
+                            ).reshape(h.shape)
+
+
+def _head(params, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of the final-normed hidden states (the tied embed)."""
+    tree = _tree(params)
+    hidden = _rmsnorm(x, tree["final_norm"])
+    return hidden.float() @ tree["embed"].float().t()
+
+
+@torch.no_grad()
+def prefill(cfg: TransformerConfig, params, tokens: torch.Tensor, length,
+            kv: Dict[str, torch.Tensor], page_rows: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The causal forward over one padded prompt, writing K/V into the
+    cache.  tokens: (S,) int, S a multiple of the page size (padding past
+    ``length`` is arbitrary: causality keeps it out of every valid
+    position's context); 1 <= length <= S; page_rows: (S // page_size,)
+    physical pages receiving positions [0, S).  Returns (fp32 logits (V,)
+    at position length - 1, kv)."""
+    tree = _tree(params)
+    s = tokens.shape[0]
+    page_size = kv["k"].shape[2]
+    n_rows, hd = s // page_size, cfg.head_dim
+    x = (_rows(tree["embed"], tokens) + tree["pos"][:s]).to(cfg.dtype)[None]
+    for l, lp in enumerate(_serving_layers(cfg, tree)):
+        h = _rmsnorm(x, lp["ln1"])
+        q, k, v = _split_heads(h @ lp["wqkv"], hd)
+        kv["k"][l, page_rows] = k[0].reshape(n_rows, page_size,
+                                             cfg.n_heads, hd)
+        kv["v"][l, page_rows] = v[0].reshape(n_rows, page_size,
+                                             cfg.n_heads, hd)
+        o = ra.full_attention(q, k, v, causal=True)
+        x = x + o.reshape(1, s, -1) @ lp["wo"]
+        x = x + _mlp(cfg, lp, x)
+    # lax.dynamic_index_in_dim clamps the index into range.
+    last = min(max(int(length) - 1, 0), s - 1)
+    return _head(tree, x[0, last]), kv
+
+
+def _paged_attention(cfg: TransformerConfig, kv, l: int, q: torch.Tensor,
+                     page_tables: torch.Tensor, mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """q (B, K, H, hd) against each slot's gathered pages (after this
+    call's writes); mask (B, K, max_len).  fp32 inside; (B, K, H, hd) out
+    in q's dtype."""
+    b = page_tables.shape[0]
+    k_ctx = kv["k"][l][page_tables].reshape(b, -1, cfg.n_heads,
+                                            cfg.head_dim)
+    v_ctx = kv["v"][l][page_tables].reshape(b, -1, cfg.n_heads,
+                                            cfg.head_dim)
+    scale = 1.0 / (cfg.head_dim ** 0.5)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_ctx.float()) * scale
+    s = s.masked_fill(~mask[:, None], _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v_ctx.float()).to(q.dtype)
+
+
+def _paged_forward(cfg: TransformerConfig, params, tokens: torch.Tensor,
+                   pos: torch.Tensor, write_page: torch.Tensor,
+                   write_off: torch.Tensor, kv, page_tables: torch.Tensor
+                   ) -> torch.Tensor:
+    """The decode / verify body: tokens, pos, write_page, write_off all
+    (B, K).  Each layer writes this call's K/V, then gathers (so a token
+    attends to itself).  The mask reads ``pos`` as given, the positional
+    table its clamped row.  Returns fp32 logits (B, K, V)."""
+    tree = _tree(params)
+    b, kq = tokens.shape
+    hd = cfg.head_dim
+    max_len = page_tables.shape[1] * kv["k"].shape[2]
+    x = (_rows(tree["embed"], tokens) + _rows(tree["pos"], pos)).to(
+        cfg.dtype)                                        # (B, K, d)
+    k_pos = torch.arange(max_len, device=pos.device)
+    mask = k_pos[None, None, :] <= pos[:, :, None]        # (B, K, max_len)
+    for l, lp in enumerate(_serving_layers(cfg, tree)):
+        h = _rmsnorm(x, lp["ln1"])
+        q, k, v = _split_heads(h @ lp["wqkv"], hd)
+        kv["k"][l, write_page, write_off] = k
+        kv["v"][l, write_page, write_off] = v
+        o = _paged_attention(cfg, kv, l, q, page_tables, mask)
+        x = x + o.reshape(b, kq, -1) @ lp["wo"]
+        x = x + _mlp(cfg, lp, x)
+    return _head(tree, x)
+
+
+@torch.no_grad()
+def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor,
+                lengths: torch.Tensor, kv: Dict[str, torch.Tensor],
+                page_tables: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Advance every slot by one token against its paged cache.  tokens:
+    (B,) the token each slot consumes (written at position lengths[b]);
+    lengths: (B,) context sizes before the step; page_tables: (B,
+    pages_per_slot), position p of slot b in page page_tables[b, p //
+    page_size] at offset p % page_size.  Returns (fp32 logits (B, V), kv).
+    Inactive slots point their row at scratch page 0.
+
+    A slot whose length has reached the table's extent has no page to
+    write: the reference's fill-mode gather makes its write page invalid
+    and the scatter drops it; here it goes to scratch page 0.  Its
+    position row is clamped, as JAX's gather clamps it."""
+    page_size = kv["k"].shape[2]
+    n_pages = page_tables.shape[1]
+    lengths = lengths.long()
+    idx = lengths // page_size
+    page = page_tables.long().gather(1, idx.clamp(max=n_pages - 1)[:, None])
+    page = torch.where(idx[:, None] < n_pages, page, 0)
+    pos = lengths[:, None]
+    logits = _paged_forward(cfg, params, tokens.long()[:, None], pos, page,
+                            pos % page_size, kv, page_tables.long())
+    return logits[:, 0], kv
+
+
+@torch.no_grad()
+def decode_verify(cfg: TransformerConfig, params, tokens: torch.Tensor,
+                  lengths: torch.Tensor, kv: Dict[str, torch.Tensor],
+                  page_tables: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Advance every slot by K tokens in one forward (chunked prefill,
+    prefix-cache suffix prefill, speculative verify).  tokens: (B, K),
+    token j of slot b written at position lengths[b] + j.  Returns (fp32
+    logits (B, K, V), kv); logits[b, j] predicts the token after
+    tokens[b, j].  Positions past a caller's valid chunk write K/V that
+    stays masked until rewritten; positions at or past the table's extent
+    write to scratch page 0 and read the last position row, as the
+    reference routes them."""
+    b, kq = tokens.shape
+    n_pages = page_tables.shape[1]
+    page_size = kv["k"].shape[2]
+    max_len = n_pages * page_size
+    tables = page_tables.long()
+    pos = lengths.long()[:, None] + torch.arange(kq, device=tables.device)
+    pos_c = pos.clamp(max=max_len - 1)
+    page = tables.gather(1, pos_c // page_size)
+    page = torch.where(pos < max_len, page, 0)
+    return _paged_forward(cfg, params, tokens.long(), pos, page,
+                          pos_c % page_size, kv, tables), kv
+
+
+def draft_config(cfg: TransformerConfig, n_layers: int) -> TransformerConfig:
+    """The speculative draft's config: the target's geometry at a
+    layer-prefix depth (same vocab and positional table)."""
+    if not (0 < n_layers <= cfg.n_layers):
+        raise ValueError(
+            f"draft n_layers {n_layers} not in 1..{cfg.n_layers}")
+    return cfg._replace(n_layers=n_layers, remat=False)
+
+
+def draft_params_from(params, n_layers: int) -> Dict[str, Any]:
+    """The target's tree cut to its first ``n_layers`` layers, restacked
+    as one stage, for :func:`draft_config`; the embeddings, positional
+    table and final norm are shared, not copied."""
+    tree = _tree(params)
+    flat = _flat_layers(tree)
+    total = next(iter(flat.values())).shape[0]
+    if not (0 < n_layers <= total):
+        raise ValueError(f"draft n_layers {n_layers} not in 1..{total}")
+    out = dict(tree)
+    out["layers"] = {k: v[:n_layers][None] for k, v in flat.items()}
+    return out
+
+
+def decode_flops_per_token(cfg: TransformerConfig, context: int) -> float:
+    """Matmul-FLOPs of one decode step of one sequence at ``context``:
+    projections, the vocab head and the query against the context (MoE:
+    the routed top_k experts, not the all-experts product evaluated)."""
+    d, L, v = cfg.d_model, cfg.n_layers, cfg.vocab_size
+    dense = L * (8.0 * d * d + _mlp_flops_per_token(cfg)) + 2.0 * d * v
+    return dense + L * 4.0 * context * d

@@ -576,3 +576,41 @@ def test_cuda_negotiated_executor_orders_after_a_side_stream(cuda_device,
         assert max(ctl.stats()["names_per_response"]) > 1
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_serving_prefill_runs_flash_fwd(cuda_device, monkeypatch):
+    """The serving prefill on the card: one flash_fwd launch a layer and
+    no backward launch; its last-position logits against the same call on
+    the plain attention (HVD_TPU_FLASH=0) normwise within 1e-2, argmax
+    equal where the top-2 margin exceeds 1e-2; the pages written equal."""
+    from horovod_tpu_torch.models import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                                d_ff=256, n_layers=2, seq_len=128,
+                                dtype=torch.bfloat16, remat=False)
+    model = tfm.Transformer(cfg, seed=0, device=cuda_device)
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, 512, (96,), generator=g).to(cuda_device)
+    rows = torch.arange(1, 7, device=cuda_device)
+
+    def run():
+        kv = tfm.init_kv_pages(cfg, 8, 16, device=cuda_device)
+        logits, kv = tfm.prefill(cfg, model, tokens, 90, kv, rows)
+        return logits, kv
+
+    before = dict(fa.launches)
+    logits, kv = run()
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == before["flash_fwd"] + cfg.n_layers
+    assert fa.launches["flash_bwd_dq"] == before["flash_bwd_dq"]
+    assert fa.launches["flash_bwd_dkv"] == before["flash_bwd_dkv"]
+    monkeypatch.setenv("HVD_TPU_FLASH", "0")
+    plain, kv_p = run()
+    diff = (logits - plain).norm() / plain.norm()
+    assert diff <= 1e-2, diff
+    top2 = plain.topk(2).values
+    if (top2[0] - top2[1]).item() > 1e-2:
+        assert logits.argmax() == plain.argmax()
+    # Layer 0's K/V precede any attention: equal bit for bit.
+    assert torch.equal(kv["k"][0], kv_p["k"][0])
+    assert not kv["k"][:, 0].any()              # scratch page untouched

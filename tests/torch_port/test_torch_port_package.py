@@ -77,10 +77,18 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.ops.gspmd", "horovod_tpu_torch.ops.xla_collectives",
     "horovod_tpu_torch.parallel.tensor_parallel",
     "horovod_tpu_torch.parallel.moe", "horovod_tpu_torch.parallel.pipeline",
-    "horovod_tpu_torch.models.transformer"])
+    "horovod_tpu_torch.models.transformer",
+    "horovod_tpu_torch.runner.rendezvous", "horovod_tpu_torch.serving",
+    "horovod_tpu_torch.serving.policy", "horovod_tpu_torch.serving.prefix",
+    "horovod_tpu_torch.serving.speculative",
+    "horovod_tpu_torch.serving.tracing", "horovod_tpu_torch.serving.engine",
+    "horovod_tpu_torch.serving.loadgen", "horovod_tpu_torch.serving.slo",
+    "horovod_tpu_torch.serving.server", "horovod_tpu_torch.serving.submit",
+    "horovod_tpu_torch.serving.service"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
-    """Each module of the mesh, the GSPMD plane and sequence parallelism,
-    imported first in a fresh interpreter where ``import jax`` fails."""
+    """Each module of the mesh, the GSPMD plane, sequence parallelism and
+    the serving plane, imported first in a fresh interpreter where
+    ``import jax`` fails."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"importlib.import_module({module!r})\n"
