@@ -156,7 +156,29 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              iteration latency, decode MFU, TTFT, peak memory, the KV
              pool's bytes, one profiled full decode iteration's launches
              and device-busy share; chunked and speculative against plain
-             in bf16 printed with the first differing token's margin.
+             in bf16 printed with the first differing token's margin;
+14. telemetry — init() with HVD_TPU_METRICS_PORT set: (a) 10 flagship
+             steps of phase 4 inside metrics.compute_span() with
+             set_step_flops and step_end(step=i), /metrics scraped over
+             loopback: hvd_steps_total 10, each step's wall components
+             summing to its wall within 1e-6 s,
+             hvd_collective_ops_total{allreduce} equal to the
+             dist.all_reduce calls counted at torch.distributed, and the
+             live MFU (peak detected from the card's name) within 5% of
+             flops / (median step x 989.4e12); (d) the flight dump holds
+             one collective.enqueue a named gradient allreduce and step;
+             (e) utils.profiler.start_trace/stop_trace around 2 steps
+             writes a Chrome trace holding the hvd.allreduce.* ranges and
+             8 launches a step of each flash kernel; (b) a step that
+             saves a checkpoint shows checkpoint > 0, a step fed by the
+             prefetching DataLoader input > 0, and a 4-microbatch GPipe
+             step on the (1, 1, 1) mesh the bubble note_bubble credits
+             (0 s: one stage); (c) phase 13's engine load: the
+             hvd_serving_* token and request counters equal the engine's
+             counts; (f) the flagship step's and a full decode
+             iteration's host time with the telemetry on and off
+             (registry, attribution, flight recorder), in interleaved
+             blocks: medians and spreads printed, not gated.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -167,6 +189,7 @@ chiprun_out/chip_smoke.json.  Without a CUDA device it exits non-zero and
 prints no result.
 """
 
+import collections
 import gc
 import json
 import math
@@ -2045,7 +2068,6 @@ def phase_serving(torch, hvd, tfm, fa, cfg, par, model, tokens, labels,
     assert hot_engine.params_tag == "seed5" and hot_engine.swaps == 1
     cold = tokens_of(S.drive(engine32(other), drill_schedule()[half:]))
     same("hot swap vs cold", hot, cold)
-    os.environ["HVD_TPU_FLASH"] = "0"
     checked = 0
     with torch.no_grad():
         for _, r in [x for x in drill_schedule() if not x[1].temperature][:3]:
@@ -2056,7 +2078,6 @@ def phase_serving(torch, hvd, tfm, fa, cfg, par, model, tokens, labels,
                 assert int(row.argmax()) == tok, (r.id, len(seq))
                 seq.append(tok)
                 checked += 1
-    del os.environ["HVD_TPU_FLASH"]
     repeats = sum(sum(1 for a, b in zip(t, t[1:]) if a == b)
                   for t in base.values())
     drills.update(checked_against_serial=checked,
@@ -2256,6 +2277,418 @@ def phase_serving(torch, hvd, tfm, fa, cfg, par, model, tokens, labels,
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     hvd.shutdown()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the step telemetry plane on the card
+# ---------------------------------------------------------------------------
+
+# The dense bf16 peak the live MFU is held to (NVIDIA's H100 SXM sheet;
+# the attribution engine detects it from the card's name).
+PEAK_H100_SXM = 989.4e12
+TELEMETRY_STEPS = 10
+TOL_WALL_S = 1e-6          # the wall components against the step's wall
+# compute + comm_exposed against the compute span the phase times itself
+# (the span holds the collectives' CUDA time): the median step's
+# difference, which is the span's own enter/exit cost, a few microseconds.
+TOL_SPAN_S = 5e-5
+TOL_MFU = 0.05             # live MFU against the phase's own
+OVERHEAD_BLOCKS = ("on", "off", "off", "on", "on", "off")
+OVERHEAD_STEPS = 5         # steps (decode iterations) a block
+TRACE_STEPS = 2
+KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def scrape(port):
+    """``GET /metrics`` over loopback: {series: value} of the text."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return text, out
+
+
+def count_every(dist, name):
+    """Count every call of ``dist.<name>`` (one-element ones too); returns
+    the count holder and a function that restores the call."""
+    count = [0]
+    saved = getattr(dist, name)
+
+    def call(*args, **kwargs):
+        count[0] += 1
+        return saved(*args, **kwargs)
+
+    setattr(dist, name, call)
+    return count, lambda: setattr(dist, name, saved)
+
+
+def spread(xs):
+    return {"median_ms": statistics.median(xs) * 1e3,
+            "min_ms": min(xs) * 1e3, "max_ms": max(xs) * 1e3}
+
+
+def telemetry_switch(on):
+    """Everything the telemetry records, on or off: the registry, the
+    step attribution (``HVD_TPU_ATTRIBUTION``) and the flight recorder
+    (``HVD_TPU_FLIGHT_DISABLE``)."""
+    from horovod_tpu_torch import debug, metrics
+    from horovod_tpu_torch.metrics import attribution as A
+    metrics.set_enabled(on)
+    A.set_enabled(on)
+    debug.set_enabled(on)
+
+
+def phase_telemetry(torch, hvd, tfm, fa, cfg, par, model, tokens, labels,
+                    card):
+    """Phase 14: the flagship step and a serving burst reporting through
+    the telemetry plane; returns the report."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import debug, metrics
+    from horovod_tpu_torch import serving as S
+    from horovod_tpu_torch.data import ArraySource, DataLoader
+    from horovod_tpu_torch.metrics import attribution as A
+    from horovod_tpu_torch.ops import collective as C
+    from horovod_tpu_torch.utils import profiler as prof
+    report = {}
+    port = free_port()
+    work = tempfile.mkdtemp(prefix="hvd_telemetry_")
+    os.environ.update(HVD_TPU_METRICS_PORT=str(port),
+                      HVD_TPU_FLIGHT_DIR=work)
+    os.environ.pop("HVD_TPU_PEAK_TFLOPS", None)
+    A.reset_peak_cache()
+    hvd.init()
+    try:
+        batch = tokens.shape[0]
+        flops = tfm.train_flops_per_seq(cfg) * batch
+        trainee = tfm.Transformer(cfg, par, seed=0)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            trainee.parameters(), lr=3e-4, weight_decay=1e-4))
+        step = tfm.make_train_step(cfg, par, trainee, opt)
+        n_grads = len(list(trainee.parameters()))
+        step(tokens, labels)                  # warm-up, outside the count
+        torch.cuda.synchronize()
+
+        # (a) ten steps under compute_span / step_end(step=i), scraped.
+        # Each step's wall is the interval between two step_end calls: the
+        # first has none, and the first close anchors the attribution's
+        # window (as in the reference), so steps 3.. carry records.  The
+        # phase times each compute span itself too: the span waits for
+        # the stream, so it holds the collectives' CUDA time, which must
+        # land in comm_exposed and not in compute as well.
+        metrics.set_step_flops(flops)
+        torch.cuda.synchronize()
+        C.drain_device_latency()       # earlier phases' CUDA-event pairs
+        _, before = scrape(port)
+        seq0 = debug.snapshot(last=1)[-1]["seq"]
+        calls, restore = count_every(dist, "all_reduce")
+        fa.reset_launches()
+        records, times, spans = [], [], []
+        try:
+            for i in range(1, TELEMETRY_STEPS + 1):
+                t0 = time.perf_counter()
+                with metrics.compute_span():
+                    loss = step(tokens, labels)
+                spans.append(time.perf_counter() - t0)
+                metrics.step_end(step=i)
+                times.append(time.perf_counter() - t0)
+                records.append(metrics.last_attribution())
+        finally:
+            restore()
+        seq1 = debug.snapshot(last=1)[-1]["seq"]
+        assert records[0] is None and records[1] is None, records[:2]
+        records, times, spans = records[2:], times[2:], spans[2:]
+        assert math.isfinite(loss.item())
+        launches = dict(fa.launches)
+        text, after = scrape(port)
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(ROOT, "chiprun_out", "metrics.txt"),
+                  "w") as f:
+            f.write(text)
+
+        def delta(key):
+            return after.get(key, 0.0) - before.get(key, 0.0)
+
+        steps_total = delta("hvd_steps_total")
+        ops = delta('hvd_collective_ops_total{kind="allreduce"}')
+        lat_n = delta('hvd_collective_latency_seconds_count{kind="allreduce"}')
+        assert steps_total == TELEMETRY_STEPS, steps_total
+        assert ops == calls[0] == lat_n, (ops, calls[0], lat_n)
+        assert [r["step"] for r in records] == \
+            list(range(3, TELEMETRY_STEPS + 1)), records
+        wall_err = []
+        for rec in records:
+            wall = sum(rec["components"][k] for k in A.WALL_COMPONENTS)
+            wall_err.append(abs(wall - rec["dur_s"]))
+        last = records[-1]
+        scraped = {k: after[f'hvd_step_attribution_seconds{{component="{k}"}}']
+                   for k in A.COMPONENTS}
+        wall_err.append(abs(sum(scraped[k] for k in A.WALL_COMPONENTS)
+                            - last["dur_s"]))
+        assert max(wall_err) <= TOL_WALL_S, wall_err
+        # No rescale onto the wall (which sets host to 0), and the span
+        # counted once: compute + comm_exposed is the span.
+        assert all(r["components"]["host"] > 0 for r in records), records
+        span_err = [abs(r["components"]["compute"]
+                        + r["components"]["comm_exposed"] - sp)
+                    for r, sp in zip(records, spans)]
+        assert statistics.median(span_err) <= TOL_SPAN_S, span_err
+        peak = A.peak_flops()
+        assert peak == PEAK_H100_SXM, (peak, torch.cuda.get_device_name(0))
+        live = [r["mfu"] for r in records]
+        own = flops / (statistics.median(times) * PEAK_H100_SXM)
+        mfu_rel = abs(statistics.median(live) - own) / own
+        assert mfu_rel <= TOL_MFU, (statistics.median(live), own)
+        assert after["hvd_mfu_ratio"] == last["mfu"]
+        for n in KERNELS:
+            assert launches[n] == cfg.n_layers * TELEMETRY_STEPS, launches
+        comps = {k: statistics.median(r["components"][k] for r in records)
+                 for k in A.COMPONENTS}
+        report["train"] = {
+            "steps_total": steps_total, "allreduce_ops": ops,
+            "all_reduce_calls": calls[0], "wall_err_max_s": max(wall_err),
+            "step_times_s": times, "records": records,
+            "component_medians_s": comps, "live_mfu": live,
+            "span_s": spans, "span_err_s": span_err,
+            "live_mfu_median": statistics.median(live),
+            "phase_mfu": own, "mfu_rel_diff": mfu_rel,
+            "peak_flops": peak, "launches": launches,
+            "latency_hist_count": lat_n,
+            "latency_hist_sum_s": delta(
+                'hvd_collective_latency_seconds_sum{kind="allreduce"}')}
+        log(f"[telemetry] (a) {TELEMETRY_STEPS} flagship steps under "
+            f"compute_span/step_end, /metrics scraped on 127.0.0.1:{port}: "
+            f"hvd_steps_total +{steps_total:.0f}, "
+            f"hvd_collective_ops_total{{allreduce}} +{ops:.0f} = "
+            f"{calls[0]} dist.all_reduce calls; wall components sum to the "
+            f"step within {max(wall_err):.3g} s; compute + comm_exposed "
+            f"against the timed span: median {statistics.median(span_err):.3g}"
+            f" s, max {max(span_err):.3g} s; component medians (ms) "
+            + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in comps.items())
+            + f"; live MFU median {statistics.median(live):.4f} (peak "
+            f"{peak / 1e12:.1f} TFLOP/s detected from the name) against the "
+            f"phase's {own:.4f} (rel {mfu_rel:.3g}); flash launches "
+            f"{launches}; on {card}")
+
+        # (d) the flight dump: one collective.enqueue a named collective
+        # and step, among the events (a)'s steps recorded.
+        with open(debug.dump()) as f:
+            dump = json.load(f)
+        window = [e for e in dump["events"] if seq0 < e["seq"] <= seq1]
+        enq = collections.Counter(
+            e["name"] for e in window if e["kind"] == "collective.enqueue")
+        want = {f"DistributedOptimizer.grad.{j}": TELEMETRY_STEPS
+                for j in range(n_grads)}
+        want[None] = TELEMETRY_STEPS                   # the loss's mean
+        assert dict(enq) == want, (dict(enq), want)
+        report["flight"] = {"events": len(dump["events"]),
+                            "window_events": len(window),
+                            "enqueue_per_name": {str(k): v
+                                                 for k, v in enq.items()},
+                            "window_kinds": dict(collections.Counter(
+                                e["kind"] for e in window))}
+        log(f"[telemetry] (d) flight dump: {len(dump['events'])} events, "
+            f"{len(window)} from (a)'s steps: collective.enqueue of each of "
+            f"the {n_grads} named gradient allreduces and of the loss's "
+            f"mean once a step ({TELEMETRY_STEPS} steps); kinds "
+            f"{report['flight']['window_kinds']}")
+
+        # (e) a Chrome trace of two steps: the hvd.* ranges and the three
+        # kernels' device launches.
+        trace_dir = os.path.join(work, "trace")
+        prof.start_trace(trace_dir)
+        for _ in range(TRACE_STEPS):
+            step(tokens, labels)
+        torch.cuda.synchronize()
+        path = prof.stop_trace()
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+        ranges = sum(1 for e in trace
+                     if str(e.get("name", "")).startswith("hvd.allreduce."))
+        kern = {n: sum(1 for e in trace if e.get("cat") == "kernel"
+                       and sym in str(e.get("name", "")))
+                for n, sym in KERNEL_SYMBOLS.items()}
+        # NCCL's own device work (kernels and copies), beside (a)'s
+        # comm_exposed: at world 1 an in-place sum may launch none.
+        nccl = [e for e in trace
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                and ("nccl" in str(e.get("name", "")).lower()
+                     or "onerank" in str(e.get("name", "")).lower())]
+        nccl_ms = sum(float(e.get("dur", 0.0)) for e in nccl) / 1e3
+        assert ranges >= TRACE_STEPS * (n_grads + 1), ranges
+        assert kern == {n: cfg.n_layers * TRACE_STEPS for n in KERNELS}, kern
+        report["trace"] = {"bytes": os.path.getsize(path),
+                           "hvd_allreduce_ranges": ranges,
+                           "kernel_launches": kern,
+                           "nccl_device_events": len(nccl),
+                           "nccl_device_ms_a_step": nccl_ms / TRACE_STEPS}
+        log(f"[telemetry] (e) Chrome trace of {TRACE_STEPS} steps "
+            f"({os.path.getsize(path):,} bytes): {ranges} hvd.allreduce.* "
+            f"ranges, device launches {kern}; NCCL device events "
+            f"{len(nccl)}, {nccl_ms / TRACE_STEPS:.4f} ms a step (against "
+            f"(a)'s comm_exposed median {comps['comm_exposed'] * 1e3:.4f} "
+            f"ms, the compute stream's hold)")
+
+        # (b) the other components: a checkpoint, the loader.  (The
+        # pipeline bubble needs pp > 1: tools/multi_gpu_modes.py checks it
+        # at pp 4.)
+        comp = {}
+        root = os.path.join(work, "ckpt")
+        t0 = time.perf_counter()
+        with metrics.compute_span():
+            step(tokens, labels)
+        ckpt.save_zero_state(root, {"model": trainee.state_dict()}, 1)
+        metrics.step_end(time.perf_counter() - t0, step=100)
+        comp["checkpoint"] = metrics.last_attribution()["components"]
+        assert comp["checkpoint"]["checkpoint"] > 0, comp
+        seqs = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (64, cfg.seq_len + 1), dtype=np.int32)
+        loader = DataLoader(ArraySource(seqs), batch, shuffle=True, seed=0,
+                            prefetch=True, queue_depth=2, device="cuda")
+        it = iter(loader)
+        for i in range(2):
+            t0 = time.perf_counter()
+            b = next(it)
+            with metrics.compute_span():
+                step(b[:, :-1].long(), b[:, 1:].long())
+            metrics.step_end(time.perf_counter() - t0, step=101 + i)
+        loader.close()
+        comp["input"] = metrics.last_attribution()["components"]
+        assert comp["input"]["input"] > 0, comp
+        report["components"] = comp
+        log(f"[telemetry] (b) a step that saves a checkpoint: checkpoint "
+            f"{comp['checkpoint']['checkpoint'] * 1e3:.3f} ms; a step fed "
+            f"by DataLoader(prefetch, device='cuda'): input "
+            f"{comp['input']['input'] * 1e3:.4f} ms")
+
+        # (c) a serving burst over HTTP: the request plane's handler
+        # counts the requests, the engine the tokens; the families against
+        # what the clients received.
+        svc = S.ServingService(cfg, params=model, params_tag="telemetry",
+                               port=0, secret=SERVE_SECRET, watch=False,
+                               **SERVE_GEOMETRY)
+        sched = S.synthetic_workload(**SERVE_LOAD)
+        reg = metrics.registry()
+        try:
+            addr = f"127.0.0.1:{svc.serve()}"
+            snap0 = reg.snapshot()
+            seq0 = debug.snapshot(last=1)[-1]["seq"]
+            tok0 = svc.engine.tokens_out
+            served, _ = serve_over_http(addr, sched, SERVE_SECRET)
+            engine_tokens = svc.engine.tokens_out - tok0
+            snap1 = reg.snapshot()
+        finally:
+            svc.close()
+
+        def family(snap, name):
+            fam = snap.get(name)
+            if fam is None:
+                return 0.0
+            return sum(s.get("value", s.get("count", 0.0))
+                       for s in fam["series"])
+
+        client_tokens = sum(len(t) for t, _, _ in served.values())
+        fams = {n: family(snap1, n) - family(snap0, n)
+                for n in ("hvd_serving_tokens_total",
+                          "hvd_serving_requests_total",
+                          "hvd_serving_ttft_seconds",
+                          "hvd_serving_token_seconds")}
+        kinds = collections.Counter(e["kind"] for e in debug.snapshot()
+                                    if e["seq"] > seq0)
+        assert fams["hvd_serving_tokens_total"] == engine_tokens == \
+            client_tokens, (fams, engine_tokens, client_tokens)
+        assert fams["hvd_serving_requests_total"] == len(served) == \
+            len(sched), fams
+        assert fams["hvd_serving_ttft_seconds"] == len(sched), fams
+        assert kinds["serving.admit"] == kinds["serving.retire"] == \
+            len(sched), kinds
+        report["serving"] = {"families": fams, "served": len(served),
+                             "engine_tokens": engine_tokens,
+                             "client_tokens": client_tokens,
+                             "flight_kinds": dict(kinds)}
+        log(f"[telemetry] (c) serving burst of {len(sched)} requests over "
+            f"HTTP: hvd_serving_requests_total "
+            f"+{fams['hvd_serving_requests_total']:.0f} (the handler's count)"
+            f" = {len(served)} streams served; hvd_serving_tokens_total "
+            f"+{fams['hvd_serving_tokens_total']:.0f} = the engine's "
+            f"{engine_tokens} = the clients' {client_tokens} tokens; TTFT "
+            f"observations {fams['hvd_serving_ttft_seconds']:.0f}, per-token "
+            f"{fams['hvd_serving_token_seconds']:.0f}; serving.admit / "
+            f"retire events {kinds['serving.admit']} / "
+            f"{kinds['serving.retire']}")
+        del svc
+
+        # (f) the host cost: the training step and a decode iteration
+        # with the telemetry on and off, in interleaved blocks.
+        host = {"on": [], "off": []}
+        idx = 200
+        for mode in OVERHEAD_BLOCKS:
+            telemetry_switch(mode == "on")
+            for _ in range(OVERHEAD_STEPS):
+                t0 = time.perf_counter()
+                if mode == "on":
+                    with metrics.compute_span():
+                        step(tokens, labels)
+                    metrics.step_end(step=idx)
+                else:
+                    step(tokens, labels)
+                    torch.cuda.synchronize()
+                host[mode].append(time.perf_counter() - t0)
+                idx += 1
+        telemetry_switch(True)
+        rng = np.random.default_rng(14)
+        dec = S.DecodeEngine(cfg, model, **SERVE_GEOMETRY)
+        for i in range(SERVE_GEOMETRY["slots"]):
+            dec.admit(S.Request(
+                id=f"o{i}", prompt=[int(t) for t in rng.integers(
+                    0, cfg.vocab_size, PROFILE_REQUEST["prompt"])],
+                max_new_tokens=PROFILE_REQUEST["outputs"]))
+        decode = {"on": [], "off": []}
+        for mode in OVERHEAD_BLOCKS:
+            telemetry_switch(mode == "on")
+            for _ in range(OVERHEAD_STEPS):
+                t0 = time.perf_counter()
+                dec.step()
+                decode[mode].append(time.perf_counter() - t0)
+        telemetry_switch(True)
+        assert dec.active() == SERVE_GEOMETRY["slots"], dec.stats()
+        del dec
+        over = {"train_step": {m: spread(v) for m, v in host.items()},
+                "decode_iteration": {m: spread(v)
+                                     for m, v in decode.items()},
+                "blocks": list(OVERHEAD_BLOCKS),
+                "steps_a_block": OVERHEAD_STEPS, "card": card}
+        for k in ("train_step", "decode_iteration"):
+            on, off = over[k]["on"]["median_ms"], over[k]["off"]["median_ms"]
+            over[k]["on_over_off"] = on / off
+        report["overhead"] = over
+        for k, label in (("train_step", "flagship step"),
+                         ("decode_iteration", "decode iteration")):
+            o = over[k]
+            log(f"[telemetry] (f) {label} host time, telemetry on: median "
+                f"{o['on']['median_ms']:.3f} ms (min {o['on']['min_ms']:.3f},"
+                f" max {o['on']['max_ms']:.3f}); off: median "
+                f"{o['off']['median_ms']:.3f} ms (min "
+                f"{o['off']['min_ms']:.3f}, max {o['off']['max_ms']:.3f}); "
+                f"on/off {o['on_over_off']:.4f}; blocks "
+                f"{'/'.join(OVERHEAD_BLOCKS)} of {OVERHEAD_STEPS}; on {card}")
+    finally:
+        telemetry_switch(True)
+        for k in ("HVD_TPU_METRICS_PORT", "HVD_TPU_FLIGHT_DIR"):
+            os.environ.pop(k, None)
+        hvd.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
     return report
 
 
@@ -2460,6 +2893,10 @@ def main() -> int:
     # train→serve loop over HTTP
     report["serving"] = phase_serving(torch, hvd, tfm, fa, cfg, par, model,
                                       tokens, labels, card)
+    # 14. the step telemetry plane: attribution, live MFU, the scrape, the
+    # flight dump, a Chrome trace and the telemetry's host cost
+    report["telemetry"] = phase_telemetry(torch, hvd, tfm, fa, cfg, par,
+                                          model, tokens, labels, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -2486,6 +2923,7 @@ def main() -> int:
                         for k, r in modes["moe"].items()})
         serving = report["serving"]["prefill"]
         by_path["serving.prefill"] = serving["launches"][name]
+        by_path["telemetry"] = report["telemetry"]["train"]["launches"][name]
         # The serving prefill is a forward: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \

@@ -1,5 +1,5 @@
 """Atomic sharded-checkpoint writer/reader (port of
-horovod_tpu/checkpoint/engine.py, without its metric counters).
+horovod_tpu/checkpoint/engine.py).
 
 Durability protocol (the tentpole's invariant: *a partial write is never
 restorable*):
@@ -15,6 +15,11 @@ A crash at any point between (1) and (2) leaves a step directory with no
 manifest: invisible to restores, reclaimed by :func:`gc_steps`.  Orbax is
 never required — storage is plain ``.npz`` — and the layout is the
 reference's, byte for byte, so either package reads the other's steps.
+
+Saves and restores feed the ``hvd_checkpoint_*`` metric families: bytes
+written and read, saves and restores, their durations, and the seconds
+paid on the calling thread (``hvd_checkpoint_blocking_seconds_total``,
+the step attribution's ``checkpoint`` component).
 """
 
 from __future__ import annotations
@@ -23,12 +28,48 @@ import io
 import os
 import shutil
 import tempfile
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from . import manifest as M
 from . import reshard as R
+
+_ckpt_metrics = None
+
+
+def _record_io_seconds(hist, seconds: float) -> None:
+    hist.observe(seconds)
+    _metrics()[6].inc(max(seconds, 0.0))
+
+
+def _metrics():
+    """Cached checkpoint metric children (the metrics registry)."""
+    global _ckpt_metrics
+    if _ckpt_metrics is None:
+        from ..metrics.registry import registry
+        reg = registry()
+        buckets = (0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0)
+        _ckpt_metrics = (
+            reg.counter("hvd_checkpoint_bytes_written_total",
+                        "Shard + manifest bytes written"),
+            reg.counter("hvd_checkpoint_bytes_read_total",
+                        "Shard bytes read on restore"),
+            reg.counter("hvd_checkpoint_saves_total",
+                        "Committed checkpoint save operations"),
+            reg.counter("hvd_checkpoint_restores_total",
+                        "Checkpoint restore operations"),
+            reg.histogram("hvd_checkpoint_save_seconds",
+                          "save_leaves wall time", buckets=buckets),
+            reg.histogram("hvd_checkpoint_restore_seconds",
+                          "restore_leaves wall time", buckets=buckets),
+            reg.counter("hvd_checkpoint_blocking_seconds_total",
+                        "Save/restore wall seconds paid on the calling "
+                        "thread (async-committer flushes excluded) — "
+                        "the step attribution's checkpoint component"),
+        )
+    return _ckpt_metrics
 
 def _atomic_write_bytes(path: str, data: bytes) -> None:
     """Write via a same-directory tempfile + rename so readers never see
@@ -81,7 +122,9 @@ def write_shard(root: str, step: int, rank: int, world_size: int,
     np.savez(buf, **{k: np.asarray(v) for k, v in arrays.items()})
     path = os.path.join(step_dir(root, step),
                         M.shard_filename(rank, world_size))
-    _atomic_write_bytes(path, buf.getvalue())
+    data = buf.getvalue()
+    _atomic_write_bytes(path, data)
+    _metrics()[0].inc(len(data))
     return path
 
 
@@ -159,7 +202,12 @@ def read_shard(root: str, step: int, rank: int,
     path = os.path.join(step_dir(root, step),
                         M.shard_filename(rank, world_size))
     with np.load(path) as z:
-        return {k: z[k] for k in z.files}
+        out = {k: z[k] for k in z.files}
+    try:
+        _metrics()[1].inc(os.path.getsize(path))
+    except OSError:
+        pass
+    return out
 
 
 def gc_steps(root: str, keep: int = 3) -> List[int]:
@@ -199,6 +247,7 @@ def save_leaves(root: str, step: int, specs: List[M.LeafSpec],
     writes and the manifest commit so the committer cannot outrun a slow
     writer.
     """
+    t0 = time.perf_counter()
     for rank, values in sorted(rank_values.items()):
         arrays = {}
         for spec, val in zip(specs, values):
@@ -212,6 +261,9 @@ def save_leaves(root: str, step: int, specs: List[M.LeafSpec],
                           extra=extra or {})
     if committer:
         commit(root, step, manifest)
+    m = _metrics()
+    m[2].inc()
+    _record_io_seconds(m[4], time.perf_counter() - t0)
     return manifest
 
 
@@ -223,9 +275,13 @@ def restore_leaves(root: str, step: int,
         raise FileNotFoundError(
             f"step {step} in {root} is not a committed checkpoint "
             "(torn write or wrong directory)")
+    t0 = time.perf_counter()
     manifest = read_manifest(root, step)
     shards = [read_shard(root, step, r, manifest.world_size)
               for r in range(manifest.world_size)]
+    m = _metrics()
+    m[3].inc()
+    _record_io_seconds(m[5], time.perf_counter() - t0)
     return RestoredStep(manifest, shards, new_world_size)
 
 
@@ -301,13 +357,14 @@ def open_step(root: str, step: int, new_world_size: int) -> "LazyStep":
     d = step_dir(root, step)
     handles = [np.load(os.path.join(d, f))
                for f in manifest.shard_filenames()]
+    _metrics()[3].inc()
     return LazyStep(manifest, handles, new_world_size)
 
 
 class LazyStep(_StepReader):
     """A committed step opened for per-leaf streaming reads: shard
-    bytes are fetched from the lazily-indexed ``.npz`` handles only when
-    the shared read logic asks for them."""
+    bytes are fetched (and metered) from the lazily-indexed ``.npz``
+    handles only when the shared read logic asks for them."""
 
     def __init__(self, manifest: M.Manifest, handles: List,
                  new_world_size: int):
@@ -316,7 +373,9 @@ class LazyStep(_StepReader):
         self.new_world_size = int(new_world_size)
 
     def _one_shard(self, spec: M.LeafSpec, rank: int) -> np.ndarray:
-        return self._handles[rank][spec.key]  # reads ONE zip member
+        a = self._handles[rank][spec.key]  # reads ONE zip member
+        _metrics()[1].inc(int(a.nbytes))
+        return a
 
     def _replicated_value(self, spec: M.LeafSpec) -> np.ndarray:
         return self._one_shard(spec, 0)

@@ -57,6 +57,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..debug import flight as _flight
 from . import engine as E
 from . import manifest as M
 
@@ -543,10 +544,18 @@ def extract_zero_state(state) -> ExtractedState:
     them beside tensors and arrays, which ride along as replicated
     leaves: one device-to-host copy of each of its shards."""
     world, index, axis = _axis_of(state)
-    leaves = [leaf for group, _ in _plan(state, world) for leaf in group]
-    specs = [leaf.spec for leaf in leaves]
+    # Flight bracket: the device-to-host copies block behind a wedged
+    # device computation; a rank hanging here reads as checkpoint-bound.
+    _flight.record("checkpoint.extract.begin", None, world=world)
+    try:
+        leaves = [leaf for group, _ in _plan(state, world)
+                  for leaf in group]
+        specs = [leaf.spec for leaf in leaves]
+        values = [leaf.get() for leaf in leaves]
+    finally:
+        _flight.record("checkpoint.extract.done", None, world=world)
     return ExtractedState(
-        specs=specs, rank_values={index: [leaf.get() for leaf in leaves]},
+        specs=specs, rank_values={index: values},
         world=world, fingerprint=M.spec_fingerprint(specs),
         mesh_shape=_mesh_shape(world, axis))
 
@@ -576,6 +585,7 @@ def save_extracted(root: str, ext: ExtractedState, step: int,
     calls it: each writes its own shard file, a barrier separates the
     writes from the manifest, rank 0 commits, and a second barrier makes
     the step durable on every rank's return."""
+    _flight.record("checkpoint.save.begin", root, step=int(step))
     _check_run_fingerprint(root, ext.fingerprint, direction="save")
     (index,) = ext.rank_values
     multi = ext.world > 1
@@ -587,6 +597,7 @@ def save_extracted(root: str, ext: ExtractedState, step: int,
         E.gc_steps(root, keep=keep)
     if multi:
         _barrier()
+    _flight.record("checkpoint.save.commit", root, step=int(step))
     return manifest
 
 
@@ -671,6 +682,10 @@ def restore_zero_state(root: str, like, step: Optional[int] = None):
         if step is None:
             raise FileNotFoundError(
                 f"no committed checkpoint step under {root}")
+    _flight.record("checkpoint.restore.begin", root, step=int(step),
+                   streaming=True)
     with E.open_step(root, step, world) as restored:
-        return rebuild_restored(restored, like,
-                                source=f"step {step} under {root}")
+        out = rebuild_restored(restored, like,
+                               source=f"step {step} under {root}")
+    _flight.record("checkpoint.restore.done", root, step=int(step))
+    return out

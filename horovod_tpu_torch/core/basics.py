@@ -120,6 +120,8 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     """
     if global_state.initialized:
         return
+    from ..metrics.aggregate import refuse_tree
+    refuse_tree()
     cpu = device is not None and torch.device(device).type == "cpu"
     if not cpu:
         _cuda_or_raise("horovod_tpu_torch.init()")
@@ -190,6 +192,7 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
         else tuple(axes)
     global_state.device = dev
     global_state.owns_process_group = owns
+    global_state.metrics_sync_steps = _cfg.metrics_sync_steps()
     if use_controller is None:
         use_controller = bool(_cfg.get_env(_cfg.CONTROLLER_ADDR))
     if use_controller:
@@ -200,13 +203,53 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
                 dist.destroy_process_group()
             global_state.reset()
             raise
+    _start_telemetry()
     global_state.initialized = True
+
+
+def _start_telemetry() -> None:
+    """The topology gauges, the Prometheus endpoint when
+    ``HVD_TPU_METRICS_PORT`` is set (on local rank 0; a bind failure
+    degrades to a warning, as in the reference), and the flight
+    recorder's identity and SIGUSR1 dump trigger (reference
+    core/basics.py:192-240)."""
+    from ..metrics.registry import registry
+    reg = registry()
+    reg.counter("hvd_init_total", "Runtime initializations").inc()
+    reg.gauge("hvd_rank", "Chip-level rank of this process").set(
+        global_state.rank)
+    reg.gauge("hvd_size", "Total chips in the communicator").set(
+        global_state.size)
+    reg.gauge("hvd_elastic_round", "Current elastic rendezvous round "
+              "(-1 outside elastic jobs)").set(-1)
+    port = _cfg.metrics_port()
+    if port and global_state.local_rank == 0:
+        from .. import metrics
+        try:
+            metrics.serve(port=port)
+        except OSError as e:
+            from ..utils import logging as log
+            log.warning("metrics: cannot serve on port %d (%s); continuing "
+                        "without a scrape endpoint", port, e)
+    if not _cfg.flight_disable():
+        from .. import debug
+        debug.flight.set_identity(rank=global_state.rank,
+                                  world=global_state.size)
+        debug.flight.record("init", None, rank=global_state.rank,
+                            size=global_state.size, round=-1,
+                            wire=global_state.compression)
+        debug.install_signal_handler()
 
 
 def shutdown() -> None:
     """Tear down the runtime: the native controller first (it blocks until
     every rank has asked to leave), then the process groups ``init()`` made
-    (all of them with the world, when ``init()`` made the world)."""
+    (all of them with the world, when ``init()`` made the world).  The
+    ``/metrics`` endpoint stops too (the reference leaves it serving
+    across elastic resets, which the port does not have yet)."""
+    from .. import debug, metrics
+    debug.flight.record("shutdown", None)
+    metrics.stop_serving()
     ctl = global_state.controller
     if ctl is not None:
         from ..ops import dispatch

@@ -12,10 +12,12 @@ and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
 ``MESH_AXES``, the hierarchical schedule's ``HIERARCHICAL_ALLREDUCE`` /
 ``HIERARCHICAL_ALLGATHER``, the native controller's
 (``ControllerConfig``) and the serving plane's (``SERVING_*``, ``SPEC_K``,
-``TRACE_*``, ``SLO_*``), with the reference's defaults and clamps
-(config.py:296-320, :475-524).  The attention switch ``HVD_TPU_FLASH`` is
-not one of them: the reference reads it under that one name
-(parallel/ring_attention.py), and so does the port.
+``TRACE_*``, ``SLO_*``), and the telemetry plane's (``LOG_*``,
+``METRICS_*``, ``ATTRIBUTION*``, ``PEAK_TFLOPS``, ``PERF_DRIFT*``,
+``FLIGHT_*``), with the reference's defaults and clamps
+(config.py:37, :78-111, :296-362, :475-531).  The attention switch
+``HVD_TPU_FLASH`` is not one of them: the reference reads it under that
+one name (parallel/ring_attention.py), and so does the port.
 """
 
 from __future__ import annotations
@@ -124,6 +126,70 @@ TRACE_SEED = "TRACE_SEED"
 SLO_TARGET = "SLO_TARGET"
 SLO_WINDOW_S = "SLO_WINDOW_S"
 SLO_BURN_THRESHOLD = "SLO_BURN_THRESHOLD"
+
+# Logging (utils/logging.py): trace|debug|info|warning|error|fatal, and
+# whether to drop the timestamp.
+LOG_LEVEL = "LOG_LEVEL"
+LOG_HIDE_TIME = "LOG_HIDE_TIME"
+
+# The telemetry plane (metrics/, debug/flight.py), with the reference's
+# names and defaults (config.py:78-111, :326-362): the cross-rank sync
+# cadence (0 = never) and the Prometheus port (0 = off); the straggler
+# detector's factor, noise floor and patience; the host-sharded tree sync
+# and its knobs, which the port refuses until it has ``observer.py``
+# (ROADMAP queue 1 item 9b); JSONL retention; per-step attribution, its
+# JSONL trail and the MFU peak override (TFLOP/s, 0 = detected); the drift
+# detector; the flight recorder.  The debug endpoint's and hang
+# watchdog's knobs (FLIGHT_PORT, FLIGHT_ESCALATE) and the regression
+# report's look-back (PERF_DRIFT_LOOKBACK_S) come with item 9b.
+METRICS_SYNC_STEPS = "METRICS_SYNC_STEPS"
+METRICS_PORT = "METRICS_PORT"
+METRICS_STRAGGLER_FACTOR = "METRICS_STRAGGLER_FACTOR"
+METRICS_STRAGGLER_MIN_SECONDS = "METRICS_STRAGGLER_MIN_SECONDS"
+METRICS_STRAGGLER_PATIENCE = "METRICS_STRAGGLER_PATIENCE"
+METRICS_TREE = "METRICS_TREE"
+METRICS_TOPK = "METRICS_TOPK"
+METRICS_TREE_TIMEOUT_S = "METRICS_TREE_TIMEOUT_S"
+METRICS_TREE_GRACE_S = "METRICS_TREE_GRACE_S"
+METRICS_RETAIN_FILES = "METRICS_RETAIN_FILES"
+ATTRIBUTION = "ATTRIBUTION"
+ATTRIBUTION_JSONL = "ATTRIBUTION_JSONL"
+PEAK_TFLOPS = "PEAK_TFLOPS"
+PERF_DRIFT = "PERF_DRIFT"
+PERF_DRIFT_WARMUP = "PERF_DRIFT_WARMUP"
+PERF_DRIFT_THRESHOLD = "PERF_DRIFT_THRESHOLD"
+PERF_DRIFT_MIN_PCT = "PERF_DRIFT_MIN_PCT"
+PERF_DRIFT_COOLDOWN = "PERF_DRIFT_COOLDOWN"
+FLIGHT_DISABLE = "FLIGHT_DISABLE"
+FLIGHT_CAPACITY = "FLIGHT_CAPACITY"
+FLIGHT_DIR = "FLIGHT_DIR"
+FLIGHT_LAST_EVENTS = "FLIGHT_LAST_EVENTS"
+TREE_KNOBS = (METRICS_TREE, METRICS_TOPK, METRICS_TREE_TIMEOUT_S,
+              METRICS_TREE_GRACE_S)
+
+
+@dataclasses.dataclass(frozen=True)
+class TelemetryDefaults:
+    """The telemetry knobs' defaults (reference ``Config``,
+    config.py:326-362), read by the modules that consume each knob (the
+    straggler detector keeps its defaults beside its reads, as the
+    reference's does)."""
+    metrics_sync_steps: int = 0
+    metrics_port: int = 0
+    metrics_retain_files: int = 3
+    attribution: bool = True
+    peak_tflops: float = 0.0
+    perf_drift: bool = True
+    perf_drift_warmup: int = 30
+    perf_drift_threshold: float = 8.0
+    perf_drift_min_pct: float = 10.0
+    perf_drift_cooldown: int = 50
+    flight_disable: bool = False
+    flight_capacity: int = 4096
+    flight_last_events: int = 20
+
+
+TELEMETRY = TelemetryDefaults()
 
 
 def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
@@ -300,13 +366,15 @@ class ControllerConfig:
             autotune=get_bool(AUTOTUNE))
 
 
-def _integer(name: str, default: int) -> int:
+def get_int_or(name: str, default: int) -> int:
+    """An integer knob, or ``default`` when unset or not an integer (the
+    reference's ``get_int``)."""
     val = get_int(name)
     return default if val is None else val
 
 
 def serving_port() -> int:
-    return _integer(SERVING_PORT, 28643)
+    return get_int_or(SERVING_PORT, 28643)
 
 
 def serving_addr() -> Optional[str]:
@@ -318,25 +386,25 @@ def serving_secret() -> Optional[str]:
 
 
 def serving_slots() -> int:
-    return max(1, _integer(SERVING_SLOTS, 8))
+    return max(1, get_int_or(SERVING_SLOTS, 8))
 
 
 def serving_page_tokens() -> int:
-    return max(1, _integer(SERVING_PAGE_TOKENS, 16))
+    return max(1, get_int_or(SERVING_PAGE_TOKENS, 16))
 
 
 def serving_max_len() -> int:
     """The context a slot holds; 0 = the model's seq_len."""
-    return max(0, _integer(SERVING_MAX_LEN, 0))
+    return max(0, get_int_or(SERVING_MAX_LEN, 0))
 
 
 def serving_max_new_tokens() -> int:
-    return max(1, _integer(SERVING_MAX_NEW_TOKENS, 64))
+    return max(1, get_int_or(SERVING_MAX_NEW_TOKENS, 64))
 
 
 def serving_queue_cap() -> int:
     """At least 1: a cap of 0 would shed every request at ingress."""
-    return max(1, _integer(SERVING_QUEUE_CAP, 64))
+    return max(1, get_int_or(SERVING_QUEUE_CAP, 64))
 
 
 def serving_swap_poll_s() -> float:
@@ -349,7 +417,7 @@ def serving_prefix_cache() -> bool:
 
 def serving_prefill_chunk() -> int:
     """Prompt tokens prefilled an iteration; 0 = the whole prompt."""
-    return max(0, _integer(SERVING_PREFILL_CHUNK, 0))
+    return max(0, get_int_or(SERVING_PREFILL_CHUNK, 0))
 
 
 def serving_aging_s() -> float:
@@ -362,7 +430,7 @@ def serving_slo_ttft_s() -> float:
 
 def spec_k() -> int:
     """Draft tokens a speculative round, 0 (off) to 32."""
-    return min(32, max(0, _integer(SPEC_K, 0)))
+    return min(32, max(0, get_int_or(SPEC_K, 0)))
 
 
 def trace_sample() -> float:
@@ -370,7 +438,7 @@ def trace_sample() -> float:
 
 
 def trace_seed() -> int:
-    return _integer(TRACE_SEED, 0)
+    return get_int_or(TRACE_SEED, 0)
 
 
 def slo_target() -> float:
@@ -383,3 +451,31 @@ def slo_window_s() -> float:
 
 def slo_burn_threshold() -> float:
     return max(0.01, get_float(SLO_BURN_THRESHOLD, 1.0))
+
+
+# ---------------------------------------------------------------------------
+# the telemetry plane
+# ---------------------------------------------------------------------------
+
+def metrics_sync_steps() -> int:
+    return max(0, get_int_or(METRICS_SYNC_STEPS, TELEMETRY.metrics_sync_steps))
+
+
+def metrics_port() -> int:
+    return get_int_or(METRICS_PORT, TELEMETRY.metrics_port)
+
+
+def metrics_tree() -> bool:
+    return get_bool(METRICS_TREE, False)
+
+
+def tree_knobs_set() -> list:
+    """The host-sharded tree sync's knobs that are set (METRICS_TREE only
+    when true): the port refuses them until it has ``observer.py``."""
+    return [k for k in TREE_KNOBS
+            if (metrics_tree() if k == METRICS_TREE
+                else get_env(k) is not None)]
+
+
+def flight_disable() -> bool:
+    return get_bool(FLIGHT_DISABLE, TELEMETRY.flight_disable)

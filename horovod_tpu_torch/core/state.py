@@ -52,6 +52,8 @@ class GlobalState:
     controller: Any = None
     controller_group: Any = None
     mesh_axes_hint: Optional[tuple] = None
+    # HVD_TPU_METRICS_SYNC_STEPS as init() read it (0 = never sync).
+    metrics_sync_steps: int = 0
 
     def reset(self) -> None:
         self.__init__()

@@ -1,6 +1,5 @@
 """Background prefetch: overlap host batch prep + the copy to the device
-with the step (port of horovod_tpu/data/prefetch.py, without its
-``data_wait`` spans and metric counters).
+with the step (port of horovod_tpu/data/prefetch.py).
 
 A daemon producer thread drives the underlying batch iterator through a
 bounded queue; the training thread pops ready batches.  With a transfer
@@ -9,6 +8,13 @@ side CUDA stream), the copy of batch *i+1* runs while batch *i*'s step
 executes — a queue depth of 2 gives the classic double buffering.  A
 ``finish`` function runs in the consumer on each batch it hands out (the
 loader's: make the current stream wait for the batch's copy).
+
+Every blocking wait of the consumer is a ``utils.profiler.data_wait``
+span, which feeds the ``hvd_data_wait_*`` metrics the step attribution
+reads as its ``input`` component; a stall warning counts in
+``hvd_data_stall_warnings_total``; waits, stalls and a dead producer are
+flight events.  (The reference's ``HVD_TPU_CHAOS_INPUT_DELAY_MS`` drill
+comes with its chaos layer, ROADMAP queue 1 item 7.)
 
 Correctness properties the tests pin down:
 
@@ -34,6 +40,8 @@ import threading
 from typing import Any, Callable, Iterator, Optional
 
 from ..core.exceptions import DataStallError
+from ..debug import flight as _flight
+from ..utils import profiler
 
 _log = logging.getLogger(__name__)
 
@@ -75,20 +83,24 @@ class InlineIterator:
             # silently drop the batches it steals (the prefetch twin
             # refuses identically).
             raise RuntimeError("inline data iterator is closed")
-        try:
-            item = next(self._it)
-        except StopIteration:
-            # Natural exhaustion advanced the epoch inside the
-            # generator — capture the post-advance state (the prefetch
-            # path's _END message), or the loader's close() rewind would
-            # undo the epoch change.
-            if self._state_fn is not None:
-                self._last_state = self._state_fn()
-            self._finished = True
-            raise
-        state = self._state_fn() if self._state_fn is not None else None
-        if self._transfer is not None:
-            item = self._transfer(item)
+        # The span covers the whole host cost of the batch: what an
+        # unpipelined step pays.
+        with profiler.data_wait():
+            try:
+                item = next(self._it)
+            except StopIteration:
+                # Natural exhaustion advanced the epoch inside the
+                # generator — capture the post-advance state (the
+                # prefetch path's _END message), or the loader's close()
+                # rewind would undo the epoch change.
+                if self._state_fn is not None:
+                    self._last_state = self._state_fn()
+                self._finished = True
+                raise
+            state = self._state_fn() if self._state_fn is not None \
+                else None
+            if self._transfer is not None:
+                item = self._transfer(item)
         if self._finish is not None:
             item = self._finish(item)
         self._last_state = state
@@ -167,31 +179,46 @@ class PrefetchIterator:
             raise RuntimeError(f"{self._name}: iterator is closed")
         waited = 0.0
         warned = False
-        while True:
-            try:
-                kind, payload, state = self._q.get(timeout=0.5)
-                break
-            except queue.Empty:
-                waited += 0.5
-                if not self._thread.is_alive() and self._q.empty():
-                    # Producer died without posting an END/ERROR — only
-                    # possible if it was killed abruptly.
-                    self.close()
-                    raise DataStallError(
-                        f"{self._name}: producer thread died without "
-                        "reporting a result")
-                if not warned and self._stall_warning_s > 0 \
-                        and waited >= self._stall_warning_s:
-                    warned = True
-                    _log.warning(
-                        "%s: input pipeline stalled — no batch for %.0fs "
-                        "(source blocked or filesystem slow?)",
-                        self._name, waited)
-                if 0 < self._stall_timeout_s <= waited:
-                    self.close()
-                    raise DataStallError(
-                        f"{self._name}: no batch within the "
-                        f"{self._stall_timeout_s:.0f}s stall window")
+        with profiler.data_wait():
+            while True:
+                try:
+                    kind, payload, state = self._q.get(timeout=0.5)
+                    break
+                except queue.Empty:
+                    waited += 0.5
+                    if not self._thread.is_alive() and self._q.empty():
+                        # Producer died without posting an END/ERROR —
+                        # only possible if it was killed abruptly.
+                        _flight.record("data.producer_dead", self._name,
+                                       waited_s=waited)
+                        self.close()
+                        raise DataStallError(
+                            f"{self._name}: producer thread died without "
+                            "reporting a result")
+                    if not warned and self._stall_warning_s > 0 \
+                            and waited >= self._stall_warning_s:
+                        warned = True
+                        _log.warning(
+                            "%s: input pipeline stalled — no batch for "
+                            "%.0fs (source blocked or filesystem slow?)",
+                            self._name, waited)
+                        _flight.record("data.stall_warning", self._name,
+                                       waited_s=waited)
+                        from ..metrics.registry import registry
+                        registry().counter(
+                            "hvd_data_stall_warnings_total",
+                            "Input-pipeline stall warnings").inc()
+                    if 0 < self._stall_timeout_s <= waited:
+                        _flight.record("data.stall_timeout", self._name,
+                                       waited_s=waited)
+                        self.close()
+                        raise DataStallError(
+                            f"{self._name}: no batch within the "
+                            f"{self._stall_timeout_s:.0f}s stall window")
+        if waited:
+            # Slow path only (the queue stayed empty for a 0.5 s poll):
+            # a run of data.wait events names an input-bound rank.
+            _flight.record("data.wait", self._name, waited_s=waited)
         if kind == _ERROR:
             self.close()
             raise payload

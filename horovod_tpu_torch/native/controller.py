@@ -17,8 +17,15 @@ responses:
   over CUDA tensors, or gloo over CPU tensors with ``init(device="cpu")``.
 
 The reference's autotuner (its tick and tuned apply) is not ported:
-``HVD_TPU_AUTOTUNE`` raises.  Its metrics registry and flight recorder
-are replaced by plain counters (``stats()``).
+``HVD_TPU_AUTOTUNE`` raises.  The controller records into the metrics
+registry and the flight recorder as the reference's does: the
+``hvd_native_*`` families, and from the executor ``hvd_fusion_batch_names``,
+``hvd_device_plane_bytes_total``, ``hvd_wire_bytes_{raw,sent}_total
+{kind="device_plane"}`` and ``hvd_response_cache_{hits,misses}_total``
+(the native response cache's, since the port's executor compiles
+nothing); the ``native.attach`` and ``collective.error`` events.
+``stats()`` keeps this controller's own counts, which the families
+only mirror.
 """
 
 from __future__ import annotations
@@ -197,11 +204,46 @@ class NativeController:
             WIRE_CODES.get(cfg.compression, 0))
         self._counters = {}
         self._dispatch_table = None
-        # Plain counters in place of the reference's metrics registry.
+        from ..debug import flight as _flight
+        _flight.set_identity(rank=rank, world=size)
+        _flight.record("native.attach", None, rank=rank, size=size,
+                       coord_addr=coord_addr)
+        # Metric children cached on the instance (``_wait`` runs per op).
+        from ..metrics.registry import registry as _metrics_registry
+        reg = _metrics_registry()
+        self._m_ops = reg.counter(
+            "hvd_native_ops_total",
+            "Completed native-runtime eager operations")
+        self._m_fused = reg.gauge(
+            "hvd_native_last_fused_names",
+            "Names in the most recent fused allreduce Response")
+        self._m_hits = reg.counter(
+            "hvd_response_cache_hits_total",
+            "Device-plane response-signature cache hits")
+        self._m_misses = reg.counter(
+            "hvd_response_cache_misses_total",
+            "Device-plane response-signature cache misses (compiles)")
+        self._m_batch = reg.histogram(
+            "hvd_fusion_batch_names",
+            "Tensors per negotiated device-plane Response (fusion batch)",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+        self._m_staged = reg.counter(
+            "hvd_device_plane_bytes_total",
+            "Payload bytes executed on the negotiated device plane")
+        self._m_raw = reg.counter(
+            "hvd_wire_bytes_raw_total",
+            "Pre-compression payload bytes offered to the wire",
+            kind="device_plane")
+        self._m_sent = reg.counter(
+            "hvd_wire_bytes_sent_total",
+            "Payload bytes after the selected wire format",
+            kind="device_plane")
         self._stats_lock = threading.Lock()
         self._stats = {"enqueued": 0, "responses": 0, "names": 0,
                        "names_per_response": {}, "bytes_raw": 0,
                        "bytes_sent": 0}
+        self._hits_seen = 0
+        self._enqueued_seen = 0
         # Device plane: tensors staged by name with the event that orders
         # them after their producers; results handed back with theirs.
         self._device_lock = threading.Lock()
@@ -267,12 +309,20 @@ class NativeController:
         if self._lib.hvd_native_wait(handle) != 0:
             err = self._last_error()
             self._lib.hvd_native_release(handle)
+            from ..debug import flight as _flight
+            _flight.record("collective.error", None, error=err[:256])
             raise NativeError(err)
+        self._m_ops.inc()
+        self._m_fused.set(self._lib.hvd_native_last_fused_names())
 
     # -- counters -----------------------------------------------------------
 
-    def record_response(self, n_names: int, raw: int, sent: int) -> None:
-        """The executor's account of one device response."""
+    def record_response(self, n_names: int, raw: int, sent: int,
+                        staged: bool = True) -> None:
+        """The executor's account of one device response, counted in
+        ``stats()``.  The registry gets its fusion batch and, for the
+        allreduce and broadcast responses (``staged``), its payload bytes
+        raw and on the wire, as the reference's executor counts them."""
         with self._stats_lock:
             s = self._stats
             s["responses"] += 1
@@ -281,6 +331,19 @@ class NativeController:
             hist[n_names] = hist.get(n_names, 0) + 1
             s["bytes_raw"] += int(raw)
             s["bytes_sent"] += int(sent)
+            hits = self.cache_hits()
+            d_hits = hits - self._hits_seen
+            d_enq = s["enqueued"] - self._enqueued_seen
+            self._hits_seen, self._enqueued_seen = hits, s["enqueued"]
+        if d_hits > 0:
+            self._m_hits.inc(d_hits)
+        if d_enq > d_hits:
+            self._m_misses.inc(d_enq - d_hits)
+        self._m_batch.observe(n_names)
+        if staged:
+            self._m_staged.inc(float(raw))
+            self._m_raw.inc(float(raw))
+            self._m_sent.inc(float(sent))
 
     def cache_hits(self) -> int:
         """Tensors this rank announced as a response-cache bit instead of

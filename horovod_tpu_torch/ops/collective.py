@@ -43,6 +43,10 @@ leaves such calls alone.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -52,6 +56,12 @@ import torch.distributed as dist
 from ..core import handles as _handles
 from ..core.basics import _check_init
 from ..core.state import global_state
+from ..debug import flight as _flight
+from ..metrics.attribution import (add_source_drain, attribution,
+                                   in_compute_span)
+from ..metrics.registry import DEFAULT_TIME_BUCKETS, registry
+from ..utils.profiler import op_range
+from . import dispatch as _dispatch
 from . import eager as E
 from . import quantization as Q
 
@@ -124,6 +134,256 @@ def _axis_all_gather(x: torch.Tensor, axis) -> torch.Tensor:
     for a in reversed(_JOINT):    # cross first: the pieces end local-major
         x = Q._all_gather(x, Q._group(a))
     return x
+
+
+# ---------------------------------------------------------------------------
+# telemetry (reference collective.py:51-248)
+# ---------------------------------------------------------------------------
+
+# Per-kind metric children cached after first use (the registry lookup
+# costs a lock and a dict walk; the cached child is an attribute read).
+_coll_metrics = {}
+
+# Per-(kind, schedule) exposed-comm seconds: the dispatch plane's
+# attribution surface.
+_sched_metrics = {}
+
+
+def _schedule_seconds(kind: str, schedule: str):
+    rec = _sched_metrics.get((kind, schedule))
+    if rec is None:
+        rec = registry().counter(
+            "hvd_collective_schedule_seconds_total",
+            "Eager collective wall seconds by the dispatch table's "
+            "schedule choice (flat vs hier) — exposed-comm attribution "
+            "per schedule", kind=kind, schedule=schedule)
+        _sched_metrics[(kind, schedule)] = rec
+    return rec
+
+
+def _collective_metrics(kind: str):
+    rec = _coll_metrics.get(kind)
+    if rec is None:
+        reg = registry()
+        rec = (
+            reg.counter("hvd_collective_ops_total",
+                        "Eager collective operations", kind=kind),
+            reg.counter("hvd_collective_bytes_total",
+                        "Eager collective payload bytes", kind=kind),
+            reg.histogram("hvd_collective_latency_seconds",
+                          "Eager collective wall time (enqueue to "
+                          "result)", buckets=DEFAULT_TIME_BUCKETS,
+                          kind=kind),
+            reg.counter("hvd_wire_bytes_raw_total",
+                        "Pre-compression payload bytes offered to the "
+                        "wire", kind=kind),
+            reg.counter("hvd_wire_bytes_sent_total",
+                        "Payload bytes after the selected wire format",
+                        kind=kind),
+            reg.gauge("hvd_wire_compression_ratio",
+                      "raw/sent wire-byte ratio of the most recent op",
+                      kind=kind),
+        )
+        _coll_metrics[kind] = rec
+    return rec
+
+
+# Overlap-submission marker: a collective submitted by an overlap queue
+# lands in both the latency histogram and the queue's own exposed
+# seconds; its latency also goes to
+# hvd_overlap_fallback_latency_seconds_total, which the step attribution
+# subtracts so overlap-managed wire time counts once.
+_overlap_submit = threading.local()
+_overlap_fallback_lat = None
+
+
+@contextlib.contextmanager
+def overlap_submit_scope():
+    """Mark this thread as inside an overlap queue's submission
+    (ops/overlap.py ``EagerBucketQueue.launch``)."""
+    prev = getattr(_overlap_submit, "active", False)
+    _overlap_submit.active = True
+    try:
+        yield
+    finally:
+        _overlap_submit.active = prev
+
+
+def _overlap_fallback_metric():
+    global _overlap_fallback_lat
+    if _overlap_fallback_lat is None:
+        _overlap_fallback_lat = registry().counter(
+            "hvd_overlap_fallback_latency_seconds_total",
+            "Latency-histogram seconds recorded by overlap-submitted "
+            "sync-fallback collectives — the overlap share the step "
+            "attribution subtracts from the histogram delta so "
+            "overlap-managed wire time is counted once")
+    return _overlap_fallback_lat
+
+
+def _nbytes(tensor) -> Optional[int]:
+    if isinstance(tensor, torch.Tensor):
+        return tensor.numel() * tensor.element_size()
+    return getattr(tensor, "nbytes", None)
+
+
+def _wire_sent_bytes(tensor, comp, nbytes: Optional[int]) -> Optional[int]:
+    """Bytes the wire moves for ``tensor``: a cast wire's narrower words;
+    a quantized wire's packed blocks and scales where the port's two-pass
+    schedule sends them (no controller); else the payload itself (under
+    a controller a quantized wire rounds values on the eager call and
+    the executor prices the stamped wire, as in the reference)."""
+    if nbytes is None or comp is None or \
+            not isinstance(tensor, torch.Tensor) or \
+            not tensor.is_floating_point():
+        return nbytes
+    if comp.bits is None:
+        return tensor.numel() * comp.wire_dtype.itemsize
+    if global_state.controller is None:
+        return Q.wire_bytes(tensor.numel(), comp.spec())
+    return nbytes
+
+
+# CUDA-event latency.  A collective on CUDA tensors returns once it is
+# enqueued, so a host clock around it would read about zero.  Its latency
+# is the time the compute stream was held by it instead: a pair of CUDA
+# events on the current stream around the call (around the wait, for an
+# asynchronous one), observed once the end event has completed.  The
+# step attribution drains the completed pairs before each read
+# (``metrics.attribution.add_source_drain``); a pair not yet complete
+# waits for a later drain.  Past ``_PENDING_DRAIN`` pairs (a loop that
+# closes no steps) each new pair drains the completed ones first.  A pair
+# recorded inside a compute span is also reported to the attribution,
+# which takes it out of the span's seconds (the span waited for it).
+_pending = collections.deque()
+_PENDING_DRAIN = 256
+
+
+def drain_device_latency() -> int:
+    """Observe the latency of every completed CUDA-event pair, oldest
+    first, stopping at the first that has not completed.  Returns how
+    many are still pending."""
+    while _pending:
+        start, end, lat, sched, fallback, in_span = _pending[0]
+        if not end.query():
+            break
+        _pending.popleft()
+        dt = start.elapsed_time(end) / 1e3
+        lat.observe(dt)
+        if sched is not None:
+            sched.inc(dt)
+        if fallback:
+            _overlap_fallback_metric().inc(dt)
+        if in_span:
+            attribution().note_comm_in_span(dt)
+    return len(_pending)
+
+
+add_source_drain(drain_device_latency)
+
+
+class _OpRecord:
+    """One eager collective's telemetry: the ``collective.enqueue``
+    event when it starts, the counters and the latency when its result
+    is ready, and the ``collective.done`` event."""
+
+    __slots__ = ("kind", "name", "nbytes", "sent", "sched", "metrics",
+                 "fallback", "t0", "cuda", "start", "held")
+
+    def __init__(self, kind: str, name, tensor, comp=None):
+        self.kind = kind
+        self.name = name
+        self.nbytes = _nbytes(tensor)
+        self.sent = _wire_sent_bytes(tensor, comp, self.nbytes)
+        self.metrics = _collective_metrics(kind)
+        self.fallback = getattr(_overlap_submit, "active", False)
+        ann = self.nbytes
+        if ann is not None and kind == "allgather":
+            ann = ann * global_state.size
+        self.sched = _dispatch.annotate(kind, ann)
+        self.cuda = isinstance(tensor, torch.Tensor) and tensor.is_cuda
+        self.start = None
+        self.held = 0.0
+        # The enqueue event is what a hang report quotes: an op stuck
+        # before ``done`` leaves it dangling.
+        fields = {"op": kind, "bytes": self.nbytes}
+        if comp is not None:
+            fields["wire"] = comp.wire
+        if self.sched is not None:
+            fields["schedule"] = self.sched
+        _flight.record("collective.enqueue", name, **fields)
+        self.t0 = time.perf_counter()
+
+    def hold(self):
+        """Start timing a stretch that holds the caller: the call, or
+        the wait of an asynchronous op."""
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        return time.perf_counter()
+
+    def release(self, t: float) -> None:
+        """End the stretch that ``hold`` returned ``t`` for."""
+        if self.cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            _pending.append((self.start, end, self.metrics[2],
+                             _schedule_seconds(self.kind, self.sched)
+                             if self.sched is not None else None,
+                             self.fallback, in_compute_span()))
+            if len(_pending) > _PENDING_DRAIN:
+                drain_device_latency()
+        else:
+            self.held += time.perf_counter() - t
+
+    def done(self) -> None:
+        ops, bts, lat, raw_c, sent_c, ratio_g = self.metrics
+        ops.inc()
+        if self.nbytes:
+            bts.inc(float(self.nbytes))
+            raw_c.inc(float(self.nbytes))
+            if self.sent:
+                sent_c.inc(float(self.sent))
+                ratio_g.set(self.nbytes / self.sent)
+        if not self.cuda:
+            lat.observe(self.held)
+            if self.sched is not None:
+                _schedule_seconds(self.kind, self.sched).inc(self.held)
+            if self.fallback:
+                _overlap_fallback_metric().inc(self.held)
+        _flight.record("collective.done", self.name, op=self.kind,
+                       dur_s=time.perf_counter() - self.t0)
+
+
+@contextlib.contextmanager
+def _op_range(kind: str, name, tensor, comp=None):
+    """Profiler span and metrics around one synchronous eager collective
+    (upstream Horovod's NVTX op range, operations.cc:1018-1033): an NVTX
+    range and ``record_function`` named ``hvd.<kind>.<name>``, the
+    ``hvd_collective_*`` and ``hvd_wire_*`` families and the
+    ``collective.enqueue`` / ``collective.done`` flight events."""
+    rec = _OpRecord(kind, name, tensor, comp)
+    try:
+        with op_range(f"hvd.{kind}.{name or 'unnamed'}", rec.nbytes):
+            t = rec.hold()
+            try:
+                yield
+            finally:
+                rec.release(t)
+    finally:
+        rec.done()
+
+
+@contextlib.contextmanager
+def _issue_range(rec: _OpRecord):
+    """The profiler span around an asynchronous collective's issue; on
+    the host clock its seconds count toward the latency (on CUDA the
+    wait's events do)."""
+    with op_range(f"hvd.{rec.kind}.{rec.name or 'unnamed'}", rec.nbytes):
+        t = time.perf_counter()
+        yield
+        if not rec.cuda:
+            rec.held += time.perf_counter() - t
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +558,16 @@ def _adasum(tensor, axis, compression, prescale, postscale):
     return out.to(tensor.dtype)
 
 
+def _call_wire(tensor, op, axis, compression):
+    """The wire compressor of one allreduce call (None for Adasum, whose
+    compression rides its own schedule)."""
+    if _negotiated(axis):
+        return _negotiated_wire(tensor, op, compression)
+    if op == Adasum:
+        return None
+    return _wire(tensor, op, compression)
+
+
 def allreduce_(tensor: torch.Tensor, op: int = Average,
                prescale_factor: float = 1.0, postscale_factor: float = 1.0,
                axis_name=None, compression=None) -> torch.Tensor:
@@ -305,18 +575,20 @@ def allreduce_(tensor: torch.Tensor, op: int = Average,
     _check_init()
     _check_op(op)
     axis = _check_axis(axis_name)
-    if _negotiated(axis):
-        return tensor.copy_(synchronize(_negotiated_allreduce(
-            tensor, op, prescale_factor, postscale_factor, None,
-            compression)))
-    if op == Adasum:
-        return tensor.copy_(_adasum(tensor, axis, compression,
-                                    prescale_factor, postscale_factor))
-    comp = _wire(tensor, op, compression)
-    if comp is not None:
-        return tensor.copy_(_compressed_allreduce(
-            tensor, op, axis, comp, prescale_factor, postscale_factor))
-    return _allreduce_plain(tensor, op, prescale_factor, postscale_factor)
+    comp = _call_wire(tensor, op, axis, compression)
+    with _op_range("allreduce", None, tensor, comp=comp):
+        if _negotiated(axis):
+            return tensor.copy_(synchronize(_negotiated_allreduce(
+                tensor, op, prescale_factor, postscale_factor, None,
+                compression)))
+        if op == Adasum:
+            return tensor.copy_(_adasum(tensor, axis, compression,
+                                        prescale_factor, postscale_factor))
+        if comp is not None:
+            return tensor.copy_(_compressed_allreduce(
+                tensor, op, axis, comp, prescale_factor, postscale_factor))
+        return _allreduce_plain(tensor, op, prescale_factor,
+                                postscale_factor)
 
 
 def allreduce(tensor: torch.Tensor, op: int = Average, axis_name=None,
@@ -327,19 +599,20 @@ def allreduce(tensor: torch.Tensor, op: int = Average, axis_name=None,
     _check_init()
     _check_op(op)
     axis = _check_axis(axis_name)
-    if _negotiated(axis):
-        return synchronize(_negotiated_allreduce(
-            tensor, op, prescale_factor, postscale_factor, name,
-            compression))
-    if op == Adasum:
-        return _adasum(tensor, axis, compression, prescale_factor,
-                       postscale_factor)
-    comp = _wire(tensor, op, compression)
-    if comp is not None:
-        return _compressed_allreduce(tensor, op, axis, comp,
-                                     prescale_factor, postscale_factor)
-    return _allreduce_plain(tensor.clone(), op, prescale_factor,
-                            postscale_factor)
+    comp = _call_wire(tensor, op, axis, compression)
+    with _op_range("allreduce", name, tensor, comp=comp):
+        if _negotiated(axis):
+            return synchronize(_negotiated_allreduce(
+                tensor, op, prescale_factor, postscale_factor, name,
+                compression))
+        if op == Adasum:
+            return _adasum(tensor, axis, compression, prescale_factor,
+                           postscale_factor)
+        if comp is not None:
+            return _compressed_allreduce(tensor, op, axis, comp,
+                                         prescale_factor, postscale_factor)
+        return _allreduce_plain(tensor.clone(), op, prescale_factor,
+                                postscale_factor)
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor], op: int = Average,
@@ -378,7 +651,8 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor], op: int = Average,
         buckets.setdefault((t.dtype, t.device), []).append(i)
     for idx in buckets.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
-        _allreduce_plain(flat, op, prescale_factor, postscale_factor)
+        with _op_range("allreduce", name, flat):
+            _allreduce_plain(flat, op, prescale_factor, postscale_factor)
         for i, part in zip(idx, flat.split([tensors[i].numel()
                                             for i in idx])):
             out[i] = part.view_as(tensors[i])
@@ -444,19 +718,25 @@ def allgather(tensor: torch.Tensor, axis_name=None,
     axis = _check_axis(axis_name)
     if len(tensor.shape) == 0:
         raise ValueError("allgather needs a tensor of at least one dimension")
-    if _negotiated(axis):
-        return E.allgather(tensor, name=name)
-    if axis is None:
-        return _gather_rows(tensor, None)
-    out = tensor
-    for a in reversed(_JOINT):   # cross first: the pieces end local-major
-        out = _gather_rows(out, Q._group(a))
-    return out
+    with _op_range("allgather", name, tensor):
+        if _negotiated(axis):
+            return E.allgather(tensor, name=name)
+        if axis is None:
+            return _gather_rows(tensor, None)
+        out = tensor
+        for a in reversed(_JOINT):   # cross first: pieces end local-major
+            out = _gather_rows(out, Q._group(a))
+        return out
 
 
 def broadcast_(tensor: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
     """In-place broadcast of the root's value; returns ``tensor``."""
     _check_init()
+    with _op_range("broadcast", None, tensor):
+        return _broadcast_(tensor, root_rank)
+
+
+def _broadcast_(tensor: torch.Tensor, root_rank: int) -> torch.Tensor:
     if _negotiated(None):
         return tensor.copy_(E.broadcast(tensor, root_rank))
     dist.broadcast(tensor, src=root_rank)
@@ -474,9 +754,10 @@ def broadcast(tensor: torch.Tensor, root_rank: int = 0, axis_name=None,
     if not 0 <= root_rank < len(ranks):
         raise ValueError(f"root_rank {root_rank} is not a member of the "
                          f"axis of {len(ranks)}")
-    if _negotiated(axis):
-        return E.broadcast(tensor, root_rank, name=name)
-    return broadcast_(tensor.clone(), ranks[root_rank])
+    with _op_range("broadcast", name, tensor):
+        if _negotiated(axis):
+            return E.broadcast(tensor, root_rank, name=name)
+        return _broadcast_(tensor.clone(), ranks[root_rank])
 
 
 def _split_sizes(tensor: torch.Tensor, splits, world: int) -> List[int]:
@@ -521,6 +802,11 @@ def alltoall(tensor: torch.Tensor, splits: Optional[Sequence[int]] = None,
     joint axis' and so is their order."""
     _check_init()
     axis = _check_axis(axis_name)
+    with _op_range("alltoall", name, tensor):
+        return _alltoall(tensor, splits, axis, name)
+
+
+def _alltoall(tensor, splits, axis, name):
     if _negotiated(axis):
         return E.alltoall(tensor, splits, name=name)
     if axis is None:
@@ -560,8 +846,16 @@ def reducescatter(tensor: torch.Tensor, op: int = Average, axis_name=None,
     if len(tensor.shape) == 0 or rows % world:
         raise ValueError(f"reducescatter dim0 {rows} not divisible by "
                          f"{world}")
+    comp = _negotiated_wire(tensor, op, compression) if _negotiated(axis) \
+        else _wire(tensor, op, compression)
+    with _op_range("reducescatter", name, tensor, comp=comp):
+        return _reducescatter(tensor, op, axis, name, compression, comp)
+
+
+def _reducescatter(tensor, op, axis, name, compression, comp):
+    world = global_state.size
+    rows = tensor.shape[0]
     if _negotiated(axis):
-        comp = _negotiated_wire(tensor, op, compression)
         if comp is None:
             return E.reducescatter(tensor, op, name=name)
         if comp.bits is None:
@@ -571,7 +865,6 @@ def reducescatter(tensor: torch.Tensor, op: int = Average, axis_name=None,
         x = torch.stack([_qdq(c, comp.spec()) for c in chunks])
         return E.reducescatter(x.view(tensor.shape), op,
                                name=name).to(tensor.dtype)
-    comp = _wire(tensor, op, compression)
     op = Sum if op == Sum else Average
     if axis is not None:
         chunks = tensor.reshape((world, rows // world) + tensor.shape[1:])
@@ -641,15 +934,50 @@ def join() -> int:
 # returns; poll() asks the runtime, synchronize() finishes the op.
 # ---------------------------------------------------------------------------
 
-def _allocate(work=None, finish=None, result=None) -> int:
+class _TimedWork:
+    """A ``Work`` whose ``wait()`` closes the op's telemetry record."""
+
+    __slots__ = ("work", "rec", "waited")
+
+    def __init__(self, work, rec: _OpRecord):
+        self.work, self.rec, self.waited = work, rec, False
+
+    def wait(self):
+        if self.waited:
+            return self.work.wait()
+        self.waited = True
+        t = self.rec.hold()
+        try:
+            return self.work.wait()
+        finally:
+            self.rec.release(t)
+            self.rec.done()
+
+    def is_completed(self):
+        return self.work.is_completed()
+
+
+def _allocate(work=None, finish=None, result=None,
+              rec: Optional[_OpRecord] = None) -> int:
+    """A handle: of a ready ``result``, or of ``work`` whose ``finish()``
+    gives the result after ``work.wait()``; ``rec`` (the op's telemetry)
+    times the wait and closes at it."""
     if work is None:
         return _handles.handle_manager.allocate(_handles.Handle(result=result))
+    if rec is not None:
+        work = _TimedWork(work, rec)
 
     def wait():
         work.wait()
         return finish()
     return _handles.handle_manager.allocate(_handles.Handle(
         poll_fn=work.is_completed, wait_fn=wait))
+
+
+def _sync_result(kind: str, name, tensor, comp, fn) -> int:
+    """The handle of an asynchronous call that runs synchronously."""
+    with _op_range(kind, name, tensor, comp=comp):
+        return _allocate(result=fn())
 
 
 def allreduce_async(tensor: torch.Tensor, op: int = Average,
@@ -663,16 +991,20 @@ def allreduce_async(tensor: torch.Tensor, op: int = Average,
         return _negotiated_allreduce(tensor, op, prescale_factor,
                                      postscale_factor, name, compression)
     if op == Adasum:
-        return _allocate(result=_adasum(tensor, None, compression,
-                                        prescale_factor, postscale_factor))
+        return _sync_result("allreduce", name, tensor, None, lambda: _adasum(
+            tensor, None, compression, prescale_factor, postscale_factor))
     comp = _wire(tensor, op, compression)
     if comp is not None:
-        return _allocate(result=_compressed_allreduce(
-            tensor, op, None, comp, prescale_factor, postscale_factor))
-    out = tensor.clone()
-    x = _prepare(out, prescale_factor, postscale_factor)
-    work = dist.all_reduce(x, op=_DIST_OPS[op], async_op=True)
-    return _allocate(work, lambda: _finish(out, x, op, postscale_factor))
+        return _sync_result(
+            "allreduce", name, tensor, comp, lambda: _compressed_allreduce(
+                tensor, op, None, comp, prescale_factor, postscale_factor))
+    rec = _OpRecord("allreduce", name, tensor)
+    with _issue_range(rec):
+        out = tensor.clone()
+        x = _prepare(out, prescale_factor, postscale_factor)
+        work = dist.all_reduce(x, op=_DIST_OPS[op], async_op=True)
+    return _allocate(work, lambda: _finish(out, x, op, postscale_factor),
+                     rec=rec)
 
 
 def allgather_async(tensor: torch.Tensor, name: Optional[str] = None) -> int:
@@ -681,7 +1013,10 @@ def allgather_async(tensor: torch.Tensor, name: Optional[str] = None) -> int:
         raise ValueError("allgather needs a tensor of at least one dimension")
     if _negotiated(None):
         return E.allgather_async(tensor, name=name)
-    return _allocate(*_issue_gather(tensor, None))
+    rec = _OpRecord("allgather", name, tensor)
+    with _issue_range(rec):
+        work, finish = _issue_gather(tensor, None)
+    return _allocate(work, finish, rec=rec)
 
 
 def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
@@ -689,9 +1024,11 @@ def broadcast_async(tensor: torch.Tensor, root_rank: int = 0,
     _check_init()
     if _negotiated(None):
         return E.broadcast_async(tensor, root_rank, name=name)
-    out = tensor.clone()
-    work = dist.broadcast(out, src=root_rank, async_op=True)
-    return _allocate(work, lambda: out)
+    rec = _OpRecord("broadcast", name, tensor)
+    with _issue_range(rec):
+        out = tensor.clone()
+        work = dist.broadcast(out, src=root_rank, async_op=True)
+    return _allocate(work, lambda: out, rec=rec)
 
 
 def alltoall_async(tensor: torch.Tensor, splits=None,
@@ -699,8 +1036,10 @@ def alltoall_async(tensor: torch.Tensor, splits=None,
     _check_init()
     if _negotiated(None):
         return E.alltoall_async(tensor, splits, name=name)
-    work, result = _issue_alltoall(tensor, splits)
-    return _allocate(work, lambda: result)
+    rec = _OpRecord("alltoall", name, tensor)
+    with _issue_range(rec):
+        work, result = _issue_alltoall(tensor, splits)
+    return _allocate(work, lambda: result, rec=rec)
 
 
 def poll(handle: int) -> bool:

@@ -30,6 +30,8 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from ..debug import flight as _flight
+
 # Payload buckets (upper bounds, bytes; the last bucket is unbounded).
 # Log-spaced around the regimes the eager sweep showed distinct
 # behavior in: latency-bound small ops, the shm-slot midrange, and the
@@ -285,20 +287,48 @@ def run_probe(controller, kinds: Tuple[str, ...],
 
 
 # ---------------------------------------------------------------------------
-# active table (module state: the annotation mirror)
+# active table (module state: annotation mirror + metrics + flight)
 # ---------------------------------------------------------------------------
 
 _active: Optional[DispatchTable] = None
+_gauges = None
+
+
+def _dispatch_metrics():
+    global _gauges
+    if _gauges is None:
+        from ..metrics.registry import registry
+        reg = registry()
+        _gauges = (
+            reg.counter("hvd_schedule_probes_total",
+                        "Topology probes run (once per init on probed "
+                        "topologies)"),
+            reg.gauge("hvd_schedule_probe_seconds",
+                      "Wall time of the most recent topology probe"),
+            reg,
+        )
+    return _gauges
 
 
 def set_active(table: DispatchTable, reason: str = "install") -> None:
-    """Publish ``table`` as this process's annotation mirror.  Does NOT
-    touch the native coordinator: ``install()`` owns that.  (The
-    reference also records ``reason`` as a flight event; the port gets
-    the flight recorder with ROADMAP queue 1 item 9.)"""
+    """Publish ``table`` as this process's annotation mirror and record
+    it: a gauge per (kind, bucket) and the ``dispatch.table`` flight
+    event.  Does NOT touch the native coordinator: ``install()`` owns
+    that."""
     global _active
-    del reason
     _active = table
+    reg = _dispatch_metrics()[2]
+    for kind in KINDS:
+        for i, sched in enumerate(table.schedules(kind)):
+            reg.gauge("hvd_schedule_dispatch",
+                      "Dispatch-table schedule per (op kind, payload "
+                      "bucket): 0 = flat, 1 = hierarchical",
+                      kind=kind, bucket=BUCKET_LABELS[i]).set(
+                          1.0 if sched == "hier" else 0.0)
+    _flight.record("dispatch.table", None, source=table.source,
+                   reason=reason,
+                   allreduce=",".join(table.allreduce),
+                   allgather=",".join(table.allgather))
 
 
 def active_table() -> Optional[DispatchTable]:
@@ -398,6 +428,7 @@ def bootstrap(controller, cfg, local_size: int,
         set_active(constant_table({k: False for k in KINDS},
                                   source="default"), reason="bootstrap")
         return _active
+    t0 = time.perf_counter()
     probe_kinds = tuple(k for k in KINDS if pins[k] is None)
     ms = run_probe(controller, probe_kinds,
                    seed=getattr(cfg, "schedule_probe_seed", 0),
@@ -413,4 +444,11 @@ def bootstrap(controller, cfg, local_size: int,
                                name="hvd.dispatch.table.bcast")
     table = DispatchTable.decode(np.asarray(enc), source="probe")
     install(table, controller=controller, reason="probe")
+    dur = time.perf_counter() - t0
+    counters = _dispatch_metrics()
+    counters[0].inc()
+    counters[1].set(dur)
+    _flight.record("dispatch.probe", None, seconds=round(dur, 4),
+                   arms=len(ms), world=world, local_size=local_size,
+                   seed=getattr(cfg, "schedule_probe_seed", 0))
     return table

@@ -50,6 +50,7 @@ import torch.distributed as dist
 
 from ..core import handles as _handles
 from ..core.state import global_state
+from ..debug import flight as _flight
 
 _AVERAGE, _SUM, _ADASUM, _MIN, _MAX, _PRODUCT = range(6)
 _DIST_OPS = {_AVERAGE: dist.ReduceOp.SUM, _SUM: dist.ReduceOp.SUM,
@@ -232,7 +233,7 @@ def _negotiated_executor(ctl):
         if top:
             dist.all_gather_into_tensor(recv, send, group=group)
         ctl.record_response(1, sum(dims) * row * item,
-                            sum(dims) * row * item)
+                            sum(dims) * row * item, staged=False)
         if mine is None:
             return {}
         parts = [recv[r * top: r * top + dims[r] * row * item]
@@ -253,7 +254,7 @@ def _negotiated_executor(ctl):
         out = torch.empty(sum(recv_rows) * w, dtype=torch.uint8, device=dev)
         dist.all_to_all_single(out, x, output_split_sizes=[
             r * w for r in recv_rows], input_split_sizes=send, group=group)
-        ctl.record_response(1, sum(send), sum(send))
+        ctl.record_response(1, sum(send), sum(send), staged=False)
         if mine is None:
             return {}
         got = out.view(dtype).view((sum(recv_rows),) + tuple(mine.shape[1:]))
@@ -264,6 +265,15 @@ def _negotiated_executor(ctl):
         dev = global_state.device
         group = global_state.controller_group
         P, me = ctl.size(), ctl.rank()
+        # One event per negotiated response, on the background thread: a
+        # collective that never returns leaves this one dangling, naming
+        # the batch that hung (the wire as the reference stamps it).
+        wire = "none"
+        if rtype == _ALLREDUCE and int(op) in (_AVERAGE, _SUM) and \
+                dtype.is_floating_point and sum(sizes):
+            wire = ctl.wire_compression()
+        _flight.record("negotiate.execute", names[0] if names else None,
+                       rtype=rtype, n=len(names), wire=wire)
         ctx, stream = _stream(dev)
         with ctx:
             local = {}

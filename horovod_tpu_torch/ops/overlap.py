@@ -48,6 +48,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core import config as _cfg
+from ..debug import flight as _flight
 
 
 # ---------------------------------------------------------------------------
@@ -100,7 +101,7 @@ def _leaf_nbytes(leaf) -> int:
 
 
 def plan_buckets(leaves: Sequence, bucket_bytes: Optional[int] = None,
-                 order: str = "backward") -> BucketPlan:
+                 record: bool = True, order: str = "backward") -> BucketPlan:
     """Partition ``leaves`` (anything with ``shape`` and a torch ``dtype``)
     into size-bounded buckets in launch order.
 
@@ -109,7 +110,9 @@ def plan_buckets(leaves: Sequence, bucket_bytes: Optional[int] = None,
     (which forward uses first) do.  A bucket closes when the next leaf
     would take it past ``bucket_bytes`` or has another dtype (a bucket is
     one flat buffer); a leaf larger than the bound gets a bucket of its
-    own."""
+    own.  ``record`` observes each bucket's bytes in
+    ``hvd_overlap_bucket_bytes`` and records an ``overlap.plan`` flight
+    event."""
     bb = int(default_bucket_bytes() if bucket_bytes is None
              else bucket_bytes)
     if bb <= 0:
@@ -131,7 +134,69 @@ def plan_buckets(leaves: Sequence, bucket_bytes: Optional[int] = None,
         cur_dtype = dt
     if cur:
         buckets.append(tuple(cur))
-    return BucketPlan(tuple(buckets), bb, len(leaves))
+    plan = BucketPlan(tuple(buckets), bb, len(leaves))
+    if record and buckets:
+        hist = _overlap_metrics()[1]
+        for idxs in buckets:
+            hist.observe(float(sum(_leaf_nbytes(leaves[i]) for i in idxs)))
+        _flight.record("overlap.plan", None, n_buckets=len(buckets),
+                       bucket_bytes=bb, n_leaves=len(leaves))
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# observability (reference overlap.py:195-248)
+# ---------------------------------------------------------------------------
+
+_metrics_rec = None
+
+
+def _overlap_metrics():
+    global _metrics_rec
+    if _metrics_rec is None:
+        from ..metrics.registry import DEFAULT_BYTE_BUCKETS, registry
+        reg = registry()
+        _metrics_rec = (
+            reg.counter("hvd_overlap_buckets_total",
+                        "Gradient buckets scheduled by the overlap "
+                        "engine (planned at trace time on the compiled "
+                        "plane, launched per step on the eager plane)"),
+            reg.histogram("hvd_overlap_bucket_bytes",
+                          "Payload bytes per scheduled gradient bucket",
+                          buckets=DEFAULT_BYTE_BUCKETS),
+            reg.gauge("hvd_overlap_comm_hidden_ratio",
+                      "Measured fraction of bucket wire time overlapped "
+                      "with compute (1.0 = fully hidden; eager plane "
+                      "measures per EagerBucketQueue.finish, the bench "
+                      "records its native-plane wall-clock figure)"),
+            reg.counter("hvd_overlap_comm_exposed_seconds_total",
+                        "Wire seconds the caller PAID (submission + "
+                        "blocked collection) across EagerBucketQueue "
+                        "finishes — the step attribution's overlap-"
+                        "managed exposed-comm source"),
+            reg.counter("hvd_overlap_comm_hidden_seconds_total",
+                        "Wire seconds hidden behind caller compute "
+                        "(in-flight union minus exposed) across "
+                        "EagerBucketQueue finishes"),
+            reg.counter("hvd_zero_gather_exposed_seconds_total",
+                        "ZeRO-3 parameter-gather seconds the caller "
+                        "PAID (submission + blocked collection) across "
+                        "EagerGatherQueue takes — also folded into the "
+                        "overlap exposed counter so step attribution "
+                        "prices gathers like any overlap-managed comm"),
+            reg.counter("hvd_zero_gather_hidden_seconds_total",
+                        "ZeRO-3 parameter-gather seconds hidden behind "
+                        "caller compute (in-flight union minus exposed) "
+                        "across EagerGatherQueue takes"),
+        )
+    return _metrics_rec
+
+
+def record_hidden_ratio(ratio: float) -> None:
+    """Publish a measured comm-hidden fraction (clamped to [0, 1]) in
+    ``hvd_overlap_comm_hidden_ratio`` — for a figure measured outside
+    the step, which a running step cannot instrument from inside."""
+    _overlap_metrics()[2].set(min(max(float(ratio), 0.0), 1.0))
 
 
 def per_leaf_plan(n: int) -> BucketPlan:
@@ -237,7 +302,6 @@ def issue_bucket_allreduce(leaves, op, axis, comp, prescale: float = 1.0,
     buffer's job there).
     """
     from . import collective as C
-    from . import quantization as Q
     from ..core.state import global_state
     if op == C.Adasum:
         # Adasum weighs by whole-tensor norms: concatenating leaves would
@@ -252,19 +316,32 @@ def issue_bucket_allreduce(leaves, op, axis, comp, prescale: float = 1.0,
                                      postscale_factor=postscale)
                    for x, nm in zip(leaves, names or [None] * len(leaves))]
         return C._Done, lambda: ([C.synchronize(h) for h in handles], None)
+    name = None if not names else names[0] if len(names) == 1 \
+        else f"{names[0]}+{len(names) - 1}"
     if comp is None:
         buf = _concat_flat(leaves, 1)
-        x = C._prepare(buf, prescale, postscale)
-        work = dist.all_reduce(x, op=C._DIST_OPS[op], async_op=True)
+        rec = C._OpRecord("allreduce", name, buf)
+        with C._issue_range(rec):
+            x = C._prepare(buf, prescale, postscale)
+            work = dist.all_reduce(x, op=C._DIST_OPS[op], async_op=True)
 
         def finish():
             _record_stream(x)
             return _split_back(C._finish(buf, x, op, postscale), leaves,
                                1), None
-        return work, finish
+        return C._TimedWork(work, rec), finish
     spec = comp.spec()
     align = spec.block if spec is not None else 1
     buf = _concat_flat(leaves, align)
+    with C._op_range("allreduce", name, buf, comp=comp):
+        result = _compressed_bucket(buf, leaves, align, spec, op, axis,
+                                    comp, prescale, postscale, keep_sent)
+    return C._Done, lambda: result
+
+
+def _compressed_bucket(buf, leaves, align, spec, op, axis, comp, prescale,
+                       postscale, keep_sent):
+    from . import quantization as Q
     kw = dict(spec=spec, wire_dtype=None if spec is not None
               else comp.wire_dtype, prescale=prescale, postscale=postscale)
     sent = None
@@ -277,8 +354,7 @@ def issue_bucket_allreduce(leaves, op, axis, comp, prescale: float = 1.0,
         sent = _split_back(sent, leaves, align, torch.float32)
     else:
         red = Q.compressed_allreduce(buf, None, op, **kw)
-    result = (_split_back(red, leaves, align), sent)
-    return C._Done, lambda: result
+    return _split_back(red, leaves, align), sent
 
 
 def _rows_of(x: torch.Tensor, world: int) -> torch.Tensor:
@@ -397,7 +473,7 @@ def bucketed_allreduce_tree(tree, op=None, axis_name=None, compression=None,
     axis = C._check_axis(axis_name)
     comp = C._resolve_compression(compression, session_default=False)
     leaves = _tree_leaves(tree)
-    plan = plan_buckets(leaves, bucket_bytes)
+    plan = plan_buckets(leaves, bucket_bytes, record=False)
     issued = [(idxs, issue_bucket_allreduce(
         [leaves[i] for i in idxs], op, axis, comp, prescale_factor,
         postscale_factor)) for idxs in plan.buckets]
@@ -424,7 +500,7 @@ def bucketed_reducescatter_tree(grads, op=None, axis_name=None,
     comp = C._resolve_compression(compression, session_default=False)
     leaves = _tree_leaves(grads)
     out: List[Any] = [None] * len(leaves)
-    for idxs in plan_buckets(leaves, bucket_bytes).buckets:
+    for idxs in plan_buckets(leaves, bucket_bytes, record=False).buckets:
         for i, v in zip(idxs, bucket_reducescatter(
                 [leaves[i] for i in idxs], op, axis, comp)):
             out[i] = v
@@ -468,7 +544,7 @@ def sync_in_backward(params, op=None, axis_name=None, compression=None,
         return finish()[0]
 
     out: List[Any] = [None] * len(leaves)
-    for idxs in plan_buckets(leaves, bucket_bytes).buckets:
+    for idxs in plan_buckets(leaves, bucket_bytes, record=False).buckets:
         for i, v in zip(idxs, _SyncBucket.apply(
                 reduce, *[leaves[i] for i in idxs])):
             out[i] = v
@@ -527,7 +603,8 @@ def gather_in_forward(shards_tree, like, op=None, axis_name=None,
     if not prefetch:
         bucket_bytes = sum(_leaf_nbytes(x) for x in likes) + 1
     out: List[Any] = [None] * len(shards)
-    for idxs in plan_buckets(likes, bucket_bytes, order="forward").buckets:
+    for idxs in plan_buckets(likes, bucket_bytes, record=False,
+                             order="forward").buckets:
         bl = [likes[i] for i in idxs]
         fulls = _GatherBucket.apply(
             lambda s, bl=bl: bucket_allgather(s, bl, axis, gather_comp),
@@ -644,9 +721,11 @@ class EagerBucketQueue:
     bucket sizes.  ``donate=True`` reduces C-contiguous float numpy
     buffers in place on the host plane.  ``finish`` keeps the measured
     comm-hidden ratio — the share of the wire's wall time the caller did
-    not spend blocked — in ``comm_hidden_ratio``, with the exposed and
-    hidden seconds (the reference feeds its metrics registry, which the
-    port gets with ROADMAP queue 1 item 9)."""
+    not spend blocked — in ``comm_hidden_ratio``, with this queue's
+    exposed and hidden seconds (``exposed_s``, ``hidden_s``), and adds
+    them to ``hvd_overlap_comm_hidden_ratio`` and the
+    ``hvd_overlap_comm_{exposed,hidden}_seconds_total`` counters, which
+    sum over every queue of the process."""
 
     def __init__(self, plan: BucketPlan, op=None, compression=None,
                  prescale_factor: float = 1.0,
@@ -711,13 +790,28 @@ class EagerBucketQueue:
         """Submit bucket ``bucket``'s leaves (plan order within the
         bucket); returns once they are in flight."""
         import time
+
+        from . import collective as C
+        from . import dispatch as _dispatch
         idxs = self._plan.buckets[bucket]
         if len(leaves) != len(idxs):
             raise ValueError(f"bucket {bucket} holds {len(idxs)} leaves, "
                              f"got {len(leaves)}")
+        nbytes = sum(_leaf_nbytes(x) for x in leaves)
+        _overlap_metrics()[0].inc()
+        # The schedule the dispatch table picks for this bucket's payload,
+        # annotated so traces and dumps show the per-bucket decision.
+        sched = _dispatch.annotate("allreduce", nbytes)
+        extra = {"schedule": sched} if sched is not None else {}
+        _flight.record("overlap.bucket_launch", f"{self._base}.b{bucket}",
+                       bucket=bucket, bytes=nbytes, tensors=len(leaves),
+                       **extra)
         t0 = time.perf_counter()
-        fins = [self._submit_one(x, f"{self._base}.{idxs[j]}")
-                for j, x in enumerate(leaves)]
+        # The scope marks these submits, so the latency they add to the
+        # collective histogram is subtracted by the step attribution.
+        with C.overlap_submit_scope():
+            fins = [self._submit_one(x, f"{self._base}.{idxs[j]}")
+                    for j, x in enumerate(leaves)]
         now = time.perf_counter()
         self._inflight[bucket] = (fins, now - t0, now)
         self._launch_order.append(bucket)
@@ -740,6 +834,9 @@ class EagerBucketQueue:
             submit_total += submit_s
             for j, i in enumerate(self._plan.buckets[bucket]):
                 out[i] = vals[j]
+            _flight.record("overlap.bucket_done",
+                           f"{self._base}.b{bucket}", bucket=bucket,
+                           dur_s=now - launched)
         self._launch_order = []
         # In flight: the union of the buckets' [submit, collected] spans;
         # exposed: submitting plus waiting; hidden: the rest.
@@ -749,6 +846,10 @@ class EagerBucketQueue:
             self.comm_hidden_ratio = max(0.0, 1.0 - exposed / union)
             self.exposed_s += exposed
             self.hidden_s += union - exposed
+            mets = _overlap_metrics()
+            mets[2].set(self.comm_hidden_ratio)
+            mets[3].inc(exposed)
+            mets[4].inc(union - exposed)
         return out
 
 
@@ -771,7 +872,9 @@ class EagerGatherQueue:
     ``{name}.{first leaf}``; ``take`` reassembles the full leaves from the
     rank-major gathered buffer (each leaf's shard is its flat elements
     zero-padded to a multiple of the world, split in world parts).
-    ``drain`` keeps the exposed and hidden gather seconds on the queue."""
+    ``drain`` keeps the exposed and hidden gather seconds on the queue
+    (``exposed_s``, ``hidden_s``) and adds them to the
+    ``hvd_zero_gather_*`` counters and the overlap exposed/hidden ones."""
 
     def __init__(self, plan: BucketPlan, like: Sequence,
                  name: Optional[str] = None, world: Optional[int] = None):
@@ -803,8 +906,13 @@ class EagerGatherQueue:
                              f"got {len(shards)}")
         cat = torch.cat([s.reshape(-1) for s in shards])
         self._taken.pop(bucket, None)   # a relaunch replaces the result
+        _overlap_metrics()[0].inc()
+        _flight.record("overlap.gather_launch", f"{self._base}.b{bucket}",
+                       bucket=bucket, bytes=_leaf_nbytes(cat),
+                       tensors=len(shards))
         t0 = time.perf_counter()
-        h = C.allgather_async(cat, name=f"{self._base}.{idxs[0]}")
+        with C.overlap_submit_scope():
+            h = C.allgather_async(cat, name=f"{self._base}.{idxs[0]}")
         submit_s = time.perf_counter() - t0
         self._submit_total += submit_s
         self._inflight[bucket] = (h, submit_s, time.perf_counter())
@@ -823,6 +931,8 @@ class EagerGatherQueue:
         now = time.perf_counter()
         self._blocked += now - t0
         self._spans.append((launched - submit_s, now))
+        _flight.record("overlap.gather_done", f"{self._base}.b{bucket}",
+                       bucket=bucket, dur_s=now - launched)
         idxs = self._plan.buckets[bucket]
         ks = [self._shard_k(i) for i in idxs]
         grid = gathered.reshape(-1).view(self._world, sum(ks))
@@ -850,6 +960,13 @@ class EagerGatherQueue:
             exposed = min(self._submit_total + self._blocked, union)
             self.exposed_s += exposed
             self.hidden_s += union - exposed
+            # Not the hidden-ratio gauge, which is the gradient queue's
+            # figure: a stage-3 step runs both queues.
+            mets = _overlap_metrics()
+            mets[3].inc(exposed)
+            mets[4].inc(union - exposed)
+            mets[5].inc(exposed)
+            mets[6].inc(union - exposed)
         self._spans = []
         self._submit_total = 0.0
         self._blocked = 0.0

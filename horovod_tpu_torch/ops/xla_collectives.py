@@ -19,8 +19,8 @@ inside ``shard_map``; the port's run eagerly over the process groups of a
 * **Analytic wire accounting** — :func:`plan_allreduce_step` and the
   ``*_wire_bytes`` functions, plain arithmetic equal to the reference's
   byte for byte; :func:`record_wire_bytes` keeps a running total per kind
-  in this module (the reference feeds its ``hvd_wire_*`` metric families,
-  which the port gets with the telemetry of ROADMAP queue 1 item 9).
+  in this module (:func:`wire_totals`) and feeds the ``hvd_wire_*``
+  metric families, as the reference does.
 * **Wire resolution** — :func:`resolve_wire`.
 
 The compressed schedules accumulate in fp32 and the wire dtype only
@@ -375,12 +375,19 @@ WIRE_TOTALS: Dict[str, list] = {}
 
 
 def record_wire_bytes(raw: int, sent: int, kind: str = "gspmd") -> None:
-    """Add one step's priced bytes to the running total of ``kind``."""
+    """Add one step's priced bytes to the running total of ``kind`` and
+    to its wire-byte counters (``hvd_wire_bytes_{raw,sent}_total``,
+    ``hvd_wire_compression_ratio``)."""
     if raw <= 0 or sent <= 0:
         return
     total = WIRE_TOTALS.setdefault(kind, [0, 0])
     total[0] += int(raw)
     total[1] += int(sent)
+    from . import collective as C
+    _ops, _bts, _lat, raw_c, sent_c, ratio_g = C._collective_metrics(kind)
+    raw_c.inc(raw)
+    sent_c.inc(sent)
+    ratio_g.set(raw / sent)
 
 
 def wire_totals(kind: str = "gspmd") -> StepWireBytes:

@@ -413,11 +413,14 @@ def pipeline_apply_1f1b(stage_fn: Callable[[Any, torch.Tensor],
 
 
 def note_bubble(n_stages: int, n_micro: int, span_seconds: float) -> float:
-    """Credit the bubble share of a measured pipeline span to the
-    step-attribution engine: not ported yet."""
-    raise NotImplementedError(
-        "note_bubble feeds metrics.attribution, which is ROADMAP.md queue 1 "
-        "item 9 (telemetry); use bubble_fraction for the arithmetic")
+    """Attribute the bubble share of a measured pipeline span to the
+    ``pipeline_bubble`` wall component of the step-attribution engine
+    (``hvd_pipeline_bubble_seconds_total``).  Returns the bubble seconds
+    credited."""
+    bubble = bubble_fraction(n_stages, n_micro) * max(0.0, span_seconds)
+    from ..metrics import attribution
+    attribution.note_pipeline_bubble(bubble)
+    return bubble
 
 
 def last_stage_mask(axis_name, device=None) -> torch.Tensor:

@@ -45,16 +45,32 @@ from ..ops import flash_attention as fa
 _NEG_INF = -1e30
 
 
-def _flash_enabled(q: torch.Tensor) -> bool:
-    """Dispatch policy.  ``HVD_TPU_FLASH=0`` takes the plain path; on a
-    CUDA tensor anything else takes the kernel.  On a CPU tensor the
-    default is the plain path, as the reference's is off its accelerator,
-    and ``HVD_TPU_FLASH=1`` takes the kernel's plain version.  Only the
-    ``HVD_TPU_`` name is read, as in the reference."""
+def kernel_takes(q: torch.Tensor, k: Optional[torch.Tensor] = None) -> bool:
+    """Whether the flash kernels can take these inputs: four-dimensional
+    bfloat16 q (and k) with a head_dim in ``flash_attention.HEAD_DIMS``
+    (the port's counterpart of the reference's ``_supported(q, k)``,
+    horovod_tpu/ops/flash_attention.py)."""
+    return all(t.dtype == torch.bfloat16 and len(t.shape) == 4
+               and t.shape[-1] in fa.HEAD_DIMS
+               for t in ((q,) if k is None else (q, k)))
+
+
+def _flash_enabled(q: torch.Tensor, k: Optional[torch.Tensor] = None
+                   ) -> bool:
+    """Dispatch policy.  ``HVD_TPU_FLASH=0`` takes the plain path and
+    ``HVD_TPU_FLASH=1`` the kernel (which raises on inputs it cannot
+    take).  Otherwise a CUDA tensor takes the kernel where
+    :func:`kernel_takes` holds and the plain path elsewhere (fp32, fp16,
+    another head_dim), as the reference's auto mode checks ``_supported``
+    first; a CPU tensor takes the plain path, as the reference's does off
+    its accelerator, and under ``HVD_TPU_FLASH=1`` the kernel's plain
+    version.  Only the ``HVD_TPU_`` name is read, as in the reference."""
     v = os.environ.get("HVD_TPU_FLASH", "auto")
     if v == "0":
         return False
-    return v == "1" or q.device.type == "cuda"
+    if v == "1":
+        return True
+    return q.device.type == "cuda" and kernel_takes(q, k)
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +288,7 @@ def _ring_plain(ring, qs, ks, vs, causal, scale):
 def _ring(ring, qs, ks, vs, causal, scale):
     scale = 1.0 / math.sqrt(qs[0].shape[-1]) if scale is None \
         else float(scale)
-    if _flash_enabled(qs[0]):
+    if _flash_enabled(qs[0], ks[0]):
         return list(_RingFlash.apply(ring, bool(causal), scale, *qs, *ks,
                                      *vs))
     return _ring_plain(ring, qs, ks, vs, causal, scale)
@@ -326,8 +342,8 @@ def reference_attention(q, k, v, causal: bool = True,
 def full_attention(q, k, v, causal: bool = True,
                    scale: Optional[float] = None) -> torch.Tensor:
     """Unsharded attention (same layout as ring attention): the flash
-    kernels on CUDA tensors, the plain path where ``HVD_TPU_FLASH=0`` says
-    so (see ``_flash_enabled``)."""
-    if _flash_enabled(q):
+    kernels on CUDA tensors they can take, the plain path elsewhere and
+    where ``HVD_TPU_FLASH=0`` says so (see ``_flash_enabled``)."""
+    if _flash_enabled(q, k):
         return fa.flash_attention(q, k, v, causal=causal, scale=scale)
     return reference_attention(q, k, v, causal=causal, scale=scale)

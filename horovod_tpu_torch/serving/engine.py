@@ -52,12 +52,15 @@ functions.  A swap flushes the prefix cache (cached K/V is a function of
 the params that computed it); the draft does not swap — a stale draft
 only lowers the acceptance rate, never correctness.
 
-The reference's ``hvd_serving_*`` metric families and its flight-recorder
-events wait for the port's telemetry; until then the engine keeps plain
-counters (``stats()``, ``ttft_samples``, ``token_latency_samples``) and
-the request plane's ingress counters live in this module
-(:func:`record_request`, :func:`record_shed`, :func:`set_queue_depth`,
-:func:`plane_counters`).
+The engine records the reference's ``hvd_serving_*`` metric families
+(tokens, TTFT, per-token latency, occupancy, swaps, the prefix cache,
+the prefill backlog, speculation) and its ``serving.*`` flight events;
+the request plane's ingress families (requests by tenant, sheds by
+reason, the queue depth) are fed by :func:`record_request`,
+:func:`record_shed` and :func:`set_queue_depth`, which also keep the
+process's own counts (:func:`plane_counters`).  ``stats()`` keeps the engine's
+own counts, and ``ttft_samples`` / ``token_latency_samples`` its exact
+latencies (the families sum over every engine of the process).
 """
 
 from __future__ import annotations
@@ -73,6 +76,8 @@ import numpy as np
 import torch
 
 from ..core import config as _config
+from ..debug import flight as _flight
+from ..metrics.registry import registry
 from ..models import transformer as tfm
 from .prefix import RadixPrefixCache
 from . import speculative as spec
@@ -88,25 +93,94 @@ _plane = {"requests": {}, "shed": {}, "queue_depth": 0}
 #: The newest sheds, (request id, tenant, reason): a shed is loud.
 recent_sheds: Deque[Tuple[str, str, str]] = collections.deque(maxlen=256)
 
+_serving_metrics = None
+
+# TTFT spans request-plane queueing; per-token latency is a decode step.
+_TTFT_BUCKETS = (0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0, 60.0)
+_TOKEN_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.5, 2.0)
+
+
+def _metrics():
+    """Cached serving metric children (the metrics registry)."""
+    global _serving_metrics
+    if _serving_metrics is None:
+        reg = registry()
+        _serving_metrics = {
+            "tokens": reg.counter(
+                "hvd_serving_tokens_total", "Generated tokens"),
+            "ttft": reg.histogram(
+                "hvd_serving_ttft_seconds",
+                "Arrival to first token (prefill + queue wait)",
+                buckets=_TTFT_BUCKETS),
+            "token_s": reg.histogram(
+                "hvd_serving_token_seconds",
+                "Per-token decode latency (one continuous-batching "
+                "iteration)", buckets=_TOKEN_BUCKETS),
+            "occupancy": reg.gauge(
+                "hvd_serving_batch_occupancy",
+                "Occupied decode slots / total slots at the last step"),
+            "swaps": reg.counter(
+                "hvd_serving_swaps_total",
+                "Weight hot-swaps applied between decode iterations"),
+            "ckpt_step": reg.gauge(
+                "hvd_serving_checkpoint_step",
+                "Checkpoint step of the weights currently serving"),
+            "prefix_hits": reg.counter(
+                "hvd_serving_prefix_hits_total",
+                "Admissions that reused cached prefix pages"),
+            "prefix_misses": reg.counter(
+                "hvd_serving_prefix_misses_total",
+                "Admissions that prefilled from scratch"),
+            "prefix_reused": reg.counter(
+                "hvd_serving_prefix_tokens_reused_total",
+                "Prompt tokens served from the radix prefix cache "
+                "instead of re-prefilled"),
+            "prefill_backlog": reg.gauge(
+                "hvd_serving_prefill_backlog_tokens",
+                "Prompt tokens admitted but not yet prefilled (the "
+                "chunked-prefill queue depth)"),
+            "spec_proposed": reg.counter(
+                "hvd_serving_spec_proposed_total",
+                "Draft tokens proposed to the verifier"),
+            "spec_accepted": reg.counter(
+                "hvd_serving_spec_accepted_total",
+                "Draft tokens the target accepted"),
+        }
+    return _serving_metrics
+
+
+_queue_depth = None
+
 
 def record_request(tenant: str) -> None:
     """Count one request at ingress (HTTP handler or load driver)."""
     with _plane_lock:
         _plane["requests"][tenant] = _plane["requests"].get(tenant, 0) + 1
+    registry().counter("hvd_serving_requests_total",
+                       "Requests received", tenant=tenant).inc()
 
 
 def record_shed(request_id: str, tenant: str, reason: str) -> None:
-    """Count, log and keep one shed request."""
+    """Count, log, flight-record and keep one shed request."""
     with _plane_lock:
         _plane["shed"][reason] = _plane["shed"].get(reason, 0) + 1
         recent_sheds.append((request_id, tenant, reason))
+    registry().counter("hvd_serving_shed_total",
+                       "Requests shed instead of served",
+                       reason=reason).inc()
     log.warning("serving: shed request %s (tenant %s): %s",
                 request_id, tenant, reason)
+    _flight.record("serving.shed", request_id, tenant=tenant, reason=reason)
 
 
 def set_queue_depth(depth: int) -> None:
+    global _queue_depth
     with _plane_lock:
         _plane["queue_depth"] = int(depth)
+    if _queue_depth is None:
+        _queue_depth = registry().gauge("hvd_serving_queue_depth",
+                                        "Requests waiting for a decode slot")
+    _queue_depth.set(depth)
 
 
 def plane_counters() -> Dict[str, Any]:
@@ -348,6 +422,12 @@ class DecodeEngine:
             # still pinned by active slots free through release().
             self._free_pages.extend(self.prefix_cache.flush())
         self.swaps += 1
+        m = _metrics()
+        m["swaps"].inc()
+        if isinstance(self.params_tag, (int, float)):
+            m["ckpt_step"].set(float(self.params_tag))
+        _flight.record("serving.swap", str(self.params_tag),
+                       active=self.active())
         for s in self._slots:
             if s is not None:
                 _tracing.span(s.request.trace, "swap_stall",
@@ -507,12 +587,22 @@ class DecodeEngine:
             start += r
         st.prefill_pos = start
         if self.prefix_cache is not None:
+            m = _metrics()
             if start > 0:
                 self.prefix_cache.hits += 1
                 self.prefix_cache.tokens_reused += start
+                m["prefix_hits"].inc()
+                m["prefix_reused"].inc(start)
+                _flight.record("serving.prefix_hit", request.id,
+                               tokens=start, pages=m_pages,
+                               cow=bool(partial))
             else:
                 self.prefix_cache.misses += 1
+                m["prefix_misses"].inc()
         self._slots[slot] = st
+        _flight.record("serving.admit", request.id, slot=slot,
+                       prompt=plen, pages=need, tenant=request.tenant,
+                       cached=start)
         tr = request.trace
         if tr is not None and tr.sampled:
             wait = (time.monotonic() - request.arrival_mono
@@ -524,7 +614,9 @@ class DecodeEngine:
             _tracing.span(tr, "prefix", hit=start > 0, tokens=start,
                           pages=m_pages, cow=bool(partial),
                           evicted=self._last_evicted)
+        self._publish_slots()
         events, _ = self._advance_prefill(slot, st, self.prefill_chunk)
+        _metrics()["prefill_backlog"].set(self.prefill_backlog())
         return events
 
     # -- chunked prefill ---------------------------------------------------
@@ -554,6 +646,8 @@ class DecodeEngine:
             _tracing.span(tr, "prefill", pos=st.prefill_pos,
                           tokens=take, done=st.prefill_pos >= plen)
         if st.prefill_pos < plen:
+            _flight.record("serving.chunk", req.id, pos=st.prefill_pos,
+                           tokens=take)
             return [], take
         row = logits[0, take - 1].float().cpu().numpy()
         return self._finish_prefill(slot, st, row), take
@@ -576,11 +670,15 @@ class DecodeEngine:
                     parent, chunks, st.pages[st.n_shared:full])
                 st.trie_nodes.extend(nodes)
         token = self._sample(st, row)
+        m = _metrics()
         if req.arrival_mono:
             tr = req.trace
-            self.ttft_samples.append((
-                max(0.0, time.monotonic() - req.arrival_mono),
-                tr.trace_id if tr is not None and tr.sampled else None))
+            ttft = max(0.0, time.monotonic() - req.arrival_mono)
+            trace_id = tr.trace_id if tr is not None and tr.sampled \
+                else None
+            self.ttft_samples.append((ttft, trace_id))
+            m["ttft"].observe(ttft, exemplar=trace_id)
+        m["occupancy"].set(self.occupancy())
         return self._deliver(slot, st, token, first=True)
 
     # -- the continuous-batching iteration ---------------------------------
@@ -607,10 +705,12 @@ class DecodeEngine:
                 events.extend(evs)
                 if left is not None:
                     left -= used
+            _metrics()["prefill_backlog"].set(self.prefill_backlog())
         active = [(i, s) for i, s in enumerate(self._slots)
                   if s is not None]
         decoding = [(i, s) for i, s in active if not s.prefilling()]
         if not decoding:
+            _metrics()["occupancy"].set(len(active) / self.slots)
             return events
         if self._draft is not None:
             return events + self._spec_round(decoding, len(active))
@@ -624,11 +724,14 @@ class DecodeEngine:
         host = self._host_rows(logits, rows)
         wall = time.perf_counter() - t0
         self.steps += 1
+        m = _metrics()
         occ = len(active) / self.slots
+        m["occupancy"].set(occ)
         for (i, st), row in zip(decoding, host):
             self._lengths[i] += 1
             token = self._sample(st, row)
             self.token_latency_samples.append(wall)
+            m["token_s"].observe(wall)
             tr = st.request.trace
             if tr is not None and tr.sampled:
                 _tracing.span(tr, "decode",
@@ -694,6 +797,8 @@ class DecodeEngine:
         wall = time.perf_counter() - t0
         self.steps += 1
         events: List[Event] = []
+        m = _metrics()
+        m["occupancy"].set(n_active / self.slots)
         for (i, st), target in zip(decoding, vl):
             req = st.request
             props = [int(x) for x in proposals[i]]
@@ -706,6 +811,11 @@ class DecodeEngine:
             self._spec_proposed += k
             self._spec_accepted += j
             self.token_latency_samples.append(wall)
+            m["spec_proposed"].inc(k)
+            m["spec_accepted"].inc(j)
+            m["token_s"].observe(wall)
+            _flight.record("serving.speculate", req.id, proposed=k,
+                           accepted=j)
             tr = req.trace
             if tr is not None and tr.sampled:
                 _tracing.span(tr, "speculate", proposed=k, accepted=j,
@@ -729,6 +839,7 @@ class DecodeEngine:
             token = int(np.argmax(logits))
         st.generated.append(token)
         self.tokens_out += 1
+        _metrics()["tokens"].inc()
         return token
 
     def _finish(self, slot: int, st: _Slot, token: int
@@ -763,6 +874,7 @@ class DecodeEngine:
             t = int(t)
             st.generated.append(t)
             self.tokens_out += 1
+            _metrics()["tokens"].inc()
             self._lengths[slot] += 1
             events.append(Event(st.request, "token", token=t, first=False))
             fin = self._finish(slot, st, t)
@@ -787,6 +899,23 @@ class DecodeEngine:
             self._free_pages.extend(st.pages)
         self._page_table[slot, :] = 0
         self._lengths[slot] = 0
+        _flight.record("serving.retire", st.request.id,
+                       tokens=len(st.generated))
+        self._publish_slots()
+
+    def _publish_slots(self) -> None:
+        """Name the in-flight requests (and their trace ids) in the
+        flight recorder's meta, so a dump says which requests a wedged
+        serving loop was holding."""
+        meta = {}
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                tr = s.request.trace
+                meta[str(i)] = {
+                    "request": s.request.id,
+                    "trace": tr.trace_id if tr is not None else None,
+                }
+        _flight.set_meta("serving_slots", meta)
 
     # -- KV-page export / adopt (the migration's two ends) ------------------
 
@@ -893,8 +1022,12 @@ class DecodeEngine:
             toks[0, :length] = seq[:length]
             self._chunk("draft", toks, np.zeros((1,), np.int64),
                         self._page_table[slot][None])
+        _flight.record("serving.admit", req.id, slot=slot,
+                       prompt=len(req.prompt), pages=need,
+                       tenant=req.tenant, migrated=True)
         _tracing.span(req.trace, "migrate_adopt", slot=slot,
                       length=length, generated=len(st.generated))
+        self._publish_slots()
 
     def _find(self, request_id: str):
         for i, s in enumerate(self._slots):

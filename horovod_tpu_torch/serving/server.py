@@ -349,11 +349,19 @@ class ServingServer(BackgroundHTTPServer):
     def loop_health(self) -> Dict[str, object]:
         """Serving-loop liveness: seconds since the loop last completed
         an iteration, and whether that age says "wedged" rather than
-        "idle" (an idle loop still iterates every tick)."""
+        "idle" (an idle loop still iterates every tick).  Exported as
+        the ``hvd_serving_loop_stalled`` gauge so a dead loop is visible
+        behind an otherwise healthy HTTP plane."""
         age = time.monotonic() - self._last_iter_mono
         running = (self._loop_thread is not None
                    and self._loop_thread.is_alive())
         stalled = bool(running and age > max(1.0, 20 * self._tick_s))
+        from ..metrics.registry import registry
+        registry().gauge(
+            "hvd_serving_loop_stalled",
+            "1 when the serving loop has not completed an iteration "
+            "for >20 ticks (wedged, not idle)").set(1.0 if stalled
+                                                    else 0.0)
         return {"last_iteration_age_s": round(age, 4),
                 "stalled": stalled}
 

@@ -10,10 +10,10 @@ spending budget exactly as fast as it accrues; at or above
 ``policy.plan`` gives it priority.
 
 The math lives in pure free functions (``burn_rate``,
-``budget_remaining``); ``SloTracker`` adds the sliding window.  The
-reference exports ``hvd_slo_burn_rate`` / ``hvd_slo_budget_remaining``
-gauges per tenant; the port has no metrics registry yet and keeps their
-last values on the tracker (``SloTracker.gauges``).
+``budget_remaining``); ``SloTracker`` adds the sliding window, keeps
+each tenant's last two values (``SloTracker.gauges``) and exports them
+as the ``hvd_slo_burn_rate{tenant=...}`` /
+``hvd_slo_budget_remaining{tenant=...}`` gauges.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import collections
 from typing import Deque, Dict, Optional, Tuple
 
 from ..core import config as _config
+from ..metrics.registry import registry as _registry
 
 
 def burn_rate(good: int, bad: int, target: float) -> float:
@@ -72,6 +73,8 @@ class SloTracker:
         # The two per-tenant gauges' last values: {tenant: {"burn_rate",
         # "budget_remaining"}}.
         self.gauges: Dict[str, Dict[str, float]] = {}
+        # Tenant -> its two registry gauges, cached at its first export.
+        self._children: Dict[str, Tuple[object, object]] = {}
 
     # -- recording ---------------------------------------------------
 
@@ -102,9 +105,23 @@ class SloTracker:
 
     def _export(self, tenant: str, now_s: float) -> None:
         good, bad = self._counts(tenant, now_s)
-        self.gauges[tenant] = {
+        vals = self.gauges[tenant] = {
             "burn_rate": burn_rate(good, bad, self.target),
             "budget_remaining": budget_remaining(good, bad, self.target)}
+        pair = self._children.get(tenant)
+        if pair is None:
+            reg = _registry()
+            pair = self._children[tenant] = (
+                reg.gauge("hvd_slo_burn_rate",
+                          help="Per-tenant SLO error-budget burn rate "
+                               "(1.0 = spending exactly at budget)",
+                          tenant=tenant),
+                reg.gauge("hvd_slo_budget_remaining",
+                          help="Per-tenant SLO error budget remaining "
+                               "(1.0 = untouched, 0.0 = spent)",
+                          tenant=tenant))
+        pair[0].set(vals["burn_rate"])
+        pair[1].set(vals["budget_remaining"])
 
     # -- queries -----------------------------------------------------
 

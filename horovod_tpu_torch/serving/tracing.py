@@ -15,11 +15,12 @@ pays one attribute check per potential span.  A client header's sampled
 flag wins over the local rate.  Tracing never touches the model math,
 the sampling rngs or the admission order.
 
-The reference records spans as ``trace.<stage>`` events of its flight
-recorder; the port has no flight recorder yet, so :func:`span` appends
+Spans are ``trace.<stage>`` events of the flight recorder, named by the
+trace id, as in the reference.  :func:`span` also appends
 ``(stage, trace_id, span_id, parent, fields)`` to a bounded in-process
 list (:func:`spans`, the newest ``SPAN_CAPACITY``), which the engine's
-``stats()`` counts.
+``stats()`` counts: the recorder's ring is shared with every other
+event and may be switched off.
 
 Knobs: ``HVD_TPU_TRACE_SAMPLE`` (sampled fraction, default 0.01),
 ``HVD_TPU_TRACE_SEED`` (trace-id derivation seed, default 0).
@@ -34,6 +35,7 @@ import threading
 from typing import Any, Deque, Dict, List, Optional, Tuple
 
 from ..core import config as _config
+from ..debug import flight as _flight
 
 #: The propagation header, request AND response side.  Value format:
 #: ``<32-hex trace id>-<16-hex span id>-<01|00>`` (sampled flag last).
@@ -139,14 +141,17 @@ def mint(request_id: str, header: Optional[str] = None,
 
 
 def span(ctx: Optional[TraceContext], stage: str, **fields) -> None:
-    """Record one span of ``stage`` under the context's trace id.  No-op
-    (one None/flag check) when the context is absent or unsampled."""
+    """Record one span of ``stage`` under the context's trace id, and
+    emit it as a ``trace.<stage>`` flight event named by the trace id.
+    No-op (one None/flag check) when the context is absent or
+    unsampled."""
     if ctx is None or not ctx.sampled:
         return
+    span_id = derive_span_id(ctx.trace_id, stage)
     with _spans_lock:
-        _spans.append((stage, ctx.trace_id,
-                       derive_span_id(ctx.trace_id, stage), ctx.span_id,
-                       fields))
+        _spans.append((stage, ctx.trace_id, span_id, ctx.span_id, fields))
+    _flight.record(f"trace.{stage}", ctx.trace_id, span=span_id,
+                   parent=ctx.span_id, **fields)
 
 
 def spans(trace_id: Optional[str] = None

@@ -311,6 +311,47 @@ def _flat_average(torch, dist, tensors, world):
     return outs
 
 
+def _in_one_round(rank, world, hvd, ctl, dist, tag, enqueue):
+    """Run ``enqueue`` (which submits named asynchronous collectives and
+    waits for none) on every rank, the last rank's submissions reaching
+    the coordinator in one round; returns what ``enqueue`` returns.
+
+    A name is ready once every rank has sent it, and a rank's background
+    loop sends everything pending each time it wakes, which it does at
+    the first enqueue: a burst could reach the coordinator over several
+    rounds.  So the other ranks send their names first and then a gate
+    allreduce, and rank 0 holds the gate's PREPARE, which every rank's
+    loop takes part in, until the last rank has submitted its whole
+    burst.  The last rank starts its burst only once the gate is held,
+    so after its loop has sent the gate; the burst then waits whole for
+    the loop's next drain.  The hold is a condition (two keys of the
+    process group's store), not a time."""
+    assert world > 1
+    import torch
+    store = dist.distributed_c10d._get_default_store()
+    held, sent, gate = f"{tag}.held", f"{tag}.sent", f"{tag}.gate"
+    impl = ctl._device_exec_impl
+    validate = impl.validate
+    if rank == 0:
+        def hold(rtype, names, *args):
+            if gate in names:
+                store.set(held, b"1")
+                store.wait([sent])
+            return validate(rtype, names, *args)
+        impl.validate = hold
+    out = None
+    if rank != world - 1:
+        out = enqueue()
+    h = hvd.allreduce_async(torch.zeros(1), name=gate)
+    if rank == world - 1:
+        store.wait([held])
+        out = enqueue()
+        store.set(sent, b"1")
+    hvd.synchronize(h)
+    impl.validate = validate
+    return out
+
+
 def eager_part(rank, world, rendezvous, out_dir):
     del rendezvous
     torch, hvd, ctl = _init_ctl(rank, world, out_dir, "eager",
@@ -321,9 +362,11 @@ def eager_part(rank, world, rendezvous, out_dir):
     rng = np.random.default_rng(20 + rank)
     xs = [torch.from_numpy((rng.standard_normal(s) * 3).astype(np.float32))
           for s in FUSE_SHAPES]
-    # Fusion: every name in flight before any wait.
+    # Fusion: every name in flight before any wait, the last rank's six
+    # in one coordinator round.
     before = ctl.stats()
-    hs = [hvd.allreduce_async(x, name=f"fuse.{i}") for i, x in enumerate(xs)]
+    hs = _in_one_round(rank, world, hvd, ctl, dist, "fuse", lambda: [
+        hvd.allreduce_async(x, name=f"fuse.{i}") for i, x in enumerate(xs)])
     res["fused"] = [hvd.synchronize(h) for h in hs]
     res["fused_names"] = ctl.last_fused_names()
     res["fuse_stats"] = (before, ctl.stats())
@@ -402,7 +445,13 @@ def eager_part(rank, world, rendezvous, out_dir):
             torch.optim.SGD(model.parameters(), lr=0.1), overlap=overlap)
         inp = torch.from_numpy(rng.standard_normal((8, 16)).astype(
             np.float32))
-        model(inp).square().mean().backward()
+        if overlap:
+            # The hooks submit the bucket's names from the backward: the
+            # last rank's in one coordinator round, as above.
+            _in_one_round(rank, world, hvd, ctl, dist, "optimizer",
+                          lambda: model(inp).square().mean().backward())
+        else:
+            model(inp).square().mean().backward()
         local = [p.grad.clone() for p in model.parameters()]
         opt.synchronize()
         res["optimizer"][overlap] = (

@@ -7,8 +7,9 @@ one start per part of ``_torch_port_training_workers`` (overlap, adasum,
 zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt), of
 ``_torch_port_parallel_workers`` (gspmd, ring) and of
 ``_torch_port_eager_workers`` (native, cache, eager, dispatch) and of
-``_torch_port_modes_workers`` (units, modes, moe) for the test file of that
-part.  The ranks fork from a server that imported torch once
+``_torch_port_modes_workers`` (units, modes, moe) and of
+``_torch_port_telemetry_workers`` (telemetry, two ranks) for the test file
+of that part.  The ranks fork from a server that imported torch once
 for all four."""
 
 import functools
@@ -81,7 +82,7 @@ ZERO_PARAMS = {"w": np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(4, 3),
 def part_inputs(part: str) -> dict:
     """The seeded inputs of one part, per rank along axis 0 where they
     differ between ranks (the negotiated plane's parts seed their own)."""
-    if part in NEGOTIATED_PARTS:
+    if part in NEGOTIATED_PARTS or part == "telemetry":
         return {}
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
                                  "sbn": 14, "ckpt": 15, "gspmd": 16,
@@ -167,15 +168,16 @@ def part_dir(part: str) -> str:
     return _DIRS[part]
 
 
-def _spawn(body, out):
+def _spawn(body, out, world: int = WORLD):
     import torch.multiprocessing as mp
     mp.get_context("forkserver").set_forkserver_preload(
         ["torch", "torch._dynamo", "horovod_tpu_torch",
          "_torch_port_workers", "_torch_port_training_workers",
          "_torch_port_checkpoint_workers", "_torch_port_parallel_workers",
-         "_torch_port_eager_workers", "_torch_port_modes_workers"])
-    mp.start_processes(body, args=(WORLD, f"{out}/rendezvous", str(out)),
-                       nprocs=WORLD, join=True, start_method="forkserver")
+         "_torch_port_eager_workers", "_torch_port_modes_workers",
+         "_torch_port_telemetry_workers"])
+    mp.start_processes(body, args=(world, f"{out}/rendezvous", str(out)),
+                       nprocs=world, join=True, start_method="forkserver")
 
 
 def _save_lm(out) -> None:
@@ -200,6 +202,7 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
         import _torch_port_eager_workers as eager_workers
         import _torch_port_modes_workers as modes_workers
         import _torch_port_parallel_workers as par_workers
+        import _torch_port_telemetry_workers as tel_workers
         import _torch_port_training_workers as workers
         out = tmp_path_factory.mktemp(f"{part}_pool")
         np.savez(os.path.join(out, f"{part}.npz"), **part_inputs(part))
@@ -208,6 +211,7 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
         if prepare is not None:
             prepare(str(out))
         _DIRS[part] = str(out)
+        world = tel_workers.WORLD if part == "telemetry" else WORLD
         _spawn({"overlap": workers.overlap_part,
                 "adasum": workers.adasum_part,
                 "zero": workers.zero_part,
@@ -221,9 +225,10 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "dispatch": eager_workers.dispatch_part,
                 "units": modes_workers.units_part,
                 "modes": modes_workers.modes_part,
-                "moe": modes_workers.moe_part}[part], out)
+                "moe": modes_workers.moe_part,
+                "telemetry": tel_workers.telemetry_part}[part], out, world)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
-                        for r in range(WORLD)]
+                        for r in range(world)]
     return _PARTS[part]
 
 

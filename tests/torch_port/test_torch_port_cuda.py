@@ -614,3 +614,100 @@ def test_cuda_serving_prefill_runs_flash_fwd(cuda_device, monkeypatch):
     # Layer 0's K/V precede any attention: equal bit for bit.
     assert torch.equal(kv["k"][0], kv_p["k"][0])
     assert not kv["k"][:, 0].any()              # scratch page untouched
+
+
+@pytest.mark.cuda
+def test_cuda_fp32_flagship_forward_takes_the_plain_path(cuda_device,
+                                                         monkeypatch):
+    """An fp32 flagship forward on the card with no HVD_TPU_FLASH set:
+    the kernels cannot take fp32, so auto mode takes the plain attention
+    (no kernel launch) and the logits equal the HVD_TPU_FLASH=0 run's;
+    HVD_TPU_FLASH=1 still forces the kernel, which refuses fp32."""
+    from horovod_tpu_torch.models import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                                d_ff=256, n_layers=2, seq_len=128,
+                                dtype=torch.float32, remat=False)
+    model = tfm.Transformer(cfg, seed=0, device=cuda_device)
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, 512, (2, 128), generator=g).to(cuda_device)
+    monkeypatch.delenv("HVD_TPU_FLASH", raising=False)
+    before = dict(fa.launches)
+    with torch.no_grad():
+        logits = tfm.serial_forward_logits(cfg, model, tokens)
+    torch.cuda.synchronize()
+    assert fa.launches == before
+    assert logits.dtype == torch.float32 and torch.isfinite(logits).all()
+    monkeypatch.setenv("HVD_TPU_FLASH", "0")
+    with torch.no_grad():
+        plain = tfm.serial_forward_logits(cfg, model, tokens)
+    assert torch.equal(logits, plain)
+    monkeypatch.setenv("HVD_TPU_FLASH", "1")
+    with pytest.raises(TypeError, match="bfloat16"):
+        with torch.no_grad():
+            tfm.serial_forward_logits(cfg, model, tokens)
+
+
+@pytest.mark.cuda
+def test_cuda_allreduce_latency_is_device_time(cuda_device):
+    """An NCCL collective returns once it is enqueued: its latency in
+    hvd_collective_latency_seconds comes from CUDA events around it, and
+    is observed only once they have completed.  The in-place allreduce
+    puts nothing of the port's own in the timed range, but at world 1
+    NCCL moves no bytes for it; the known-size transfer is an allgather,
+    which NCCL serves at world 1 with a device-to-device copy of the
+    input, so its latency reads at least half a copy of the same bytes
+    timed by the same kind of events."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.metrics.attribution import attribution
+    from horovod_tpu_torch.metrics.registry import registry
+    from horovod_tpu_torch.ops import collective as C
+    hvd.init()
+    try:
+        x = torch.randn(64 << 20, device=cuda_device)   # 256 MiB
+        y = torch.empty_like(x)
+        hvd.allreduce_(x, op=hvd.Sum)
+        hvd.allgather(x)
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        y.copy_(x)
+        e.record()
+        e.synchronize()
+        copy_s = s.elapsed_time(e) / 1e3
+        C.drain_device_latency()                # earlier ops' pairs
+        lat = {}
+        for kind, call in (("allreduce", lambda: hvd.allreduce_(x, op=hvd.Sum)),
+                           ("allgather", lambda: hvd.allgather(x))):
+            hist = registry().histogram("hvd_collective_latency_seconds",
+                                        kind=kind)
+            n0, sum0 = hist.count, hist.sum
+            call()
+            assert C._pending                   # not observed yet
+            torch.cuda.synchronize()
+            attribution()._read_sources()       # drains completed pairs
+            assert not C._pending and hist.count == n0 + 1
+            lat[kind] = hist.sum - sum0
+        assert lat["allreduce"] > 0
+        assert lat["allgather"] >= 0.5 * copy_s, (lat, copy_s)
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_compute_span_waits_for_the_device(cuda_device):
+    """compute_span synchronises the current stream before it closes, so
+    it reads at least the CUDA-event time of the queued matmul chain."""
+    from horovod_tpu_torch.metrics.attribution import StepAttribution
+    from horovod_tpu_torch.metrics.registry import MetricsRegistry
+    a = torch.randn(4096, 4096, device=cuda_device)
+    (a @ a).sum().item()
+    eng = StepAttribution(MetricsRegistry())
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with eng.compute_span():
+        s.record()
+        b = a
+        for _ in range(20):
+            b = b @ a
+        e.record()
+    device_s = s.elapsed_time(e) / 1e3
+    assert eng._compute_total >= device_s > 0

@@ -185,7 +185,8 @@ def test_flash_switch_reads_only_hvd_tpu_flash(monkeypatch):
     """The attention switch is ``HVD_TPU_FLASH`` alone, as in the reference
     (horovod_tpu/parallel/ring_attention.py): ``HOROVOD_FLASH`` does not
     turn the kernel path off."""
-    q = SimpleNamespace(device=torch.device("cuda"))
+    q = SimpleNamespace(device=torch.device("cuda"), dtype=torch.bfloat16,
+                        shape=(1, 8, 1, 64))
     monkeypatch.delenv("HVD_TPU_FLASH", raising=False)
     monkeypatch.setenv("HOROVOD_FLASH", "0")
     assert ra._flash_enabled(q)

@@ -221,8 +221,24 @@ def test_microbatch_stacking_and_note_bubble():
     assert torch.equal(pp.unstack_microbatches(xs), x)
     with pytest.raises(ValueError, match="divisible"):
         pp.stack_microbatches(x, 4)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pp.note_bubble(4, 8, 1.0)
+    # note_bubble credits hvd_pipeline_bubble_seconds_total as the
+    # reference's does: the same seconds, into the same family.
+    from horovod_tpu.metrics.registry import registry as registry_jax
+    from horovod_tpu_torch.metrics.registry import registry
+
+    def bubble_total(reg):
+        return sum(c.value for c in reg().children_of(
+            "hvd_pipeline_bubble_seconds_total"))
+
+    before = (bubble_total(registry), bubble_total(registry_jax))
+    got = pp.note_bubble(4, 8, 1.0)
+    want = pp_jax.note_bubble(4, 8, 1.0)
+    assert got == want == pp.bubble_fraction(4, 8)
+    assert bubble_total(registry) - before[0] == \
+        bubble_total(registry_jax) - before[1] == want
+    assert registry().snapshot()["hvd_pipeline_bubble_seconds_total"][
+        "help"] == registry_jax().snapshot()[
+        "hvd_pipeline_bubble_seconds_total"]["help"]
 
 
 # ---------------------------------------------------------------------------

@@ -84,11 +84,19 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.serving.tracing", "horovod_tpu_torch.serving.engine",
     "horovod_tpu_torch.serving.loadgen", "horovod_tpu_torch.serving.slo",
     "horovod_tpu_torch.serving.server", "horovod_tpu_torch.serving.submit",
-    "horovod_tpu_torch.serving.service"])
+    "horovod_tpu_torch.serving.service",
+    "horovod_tpu_torch.metrics", "horovod_tpu_torch.metrics.registry",
+    "horovod_tpu_torch.metrics.exporters",
+    "horovod_tpu_torch.metrics.attribution",
+    "horovod_tpu_torch.metrics.digest", "horovod_tpu_torch.metrics.health",
+    "horovod_tpu_torch.metrics.baseline",
+    "horovod_tpu_torch.metrics.aggregate", "horovod_tpu_torch.debug",
+    "horovod_tpu_torch.debug.flight", "horovod_tpu_torch.utils.logging",
+    "horovod_tpu_torch.utils.profiler"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
-    """Each module of the mesh, the GSPMD plane, sequence parallelism and
-    the serving plane, imported first in a fresh interpreter where
-    ``import jax`` fails."""
+    """Each module of the mesh, the GSPMD plane, sequence parallelism,
+    the serving plane and the telemetry plane, imported first in a fresh
+    interpreter where ``import jax`` fails."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"importlib.import_module({module!r})\n"

@@ -32,6 +32,11 @@ the kernels take bf16 only):
   that a fault of the mesh path's own code cannot hide in bf16's
   rounding.
 
+A pipeline run (pp > 1) then takes two more steps under the step
+telemetry (``metrics.compute_span``, ``pipeline.note_bubble`` of the
+span, ``metrics.step_end``): on every rank the second step's attribution
+record carries the bubble seconds ``note_bubble`` credited, more than 0.
+
 The world-1 step is the serial flagship's (a (1, 1, 1) mesh); for MoE it
 takes the dp members' rows as microbatches, so each routes its tokens
 with the same capacity as on its member.  Reported per run: host step
@@ -69,6 +74,7 @@ TOL_LOSS = 1e-2
 GRAD_NOISE_MULTIPLE = 3.0
 TOL_FP32_LOSS_REL = 1e-5
 TOL_FP32_GRAD_REL = 1e-4
+TOL_BUBBLE_S = 1e-9     # the credited bubble through the counter's window
 COUNTED = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
            "all_to_all_single", "batch_isend_irecv")
 MATMUL = ("wqkv", "wo", "w1", "w2", "w_in", "w_out")
@@ -250,6 +256,10 @@ def run_mode(torch, dist, hvd, tfm, dev, small, meshes, refs, spec):
     out.update(losses=losses, step_ms=statistics.median(times[1:]) * 1e3,
                calls_per_step={n: c for n, c in counted.counts.items() if c})
     assert all(x == x for x in losses) and losses[-1] < losses[0], losses
+    if shape[1] > 1:
+        out["pipeline_bubble"] = _bubble(torch, dist, dev, step, tokens,
+                                         labels, shape[1], par.n_microbatches,
+                                         1000 * (RUNS.index(spec) + 1))
     del model, opt, step
     fp32 = cfg._replace(dtype=torch.float32)
     loss, grads = _step0(torch, tfm, fp32, par, mesh, dev, tokens, labels)
@@ -263,6 +273,28 @@ def run_mode(torch, dist, hvd, tfm, dev, small, meshes, refs, spec):
         out["fp32"] = {"step0_loss": loss, "world1_loss": ref[0],
                        "step0_grad_rel": rel}
     return out
+
+
+def _bubble(torch, dist, dev, step, tokens, labels, n_stages, n_micro,
+            first_index):
+    """Two steps under compute_span, each crediting note_bubble with its
+    span and closed by step_end: the second's record (the first may
+    anchor the attribution's window) holds the credited bubble."""
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.parallel import pipeline as pp
+    for i in range(2):
+        _sync(torch, dist, dev)
+        t0 = time.perf_counter()
+        with metrics.compute_span():
+            step(tokens, labels)
+        credited = pp.note_bubble(n_stages, n_micro, time.perf_counter() - t0)
+        metrics.step_end(time.perf_counter() - t0, step=first_index + i)
+    rec = metrics.last_attribution()
+    bubble = rec["components"]["pipeline_bubble"]
+    assert credited > 0 and abs(bubble - credited) <= TOL_BUBBLE_S, \
+        (bubble, credited)
+    return {"fraction": pp.bubble_fraction(n_stages, n_micro),
+            "credited_s": credited, "components_s": rec["components"]}
 
 
 def _rel(grads, ref_grads):
