@@ -178,12 +178,43 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              counts; (f) the flagship step's and a full decode
              iteration's host time with the telemetry on and off
              (registry, attribution, flight recorder), in interleaved
-             blocks: medians and spreads printed, not gated.
+             blocks: medians and spreads printed, not gated;
+15. models — world 1 on NCCL, the reference's other model families.
+             (a) ResNet-50 v1.5 (width 64, 1000 classes, 224x224, bf16,
+             sync_bn_axis="data"): at batch 2 in float64, the card's
+             logits, loss, gradients and new BN statistics against the
+             port on the CPU on the same weights, and stem_s2d's logits
+             against the default stem's, each within 1e-9 normwise;
+             then 10 steps at batch 128
+             through DistributedOptimizer(SGD(0.05, momentum 0.9)): losses
+             finite and falling, images/s, MFU, host step, peak memory.
+             (b) BERT-Base (vocab 30522, d 768, 12 heads, d_ff 3072, 12
+             layers, seq 512, bf16) through make_train_step on a
+             (dp, mp) = (1, 1) mesh, batch 16: the dense and gathered
+             losses and every gradient through the kernels (non-causal)
+             against the plain attention (HVD_TPU_FLASH=0), 12 launches of
+             each kernel; then 10 AdamW(1e-4) steps with the gathered head
+             in each remat mode (False, True, "dots"): step-0 losses
+             agree, launches a step 12/12/12 without remat and with
+             "dots" (which recomputes the layer norms only), 24/12/12 with
+             full remat, sequences/s, MFU, host step, peak memory; the
+             kernels timed at (16, 512, 12, 64) non-causal against their
+             bounds, plain versions and SDPA.  (c) the default MoEConfig
+             (vocab 32768, d 512, 8 heads, 8 experts of d_ff 2048, top_k 1,
+             capacity 1.25, 8 layers, seq 512, bf16, remat) at (dp, ep) =
+             (1, 1), batch 8, on the fp32, int8 and int4 dispatch wires:
+             10 AdamW steps each, losses finite and falling, launches
+             16/8/8 a step, dropped routes, the gspmd wire counters equal
+             to 10 times the analytic plan and a forward's bytes at
+             dist.all_to_all_single equal to it; the quantized exchange's
+             gradient card against CPU (bit for bit with integer
+             cotangents).  (d) the MLP of examples/jax_mnist.py, 3 steps.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
-path, each counted from 0 just before it ran; flash_fwd's entry also
-holds its timing at the serving prefill shape), and
+path, each counted from 0 just before it ran; every entry also holds
+its timing at BERT-Base's shape, non-causal (``bert_noncausal``), and
+flash_fwd's at the serving prefill shape), and
 ``{"ok": true, "device": {...}}``.  Detailed numbers also go to
 chiprun_out/chip_smoke.json.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -374,13 +405,13 @@ def bounds(b, s, h, d, causal=True):
     return out
 
 
-def time_shape(torch, F, fa, b, s, h, d, iters, plain_iters):
+def time_shape(torch, F, fa, b, s, h, d, iters, plain_iters, causal=True):
     """Times (ms) of each kernel, its plain version, and the library call:
     SDPA for the forward; for both backward kernels PyTorch's flash-attention
     backward, which computes dQ, dK and dV in one call."""
     q, k, v, do = rand_qkv(torch, b, s, s, h, d, seed=7)
     scale = 1.0 / math.sqrt(d)
-    args = (True, scale, 0, 0)
+    args = (causal, scale, 0, 0)
     o, lse = fa.flash_fwd(q, k, v, *args)
     _, delta = fa.flash_bwd_dq(q, k, v, do, lse, o, *args)
     qargs = (do, lse, o) + args
@@ -388,13 +419,13 @@ def time_shape(torch, F, fa, b, s, h, d, iters, plain_iters):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     aten = torch.ops.aten
     lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    lfwd = aten._scaled_dot_product_flash_attention(lq, lk, lv, 0.0, True,
+    lfwd = aten._scaled_dot_product_flash_attention(lq, lk, lv, 0.0, causal,
                                                     False, scale=scale)
 
     def library_bwd():
         aten._scaled_dot_product_flash_attention_backward(
             ldo, lq, lk, lv, lfwd[0], lfwd[1], lfwd[2], lfwd[3], lfwd[4],
-            lfwd[5], 0.0, True, lfwd[6], lfwd[7], scale=scale)
+            lfwd[5], 0.0, causal, lfwd[6], lfwd[7], scale=scale)
 
     library_bwd_ms = time_ms(torch, library_bwd, iters)
     res = {
@@ -403,7 +434,7 @@ def time_shape(torch, F, fa, b, s, h, d, iters, plain_iters):
             time_ms(torch, lambda: fa.attention_with_lse_plain(q, k, v, *args),
                     plain_iters),
             time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), iters)),
+                qt, kt, vt, is_causal=causal), iters)),
         "flash_bwd_dq": (
             time_ms(torch, lambda: fa.flash_bwd_dq(q, k, v, *qargs), iters),
             time_ms(torch, lambda: fa.bwd_dq_plain(q, k, v, *qargs),
@@ -417,12 +448,12 @@ def time_shape(torch, F, fa, b, s, h, d, iters, plain_iters):
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 
     def port_fb():
-        fa.flash_attention(qg, kg, vg, causal=True).backward(do)
+        fa.flash_attention(qg, kg, vg, causal=causal).backward(do)
 
     def sdpa_fb():
         F.scaled_dot_product_attention(
             qg.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
-            is_causal=True).backward(do.transpose(1, 2))
+            is_causal=causal).backward(do.transpose(1, 2))
 
     fb = {"port_fwd_bwd_ms": time_ms(torch, port_fb, iters),
           "sdpa_fwd_bwd_ms": time_ms(torch, sdpa_fb, iters),
@@ -2692,6 +2723,407 @@ def phase_telemetry(torch, hvd, tfm, fa, cfg, par, model, tokens, labels,
     return report
 
 
+# Phase 15: the reference's other model families (ResNet-50 v1.5, BERT-Base,
+# the MoE transformer, the MLP) at world 1 on NCCL.
+MODEL_STEPS = 10
+# (a) ResNet-50 v1.5: bench.py's per-card batch and optimizer (SGD with
+# momentum 0.9) at the linear-scaling rate for 128 images (0.1 per 256).
+RESNET_BATCH, RESNET_LR, RESNET_MOMENTUM = 128, 0.05, 0.9
+RESNET_CHECK_BATCH = 2
+# Card against CPU in float64 (cuDNN's and oneDNN's convs sum in other
+# orders).  In fp32 batch norm over 2 images through 16 blocks amplifies
+# that rounding to ~3% in a gradient; in float64 it stays far below these
+# bars.  The logits, loss, gradients (normwise, each tensor) and new
+# statistics, and stem_s2d's logits against the default stem's.
+TOL_RESNET_F64_REL = 1e-9
+# (b) BERT-Base: bench.py's optimizer (AdamW 1e-4) and head (gathered).
+BERT_BATCH, BERT_LR = 16, 1e-4
+REMAT_MODES = (False, True, "dots")
+# (c) the MoE transformer, the default config; (d) the MLP of jax_mnist.
+MOE_TFM_BATCH = 8
+MLP_SIZES, MLP_BATCH, MLP_STEPS, MLP_LR = (784, 512, 512, 10), 128, 3, 0.1
+
+
+def peak_start(torch):
+    """gc, then the allocated bytes a run's peak is measured above."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_above(torch, base):
+    return torch.cuda.max_memory_allocated() - base
+
+
+def timed_steps(torch, step, n_steps):
+    """``n_steps`` calls of ``step()`` (which returns the loss tensor),
+    each timed to a synchronize: (losses, host seconds a step)."""
+    losses, times = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    return losses, times
+
+
+def normwise(torch, a, b):
+    return ((a.double() - b.double()).norm()
+            / b.double().norm().clamp_min(1e-300)).item()
+
+
+def models_resnet(torch, hvd, resnet, card):
+    """(a) ResNet-50 v1.5: card against CPU at batch 2 in float64, stem_s2d
+    against the default stem, then 10 bf16 steps at batch 128 with sync
+    BN over the data axis through DistributedOptimizer(SGD momentum)."""
+    cfg = resnet.ResNetConfig(depth=50, num_classes=1000, width=64,
+                              dtype=torch.bfloat16, sync_bn_axis="data")
+    f64 = cfg._replace(dtype=torch.float64)
+    params, stats = resnet.init_params(f64, torch.Generator().manual_seed(0),
+                                       device="cpu")
+    images, labels = resnet.synthetic_batch(RESNET_CHECK_BATCH, seed=3,
+                                            device="cpu")
+
+    def run(device, c):
+        model = resnet.ResNet(c, device=device, params=params, stats=stats)
+        logits = model(images.to(device))
+        loss = resnet.cross_entropy_loss(logits, labels.to(device))
+        loss.backward()
+        out = {"loss": loss.detach().reshape(1), "logits": logits.detach()}
+        out.update({f"grad.{n}": p.grad for n, p in model.named_parameters()})
+        out.update({f"stats.{n}": b for n, b in model.named_buffers()})
+        return {k: v.cpu() for k, v in out.items()}
+
+    card_run, cpu_run = run("cuda", f64), run("cpu", f64)
+    assert card_run["logits"].dtype == torch.float64
+    rel = {k: normwise(torch, v, cpu_run[k]) for k, v in card_run.items()}
+    rel["stem_s2d.logits"] = normwise(
+        torch, run("cuda", f64._replace(stem_s2d=True))["logits"],
+        card_run["logits"])
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= TOL_RESNET_F64_REL, (worst, rel[worst])
+    grads = [r for k, r in rel.items() if k.startswith("grad.")]
+    log(f"[models] (a) ResNet-50 at batch {RESNET_CHECK_BATCH}, float64, card "
+        f"against CPU: loss {card_run['loss'].item()!r} / "
+        f"{cpu_run['loss'].item()!r}; relative normwise: logits "
+        f"{rel['logits']:.3g}, gradients at most {max(grads):.3g} over "
+        f"{len(grads)} tensors, BN statistics at most "
+        f"{max(r for k, r in rel.items() if k.startswith('stats.')):.3g}; "
+        f"stem_s2d logits against the default stem {rel['stem_s2d.logits']:.3g}"
+        f" (bar {TOL_RESNET_F64_REL:g}; worst {worst})")
+    del card_run, cpu_run
+
+    base = peak_start(torch)
+    model = resnet.ResNet(cfg, seed=0, device="cuda")
+    hvd.broadcast_parameters(model.state_dict())
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(
+        model.parameters(), lr=RESNET_LR, momentum=RESNET_MOMENTUM))
+    images, labels = resnet.synthetic_batch(RESNET_BATCH, seed=1,
+                                            device="cuda")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = resnet.cross_entropy_loss(model(images), labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses, times = timed_steps(torch, step, MODEL_STEPS)
+    step_s = statistics.median(times[1:])
+    out = {"check": {"batch": RESNET_CHECK_BATCH, "dtype": "float64",
+                     "rel": rel},
+           "losses": losses, "step_times_s": times, "step_s": step_s,
+           "images_per_s": RESNET_BATCH / step_s,
+           "mfu": resnet.train_flops_per_image(cfg) * RESNET_BATCH / step_s
+           / PEAK_BF16_FLOPS,
+           "peak_bytes": peak_above(torch, base)}
+    log(f"[models] (a) ResNet-50 v1.5, bf16, batch {RESNET_BATCH}, sync BN "
+        f"over data, SGD({RESNET_LR}, momentum {RESNET_MOMENTUM}): losses "
+        f"{losses}; host step {step_s * 1e3:.3f} ms (median of steps 1-"
+        f"{MODEL_STEPS - 1}), {out['images_per_s']:.1f} images/s, MFU "
+        f"{out['mfu']:.4f}, peak allocated {out['peak_bytes'] / 2**20:.1f} "
+        f"MiB; on {card}")
+    del model, opt
+    return out
+
+
+def models_bert(torch, F, hvd, fa, bert, card, timing_iters=(20, 3)):
+    """(b) BERT-Base through make_train_step on a (1, 1) mesh: the dense
+    and gathered losses and gradients through the kernels against the
+    plain attention; 10 AdamW steps in each remat mode; the kernels timed
+    at BERT's shape, non-causal."""
+    cfg = bert.BertConfig(remat=False)
+    mesh = hvd.parallel.create_mesh(dict.fromkeys(bert.AXES, 1))
+    model = bert.Bert(cfg, seed=0, device="cuda", mesh=mesh)
+    batches = {"dense": bert.synthetic_batch(cfg, BERT_BATCH, seed=1,
+                                             device="cuda"),
+               "gathered": bert.synthetic_mlm_batch(cfg, BERT_BATCH, seed=2,
+                                                    device="cuda")}
+    n_layers = cfg.n_layers
+    check = {}
+    for head, batch in batches.items():
+        fn = bert.make_loss_fn(cfg, mesh, gathered=head == "gathered")
+
+        def loss_and_grads():
+            model.zero_grad(set_to_none=True)
+            loss = fn(model, *batch)
+            loss.backward()
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            return loss.item(), grads
+
+        fa.reset_launches()
+        k_loss, k_grads = loss_and_grads()
+        launches = dict(fa.launches)
+        os.environ["HVD_TPU_FLASH"] = "0"
+        try:
+            p_loss, p_grads = loss_and_grads()
+        finally:
+            del os.environ["HVD_TPU_FLASH"]
+        rel = {n: normwise(torch, g, p_grads[n]) for n, g in k_grads.items()}
+        assert abs(k_loss - p_loss) <= TOL_LOSS, (head, k_loss, p_loss)
+        assert max(rel.values()) <= TOL_MODEL_GRAD_REL, (head, rel)
+        assert launches == dict.fromkeys(KERNELS, n_layers), launches
+        check[head] = {"kernel_loss": k_loss, "plain_loss": p_loss,
+                       "grad_rel": rel, "launches": launches}
+        del k_grads, p_grads
+        log(f"[models] (b) BERT-Base {head} head, bf16, batch {BERT_BATCH}: "
+            f"loss through the kernels {k_loss}, plain attention {p_loss}; "
+            f"gradients normwise at most {max(rel.values()):.3g}; launches "
+            f"{launches}")
+    del model
+
+    runs = {}
+    for remat in REMAT_MODES:
+        c = cfg._replace(remat=remat)
+        base = peak_start(torch)
+        model = bert.Bert(c, seed=0, device="cuda", mesh=mesh)
+        opt = torch.optim.AdamW(model.parameters(), lr=BERT_LR)
+        train = bert.make_train_step(c, model, opt, gathered=True)
+        batch = batches["gathered"]
+        fa.reset_launches()
+        losses, times = timed_steps(torch, lambda: train(*batch),
+                                    MODEL_STEPS)
+        per_step = {n: v / MODEL_STEPS for n, v in fa.launches.items()}
+        step_s = statistics.median(times[1:])
+        flops = bert.train_flops_per_seq(cfg, bert.max_predictions(cfg))
+        runs[str(remat)] = {
+            "losses": losses, "step_times_s": times, "step_s": step_s,
+            "sequences_per_s": BERT_BATCH / step_s,
+            "mfu": flops * BERT_BATCH / step_s / PEAK_BF16_FLOPS,
+            "peak_bytes": peak_above(torch, base),
+            "launches": dict(fa.launches), "launches_per_step": per_step}
+        fwd = 2 * n_layers if remat is True else n_layers
+        assert per_step == {"flash_fwd": fwd, "flash_bwd_dq": n_layers,
+                            "flash_bwd_dkv": n_layers}, per_step
+        del model, opt, train
+        r = runs[str(remat)]
+        log(f"[models] (b) BERT-Base remat={remat}, gathered head, AdamW("
+            f"{BERT_LR}): losses {losses}; launches a step {per_step}; host "
+            f"step {step_s * 1e3:.3f} ms, {r['sequences_per_s']:.1f} "
+            f"sequences/s, MFU {r['mfu']:.4f}, peak allocated "
+            f"{r['peak_bytes'] / 2**20:.1f} MiB; on {card}")
+    first = runs["False"]["losses"][0]
+    for r in runs.values():
+        assert abs(r["losses"][0] - first) <= TOL_REMAT_LOSS * abs(first), \
+            {k: v["losses"][0] for k, v in runs.items()}
+
+    shape = (BERT_BATCH, cfg.seq_len, cfg.n_heads, cfg.head_dim)
+    res, fb = time_shape(torch, F, fa, *shape, *timing_iters,
+                         causal=False)
+    bnd = bounds(*shape, causal=False)
+    timing = {"shape": shape, "causal": False, "fwd_bwd": fb,
+              "kernels": {n: {"ms": r[0], "plain_ms": r[1],
+                              "library_ms": r[2],
+                              "bound_ms": bnd[n][0],
+                              "bound_by": bnd[n][1]}
+                          for n, r in res.items()}}
+    for n, r in timing["kernels"].items():
+        log(f"[models] (b) {shape} non-causal {n}: {r['ms']:.4f} ms "
+            f"(bound {r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms")
+    return {"check": check, "runs": runs, "timing": timing}
+
+
+def moe_wire_plan(cfg, moe_lib, Q, rows):
+    """The analytic dispatch wire bytes of one forward at (1, 1): two
+    exchanges a layer of the (E, capacity, d) buffer, fp32 or as sent."""
+    cap = moe_lib.expert_capacity(rows * cfg.seq_len, cfg.n_experts,
+                                  cfg.capacity_factor, cfg.top_k)
+    chunk = cfg.n_experts * cap * cfg.d_model
+    spec = cfg.quant_spec()
+    raw = 2 * cfg.n_layers * 4 * chunk
+    sent = raw if spec is None else 2 * cfg.n_layers * Q.wire_bytes(chunk,
+                                                                    spec)
+    return raw, sent, chunk
+
+
+def models_moe(torch, hvd, fa, moet, moe_lib, XC, Q, card):
+    """(c) the default MoEConfig at (dp, ep) = (1, 1) on the fp32, int8
+    and int4 dispatch wires: 10 AdamW steps each, launches, the wire
+    counters against the analytic plan and the bytes a forward hands
+    dist.all_to_all_single, and the quantized exchange's gradient card
+    against CPU."""
+    import torch.distributed as dist
+    cfg = moet.MoEConfig()
+    par = moet.MoEParallelConfig(1, 1)
+    mesh = hvd.parallel.create_mesh(dict.fromkeys(moet.AXES, 1))
+    tokens, labels = moet.synthetic_batch(cfg, MOE_TFM_BATCH, seed=1,
+                                          device="cuda")
+    runs = {}
+    for bits in (0, 8, 4):
+        c = cfg._replace(dispatch_bits=bits)
+        raw, sent, chunk = moe_wire_plan(c, moe_lib, Q, MOE_TFM_BATCH)
+        base = peak_start(torch)
+        model = moet.MoETransformer(c, par, seed=0, device="cuda", mesh=mesh)
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                weight_decay=1e-4)
+        train = moet.make_train_step(c, par, model, opt)
+        dropped = []
+
+        def step():
+            loss, metrics = train(tokens, labels)
+            dropped.append(metrics["dropped"])
+            return loss
+
+        fa.reset_launches()
+        before = XC.wire_totals()
+        losses, times = timed_steps(torch, step, MODEL_STEPS)
+        after = XC.wire_totals()
+        launches = dict(fa.launches)
+        per_step = {n: v / MODEL_STEPS for n, v in launches.items()}
+        counted = (after.raw - before.raw, after.sent - before.sent)
+        # One forward's exchanges as dist.all_to_all_single sees them.
+        wire_log, restore = record_wire(dist)
+        try:
+            with torch.no_grad():
+                moet.make_loss_fn(c, par, mesh)(model, tokens, labels)
+        finally:
+            restore()
+        handed = sum(b for call, _, b in wire_log
+                     if call == "all_to_all_single")
+        step_s = statistics.median(times[1:])
+        name = "fp32" if bits == 0 else f"int{bits}"
+        runs[name] = {
+            "losses": losses, "step_times_s": times, "step_s": step_s,
+            "tokens_per_s": MOE_TFM_BATCH * c.seq_len / step_s,
+            "peak_bytes": peak_above(torch, base),
+            "launches": launches, "launches_per_step": per_step,
+            "dropped_per_step": [float(d) for d in dropped],
+            "routed_per_step": MOE_TFM_BATCH * c.seq_len * c.n_layers,
+            "wire_plan": {"raw": raw, "sent": sent},
+            "wire_counted": counted, "forward_a2a_bytes": handed}
+        assert per_step == {"flash_fwd": 2 * c.n_layers,
+                            "flash_bwd_dq": c.n_layers,
+                            "flash_bwd_dkv": c.n_layers}, per_step
+        # At world 1 the fp32 wire's exchange is the identity (no call).
+        assert handed == (sent if bits else 0), (name, handed, sent)
+        if bits:
+            assert counted == (MODEL_STEPS * raw, MODEL_STEPS * sent), \
+                (name, counted, raw, sent)
+        else:
+            assert counted == (0, 0), counted
+        del model, opt, train
+        r = runs[name]
+        log(f"[models] (c) MoE transformer, {name} dispatch wire: losses "
+            f"{losses}; dropped routes a step {r['dropped_per_step']} of "
+            f"{r['routed_per_step']}; launches a step {per_step}; wire "
+            f"counters {counted} over {MODEL_STEPS} steps (plan a step raw "
+            f"{raw}, sent {sent}; a forward hands all_to_all_single "
+            f"{handed} bytes); host step {step_s * 1e3:.3f} ms, "
+            f"{r['tokens_per_s']:.0f} tokens/s, peak allocated "
+            f"{r['peak_bytes'] / 2**20:.1f} MiB; on {card}")
+
+    # The quantized exchange's gradient, card against CPU: integer
+    # cotangents make each block's sum of g * q exact, so the order of
+    # summation cannot matter and the gradients are equal bit for bit.
+    cpu_group = dist.new_group([0], backend="gloo")
+    gen = torch.Generator().manual_seed(5)
+    shape = (1, cfg.n_experts, chunk // (cfg.n_experts * cfg.d_model),
+             cfg.d_model)
+    v = torch.randn(shape, generator=gen)
+    cotangents = {"integer": torch.randint(-3, 4, shape, generator=gen)
+                  .float(), "normal": torch.randn(shape, generator=gen)}
+    wire_grad = {}
+    for bits in (8, 4):
+        spec = Q.QuantSpec(bits, cfg.dispatch_block)
+        for kind, ct in cotangents.items():
+            got = {}
+            for where, group in (("cuda", None), ("cpu", cpu_group)):
+                t = v.to(where, copy=True).requires_grad_()
+                out = XC.all_to_all_wire(t, group, spec)
+                (out * ct.to(where)).sum().backward()
+                got[where] = (out.detach().cpu(), t.grad.cpu())
+            (o_d, g_d), (o_c, g_c) = got["cuda"], got["cpu"]
+            assert torch.equal(o_d, o_c), (bits, kind)
+            rel = normwise(torch, g_d, g_c)
+            nonzero = int((g_c != 0).sum())
+            if kind == "integer":
+                assert torch.equal(g_d, g_c), (bits, rel)
+            else:
+                assert rel <= 1e-6, (bits, rel)
+            wire_grad[f"int{bits}_{kind}"] = {"grad_rel": rel,
+                                              "nonzero": nonzero,
+                                              "elements": v.numel()}
+    log(f"[models] (c) the quantized exchange of {tuple(shape)} fp32, card "
+        f"against CPU: forward bit for bit; gradient (integer cotangent) "
+        f"bit for bit, (normal cotangent) normwise "
+        + ", ".join(f"{k} {r['grad_rel']:.3g}" for k, r in wire_grad.items()
+                    if k.endswith("normal"))
+        + f"; non-zero at {wire_grad['int8_integer']['nonzero']} of "
+        f"{v.numel()} elements (the blocks' absmax)")
+    return {"runs": runs, "wire_grad": wire_grad}
+
+
+def models_mlp(torch, hvd, mlp, card):
+    """(d) the MLP: 3 SGD steps through DistributedOptimizer."""
+    params = mlp.init_params(MLP_SIZES, torch.Generator().manual_seed(0),
+                             device="cuda")
+    leaves = [t.requires_grad_() for layer in params for t in layer.values()]
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(leaves, lr=MLP_LR))
+    import numpy as np
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal(
+        (MLP_BATCH, 28, 28), dtype=np.float32)).to("cuda")
+    labels = torch.from_numpy(rng.integers(0, 10, MLP_BATCH)).to("cuda")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = mlp.loss_fn(params, x, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses, times = timed_steps(torch, step, MLP_STEPS)
+    log(f"[models] (d) MLP {MLP_SIZES}, batch {MLP_BATCH}: losses {losses};"
+        f" on {card}")
+    return {"losses": losses, "step_times_s": times}
+
+
+def phase_models(torch, hvd, fa, card):
+    """Phase 15: ResNet-50, BERT-Base, the MoE transformer and the MLP at
+    world 1 (NCCL on the card); returns the report."""
+    import torch.nn.functional as F
+    from horovod_tpu_torch.models import bert, mlp, resnet
+    from horovod_tpu_torch.models import moe_transformer as moet
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.ops import xla_collectives as XC
+    from horovod_tpu_torch.parallel import moe as moe_lib
+    hvd.init()
+    try:
+        return {"resnet": models_resnet(torch, hvd, resnet, card),
+                "bert": models_bert(torch, F, hvd, fa, bert, card),
+                "moe_transformer": models_moe(torch, hvd, fa, moet, moe_lib,
+                                              XC, Q, card),
+                "mlp": models_mlp(torch, hvd, mlp, card)}
+    finally:
+        hvd.shutdown()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2897,6 +3329,9 @@ def main() -> int:
     # flight dump, a Chrome trace and the telemetry's host cost
     report["telemetry"] = phase_telemetry(torch, hvd, tfm, fa, cfg, par,
                                           model, tokens, labels, card)
+    # 15. the other model families: ResNet-50, BERT-Base (the kernels
+    # non-causal), the MoE transformer on the quantized wires, the MLP
+    report["models"] = phase_models(torch, hvd, fa, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -2924,12 +3359,19 @@ def main() -> int:
         serving = report["serving"]["prefill"]
         by_path["serving.prefill"] = serving["launches"][name]
         by_path["telemetry"] = report["telemetry"]["train"]["launches"][name]
+        models = report["models"]
+        by_path.update({f"bert_remat_{m}": r["launches"][name]
+                        for m, r in models["bert"]["runs"].items()})
+        by_path.update({f"moe_transformer_{w}": r["launches"][name]
+                        for w, r in models["moe_transformer"]["runs"]
+                        .items()})
         # The serving prefill is a forward: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \
             (name, by_path)
         extra = ({"serving_prefill": serving["flash_fwd_timing"]}
                  if name == "flash_fwd" else {})
+        extra["bert_noncausal"] = models["bert"]["timing"]["kernels"][name]
         kernels.append(dict(name=name, route="cuda", source=SOURCE,
                             replaces=replaces, launches=launches[name],
                             launches_by_path=by_path,

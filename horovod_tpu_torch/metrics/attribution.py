@@ -36,12 +36,13 @@ Exported as ``hvd_step_attribution_seconds{component}`` (last step) and
 optional per-step JSONL trail (``HVD_TPU_ATTRIBUTION_JSONL``).
 
 **Live MFU**: :func:`set_step_flops` declares the model FLOPs one step
-executes on this GPU (``models.transformer.train_flops_per_seq`` times
-the batch); every ``step_end`` grades ``hvd_mfu_ratio = flops /
-(step_time * peak)`` against :func:`peak_flops`: ``HVD_TPU_PEAK_TFLOPS``
-when set, else the detected card's dense bf16 peak by name (H100 SXM,
-"NVIDIA H100 80GB HBM3": 989.4 TFLOP/s; H100 PCIe: 756), else None (no
-MFU).
+executes on this GPU (helpers: ``models/resnet.train_flops_per_image``,
+``models/bert.train_flops_per_seq``,
+``models/transformer.train_flops_per_seq``, times the batch); every
+``step_end`` grades ``hvd_mfu_ratio = flops / (step_time * peak)``
+against :func:`peak_flops`: ``HVD_TPU_PEAK_TFLOPS`` when set, else the
+detected card's dense bf16 peak by name (H100 SXM, "NVIDIA H100 80GB
+HBM3": 989.4 TFLOP/s; H100 PCIe: 756), else None (no MFU).
 
 Disable with ``HVD_TPU_ATTRIBUTION=0`` or :func:`set_enabled`.
 """
@@ -549,6 +550,8 @@ def attribution() -> StepAttribution:
 def set_step_flops(flops: float) -> None:
     """``hvd.metrics.set_step_flops(batch * flops_per_element)`` — the
     live-MFU input.  Model helpers compute the per-element figure:
+    ``models.resnet.train_flops_per_image``,
+    ``models.bert.train_flops_per_seq``,
     ``models.transformer.train_flops_per_seq``."""
     attribution().set_step_flops(flops)
 

@@ -60,6 +60,7 @@ from ..parallel import pipeline as pp_lib
 from ..parallel import ring_attention as ra
 from ..parallel import tensor_parallel as tp
 from ..parallel.ulysses import ulysses_attention
+from . import _mesh
 
 AXES = ("dp", "pp", "mp")
 _NEG_INF = -1e30
@@ -171,17 +172,12 @@ def param_specs(cfg: TransformerConfig, par: ParallelConfig
 # The mesh: this rank's place on it, its shards of the tree
 # ---------------------------------------------------------------------------
 
-class _Axes:
+class _Axes(_mesh.MeshAxes):
     """This rank's place on a (dp, pp, mp) mesh: each axis's process
     group, size and this rank's index on it."""
 
     def __init__(self, mesh):
-        if tuple(mesh.mesh_dim_names or ()) != AXES:
-            raise ValueError(f"the mesh's dimensions must be {AXES}, got "
-                             f"{mesh.mesh_dim_names}")
-        self.group = {a: mesh.get_group(a) for a in AXES}
-        self.size = dict(zip(AXES, (int(n) for n in mesh.mesh.shape)))
-        self.index = dict(zip(AXES, mesh.get_coordinate()))
+        super().__init__(mesh, AXES)
 
     def check(self, par: ParallelConfig) -> None:
         want = dict(dp=par.dp, pp=par.pp, mp=par.mp)
@@ -189,18 +185,8 @@ class _Axes:
             raise ValueError(f"the mesh is {self.size}, the config {want}")
 
 
-def _leaves(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v, f"{prefix}{k}.")
-        else:
-            yield f"{prefix}{k}", v
-
-
-def _map(fn, tree, specs):
-    """``tree`` with each leaf ``fn(leaf, its spec)``."""
-    return {k: _map(fn, v, specs[k]) if isinstance(v, dict)
-            else fn(v, specs[k]) for k, v in tree.items()}
+_leaves = _mesh.leaves
+_map = _mesh.map_tree
 
 
 def _tree(params) -> Dict[str, Any]:
@@ -219,20 +205,7 @@ def shard_params(cfg: TransformerConfig, par: ParallelConfig,
     the axis's size and the chunk at this rank's coordinate taken."""
     ax = _Axes(mesh)
     ax.check(par)
-
-    def cut(t, spec):
-        for dim, axis in enumerate(spec):
-            if axis is None:
-                continue
-            n = ax.size[axis]
-            if t.shape[dim] % n:
-                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
-                                 f"divide over {axis}={n}")
-            chunk = t.shape[dim] // n
-            t = t.narrow(dim, ax.index[axis] * chunk, chunk)
-        return t.clone()
-
-    return _map(cut, tree, param_specs(cfg, par))
+    return _mesh.shard_tree(tree, param_specs(cfg, par), ax)
 
 
 def gather_params(cfg: TransformerConfig, par: ParallelConfig, shards,
@@ -242,15 +215,7 @@ def gather_params(cfg: TransformerConfig, par: ParallelConfig, shards,
     a ``Transformer``; gradients gather with ``{k: p.grad}`` trees."""
     ax = _Axes(mesh)
     ax.check(par)
-
-    def gather(t, spec):
-        t = t.detach()
-        for dim, axis in enumerate(spec):
-            if axis is not None and ax.size[axis] > 1:
-                t = tp._all_gather(t, ax.group[axis], dim)
-        return t
-
-    return _map(gather, _tree(shards), param_specs(cfg, par))
+    return _mesh.gather_tree(_tree(shards), param_specs(cfg, par), ax)
 
 
 class Transformer(nn.Module):
@@ -451,9 +416,7 @@ def _check_data_parallel(par: ParallelConfig) -> None:
 # The mesh path: the reference's per-device body
 # ---------------------------------------------------------------------------
 
-def _pmean(x: torch.Tensor, group) -> torch.Tensor:
-    n = tp._size(group)
-    return x if n == 1 else tp.psum(x, group) / n
+_pmean = _mesh.pmean
 
 
 def _make_stage_fn(cfg: TransformerConfig, ax: _Axes):
@@ -531,38 +494,6 @@ def forward_loss(cfg: TransformerConfig, par: ParallelConfig, model,
     return _dp_mean(serial_forward_loss(cfg, model, tokens, labels))
 
 
-class _Enter(torch.autograd.Function):
-    """A shard entering the per-rank body: the identity, whose backward
-    sums the gradient over the mesh axes its spec does not name (the
-    transpose of ``shard_map``'s input)."""
-
-    @staticmethod
-    def forward(ctx, t, groups):
-        ctx.groups = groups
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        for group in ctx.groups:
-            g = tp._psum(g, group)
-        return g, None
-
-
-class _Leave(torch.autograd.Function):
-    """The replicated loss leaving the per-rank body: the identity, whose
-    backward divides the cotangent by the mesh size (the transpose of
-    ``shard_map``'s replicated output)."""
-
-    @staticmethod
-    def forward(ctx, loss, n):
-        ctx.n = n
-        return loss.view_as(loss)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.n, None
-
-
 def make_loss_fn(cfg: TransformerConfig, par: ParallelConfig, mesh
                  ) -> Callable:
     """``loss_of(params, tokens, labels)``: the per-rank body of
@@ -576,22 +507,16 @@ def make_loss_fn(cfg: TransformerConfig, par: ParallelConfig, mesh
     its spec leaves unnamed."""
     ax = _Axes(mesh)
     ax.check(par)
-    n = ax.size["dp"] * ax.size["pp"] * ax.size["mp"]
     specs = param_specs(cfg, par)
-
-    def enter(t, spec):
-        groups = [ax.group[a] for a in AXES
-                  if a not in spec and ax.size[a] > 1]
-        return _Enter.apply(t, groups) if groups else t
 
     def loss_of(params, tokens, labels):
         if isinstance(params, Transformer) and (
                 params.mesh is None or params.mesh != mesh):
             raise ValueError("the model's shards were cut for another mesh "
                              f"({params.mesh}), not {mesh}")
-        local = _map(enter, _tree(params), specs)
+        local = _mesh.enter_tree(_tree(params), specs, ax)
         loss = _mesh_forward_loss(cfg, par, ax, local, tokens, labels)
-        return _Leave.apply(loss, n) if n > 1 else loss
+        return _mesh.leave(loss, ax)
 
     return loss_of
 

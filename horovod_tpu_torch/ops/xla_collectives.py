@@ -257,19 +257,25 @@ def all_to_all_wire(v: torch.Tensor, axis_name, quant: Optional[QuantSpec],
     member s.  On the quantized wire each row is quantized on its own
     (the receiver needs no metadata of another row) and the payload and
     the fp32 scales travel as two all-to-alls; the output is then fp32.
-    The plain wire is differentiable; the quantized one is not yet."""
+
+    Both wires are differentiable.  The quantized one has the reference's
+    gradient, which JAX's differentiation of ``quantize``/``dequantize``
+    gives: rounding and the cast to int8 have zero derivative, so the
+    payload carries none, and the gradient reaches ``v`` only through the
+    fp32 block scales, which travel through the differentiable
+    all-to-all.  It is non-zero only at each block's absmax element
+    (shared evenly among tied ones, as JAX's ``max`` shares it), where it
+    is sign · Σ(g · q) / qmax; an all-zero block's scale is the constant
+    1.0 and passes none."""
     group = Q._group(_group(axis_name, mesh))
     if quant is None:
         return all_to_all(v, group)
-    if torch.is_grad_enabled() and v.requires_grad:
-        raise NotImplementedError(
-            "the quantized all-to-all wire has no gradient yet (ROADMAP.md "
-            "queue 1 item 6, moe_transformer's dispatch_bits)")
     row_elems = int(v[0].numel())
     row_shape = tuple(v.shape[1:])
+    # quantize's scales are differentiable in v; its int payload is not.
     pairs = [Q.quantize(row, quant) for row in v]
     q = Q._all_to_all(torch.stack([p[0] for p in pairs]), group)
-    s = Q._all_to_all(torch.stack([p[1] for p in pairs]), group)
+    s = _AllToAll.apply(torch.stack([p[1] for p in pairs]), group)
     return torch.stack([Q.dequantize(qi, si, quant, row_elems, row_shape,
                                      torch.float32)
                         for qi, si in zip(q, s)])

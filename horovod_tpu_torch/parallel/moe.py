@@ -6,12 +6,13 @@ d) buffer of static shape, and two all-to-all exchanges over the expert
 axis.  Dropped tokens (over capacity) pass through on the residual path,
 standard Switch Transformer semantics.
 
-The exchanges are differentiable on the plain wire, so the tokens and the
-gate get their gradients through them.  They may instead ride the
-block-scaled int8/int4 wire of ``ops/quantization.py`` (each destination
-row quantized on its own, payload and fp32 scales as two all-to-alls),
-forward only for now (ROADMAP.md queue 1 item 6).  Dispatch, the expert
-MLPs and the combine compute in fp32, whatever the activations' dtype.
+The exchanges are differentiable, so the tokens and the gate get their
+gradients through them.  They may ride the block-scaled int8/int4 wire
+of ``ops/quantization.py`` (each destination row quantized on its own,
+payload and fp32 scales as two all-to-alls); its gradient is the
+reference's, which flows through the block scales only
+(``xla_collectives.all_to_all_wire``).  Dispatch, the expert MLPs and
+the combine compute in fp32, whatever the activations' dtype.
 """
 
 from __future__ import annotations

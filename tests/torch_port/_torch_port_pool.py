@@ -7,7 +7,9 @@ one start per part of ``_torch_port_training_workers`` (overlap, adasum,
 zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt), of
 ``_torch_port_parallel_workers`` (gspmd, ring) and of
 ``_torch_port_eager_workers`` (native, cache, eager, dispatch) and of
-``_torch_port_modes_workers`` (units, modes, moe) and of
+``_torch_port_modes_workers`` (units, modes, moe), of
+``_torch_port_models_workers`` (resnet, bert, moet; their inputs written
+by the test file's ``prepare`` hook) and of
 ``_torch_port_telemetry_workers`` (telemetry, two ranks) for the test file
 of that part.  The ranks fork from a server that imported torch once
 for all four."""
@@ -74,6 +76,7 @@ GSPMD_PARAMS = {"param.w": np.linspace(-1.0, 1.0, 96, dtype=np.float32)
                 "param.b": np.linspace(0.5, 2.0, 16, dtype=np.float32),
                 "param.c": np.linspace(0.0, 1.0, 5, dtype=np.float32)}
 NEGOTIATED_PARTS = ("native", "cache", "eager", "dispatch")
+MODEL_PARTS = ("resnet", "bert", "moet")
 ZERO_PARAMS = {"w": np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(4, 3),
                "b": np.linspace(0.5, 2.0, 16, dtype=np.float32)}
 
@@ -82,7 +85,8 @@ ZERO_PARAMS = {"w": np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(4, 3),
 def part_inputs(part: str) -> dict:
     """The seeded inputs of one part, per rank along axis 0 where they
     differ between ranks (the negotiated plane's parts seed their own)."""
-    if part in NEGOTIATED_PARTS or part == "telemetry":
+    if part in NEGOTIATED_PARTS or part in MODEL_PARTS or \
+            part == "telemetry":
         return {}
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
                                  "sbn": 14, "ckpt": 15, "gspmd": 16,
@@ -175,7 +179,7 @@ def _spawn(body, out, world: int = WORLD):
          "_torch_port_workers", "_torch_port_training_workers",
          "_torch_port_checkpoint_workers", "_torch_port_parallel_workers",
          "_torch_port_eager_workers", "_torch_port_modes_workers",
-         "_torch_port_telemetry_workers"])
+         "_torch_port_models_workers", "_torch_port_telemetry_workers"])
     mp.start_processes(body, args=(world, f"{out}/rendezvous", str(out)),
                        nprocs=world, join=True, start_method="forkserver")
 
@@ -193,13 +197,15 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
     ``_torch_port_training_workers`` (or ``_torch_port_checkpoint_workers``
     for "ckpt", ``_torch_port_parallel_workers`` for "gspmd" and "ring",
     ``_torch_port_eager_workers`` for the negotiated plane's parts,
-    ``_torch_port_modes_workers`` for "units", "modes" and "moe"),
+    ``_torch_port_modes_workers`` for "units", "modes" and "moe",
+    ``_torch_port_models_workers`` for "resnet", "bert" and "moet"),
     from one start of the ranks per part and test process.
     ``prepare(out_dir)`` writes what the ranks read beyond the part's
     inputs, before they start; ``part_dir(part)`` is that directory."""
     if part not in _PARTS:
         import _torch_port_checkpoint_workers as ckpt_workers
         import _torch_port_eager_workers as eager_workers
+        import _torch_port_models_workers as model_workers
         import _torch_port_modes_workers as modes_workers
         import _torch_port_parallel_workers as par_workers
         import _torch_port_telemetry_workers as tel_workers
@@ -226,6 +232,9 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "units": modes_workers.units_part,
                 "modes": modes_workers.modes_part,
                 "moe": modes_workers.moe_part,
+                "resnet": model_workers.resnet_part,
+                "bert": model_workers.bert_part,
+                "moet": model_workers.moet_part,
                 "telemetry": tel_workers.telemetry_part}[part], out, world)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
                         for r in range(world)]

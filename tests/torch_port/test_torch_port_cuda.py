@@ -21,7 +21,9 @@ the card, and a world-1 NCCL allreduce on each compressed wire gives the
 CPU's two-pass values bit for bit.  A ZeRO checkpoint of card-resident
 shards round-trips bit for bit on the card, and the DataLoader's pinned
 ring delivers batches bit-equal to their host rows while the next
-gathers are in flight."""
+gathers are in flight.  A small bf16 BERT runs the kernels non-causally
+within the flagship step's bars of the plain attention, and the quantized
+all-to-all's gradient equals the CPU's bit for bit."""
 
 import os
 import subprocess
@@ -711,3 +713,70 @@ def test_cuda_compute_span_waits_for_the_device(cuda_device):
         e.record()
     device_s = s.elapsed_time(e) / 1e3
     assert eng._compute_total >= device_s > 0
+
+
+@pytest.mark.cuda
+def test_cuda_bert_noncausal_kernels_match_plain(cuda_device, monkeypatch):
+    """A small bf16 BERT through the three kernels with causal=False, one
+    launch of each a layer, against the plain attention on the same
+    weights and batch (the flagship step's bars: loss 1e-3, gradients
+    2e-2 normwise)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert
+    hvd.init()
+    try:
+        cfg = bert.BertConfig(vocab_size=512, d_model=256, n_heads=4,
+                              d_ff=512, n_layers=2, seq_len=256,
+                              remat=False)
+        mesh = hvd.parallel.create_mesh({"dp": 1, "mp": 1})
+        model = bert.Bert(cfg, seed=0, mesh=mesh)
+        batch = bert.synthetic_mlm_batch(cfg, 4)
+        loss_of = bert.make_loss_fn(cfg, mesh, gathered=True)
+
+        def run():
+            model.zero_grad(set_to_none=True)
+            loss = loss_of(model, *batch)
+            loss.backward()
+            return loss.item(), {n: p.grad.clone()
+                                 for n, p in model.named_parameters()}
+
+        fa.reset_launches()
+        k_loss, k_grads = run()
+        assert dict(fa.launches) == dict.fromkeys(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), cfg.n_layers)
+        monkeypatch.setenv("HVD_TPU_FLASH", "0")
+        p_loss, p_grads = run()
+    finally:
+        hvd.shutdown()
+    assert abs(k_loss - p_loss) <= 1e-3
+    for n, g in p_grads.items():
+        rel = ((k_grads[n] - g).float().norm() / g.float().norm()).item()
+        assert rel <= 2e-2, (n, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_cuda_quantized_wire_gradient_equals_cpu(cuda_device, bits):
+    """The quantized all-to-all at world 1: forward bit-equal to the CPU's
+    and, with integer cotangents (each block's sum of g * q exact), the
+    gradient too; it is non-zero only at the blocks' absmax elements."""
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import xla_collectives as XC
+    hvd.init()
+    try:
+        cpu_group = dist.new_group([0], backend="gloo")
+        gen = torch.Generator().manual_seed(bits)
+        v = torch.randn((1, 4, 64, 256), generator=gen)
+        ct = torch.randint(-3, 4, v.shape, generator=gen).float()
+        got = {}
+        for dev, group in ((cuda_device, None), ("cpu", cpu_group)):
+            t = v.to(dev, copy=True).requires_grad_()
+            out = XC.all_to_all_wire(t, group, Q.QuantSpec(bits, 256))
+            (out * ct.to(dev)).sum().backward()
+            got[str(dev)] = (out.detach().cpu(), t.grad.cpu())
+    finally:
+        hvd.shutdown()
+    (o_d, g_d), (o_c, g_c) = got[str(cuda_device)], got["cpu"]
+    assert torch.equal(o_d, o_c) and torch.equal(g_d, g_c)
+    assert int((g_c != 0).sum()) <= v.numel() // 256 * 2

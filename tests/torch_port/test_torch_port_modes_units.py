@@ -17,7 +17,9 @@ Four gloo ranks (one start per test process,
   tokens' and the gate's reach them through the all-to-all.
 
 In this process: ``build_1f1b_schedule``'s tables, ``top_k_routing`` on
-the reference's goldens and ``expert_capacity``."""
+the reference's goldens, ``expert_capacity``, and ``all_to_all_wire`` at
+world 1: the quantized wire's forward and gradient against the
+reference's, the plain wire's identity."""
 
 import functools
 
@@ -337,22 +339,100 @@ def test_moe_layer_at_ep4_matches_reference(ranks, case):
         assert all(res["moe"][case]["dropped"] > 0 for res in ranks)
 
 
-def test_quantized_wire_refuses_a_gradient():
-    """The quantized all-to-all has no gradient yet (ROADMAP queue 1 item
-    6): asked for one it raises, where it would cut the graph; without
-    one it runs."""
+def _wire_case():
+    """(1, 4, 8) rows of 4-element blocks: an absmax inside a block, a
+    tie of |2| and |-2|, an all-zero block, and seeded normals."""
+    rng = np.random.default_rng(31)
+    v = rng.standard_normal((1, 4, 8)).astype(np.float32)
+    v[0, 0] = [0.1, -0.5, 0.3, 0.2, 1.0, 2.0, -3.0, 0.5]
+    v[0, 1, :4] = [2.0, -2.0, 1.0, 0.5]
+    v[0, 1, 4:] = 0.0
+    return v, rng.standard_normal(v.shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_wire_gradient_matches_reference(bits):
+    """The quantized all-to-all at world 1 against ``jax.vjp`` of the
+    reference's ``all_to_all_wire`` under ``shard_map``: the forward bit
+    for bit (with and without a gradient asked for), the gradient exactly
+    (it flows through the block scales only: non-zero at each block's
+    absmax, split over a tie, none from an all-zero block)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu.ops import quantization as Q_jax
+    from horovod_tpu.ops import xla_collectives as XC_jax
+    from horovod_tpu_torch.ops import quantization as Q
+    from horovod_tpu_torch.ops import xla_collectives as XC
+    v, ct = _wire_case()
+    f = shard_map(lambda x: XC_jax.all_to_all_wire(
+        x, "ax", Q_jax.QuantSpec(bits=bits, block=4)),
+        mesh=Mesh(np.array(jax.devices()[:1]), ("ax",)), in_specs=P(),
+        out_specs=P(), check_vma=False)
+    want, vjp = jax.vjp(f, jnp.asarray(v))
+    want_grad = np.asarray(vjp(jnp.asarray(ct))[0])
+    hvd.init(device="cpu")
+    try:
+        t = torch.from_numpy(v.copy()).requires_grad_()
+        out = XC.all_to_all_wire(t, None, Q.QuantSpec(bits, 4))
+        (out * torch.from_numpy(ct)).sum().backward()
+        with torch.no_grad():
+            again = XC.all_to_all_wire(t, None, Q.QuantSpec(bits, 4))
+    finally:
+        hvd.shutdown()
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(want))
+    assert torch.equal(again, out.detach())
+    np.testing.assert_array_equal(t.grad.numpy(), want_grad)
+    blocks = np.abs(v).reshape(-1, 4)
+    at_max = (blocks == blocks.max(-1, keepdims=True)) & (blocks > 0)
+    assert np.all(t.grad.numpy().reshape(-1, 4)[~at_max] == 0)
+    assert np.all(t.grad.numpy().reshape(-1, 4)[at_max] != 0)
+    assert t.grad[0, 1, 0] == -t.grad[0, 1, 1]          # the tie, split
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_wire_hands_payload_and_scales(bits, monkeypatch):
+    """With and without a gradient asked for, the quantized wire hands
+    ``dist.all_to_all_single`` the payload and the scales, which is what
+    ``Q.wire_bytes`` counts, even at world 1."""
+    import torch.distributed as dist
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import quantization as Q
     from horovod_tpu_torch.ops import xla_collectives as XC
+    v, _ = _wire_case()
+    spec = Q.QuantSpec(bits, 4)
+    handed = []
+    real = dist.all_to_all_single
+
+    def counted(out, x, *a, **kw):
+        handed.append(x.numel() * x.element_size())
+        return real(out, x, *a, **kw)
+
+    monkeypatch.setattr(dist, "all_to_all_single", counted)
     hvd.init(device="cpu")
     try:
-        v = torch.randn(1, 4, 256, requires_grad=True)
-        spec = Q.QuantSpec(8, 256)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            XC.all_to_all_wire(v, None, spec)
+        t = torch.from_numpy(v.copy())
+        XC.all_to_all_wire(t.requires_grad_(), None, spec)
         with torch.no_grad():
-            out = XC.all_to_all_wire(v, None, spec)
-        assert out.shape == v.shape and out.dtype == torch.float32
-        assert XC.all_to_all_wire(v, None, None).requires_grad
+            XC.all_to_all_wire(t, None, spec)
     finally:
         hvd.shutdown()
+    assert handed == [v.size if bits == 8 else v.size // 2,
+                      4 * v.size // 4] * 2
+    assert sum(handed) == 2 * Q.wire_bytes(v.size, spec)
+
+
+def test_plain_wire_unchanged():
+    """The fp32 wire at world 1 is the identity, its gradient the
+    cotangent; with a gradient asked for it stays on the graph."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import xla_collectives as XC
+    v, ct = _wire_case()
+    hvd.init(device="cpu")
+    try:
+        t = torch.from_numpy(v.copy()).requires_grad_()
+        out = XC.all_to_all_wire(t, None, None)
+        assert out.requires_grad and out.dtype == torch.float32
+        (out * torch.from_numpy(ct)).sum().backward()
+    finally:
+        hvd.shutdown()
+    np.testing.assert_array_equal(out.detach().numpy(), v)
+    np.testing.assert_array_equal(t.grad.numpy(), ct)

@@ -78,6 +78,9 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.parallel.tensor_parallel",
     "horovod_tpu_torch.parallel.moe", "horovod_tpu_torch.parallel.pipeline",
     "horovod_tpu_torch.models.transformer",
+    "horovod_tpu_torch.models.mlp", "horovod_tpu_torch.models.resnet",
+    "horovod_tpu_torch.models.bert",
+    "horovod_tpu_torch.models.moe_transformer",
     "horovod_tpu_torch.runner.rendezvous", "horovod_tpu_torch.serving",
     "horovod_tpu_torch.serving.policy", "horovod_tpu_torch.serving.prefix",
     "horovod_tpu_torch.serving.speculative",
@@ -95,8 +98,8 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.utils.profiler"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     """Each module of the mesh, the GSPMD plane, sequence parallelism,
-    the serving plane and the telemetry plane, imported first in a fresh
-    interpreter where ``import jax`` fails."""
+    the models, the serving plane and the telemetry plane, imported first
+    in a fresh interpreter where ``import jax`` fails."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"importlib.import_module({module!r})\n"

@@ -4,8 +4,8 @@
     python3 tools/multi_gpu_modes.py [--device cuda|cpu] [--small]
 
 The flagship of chip_smoke.py (vocab 8192, d_model 512, 8 heads, d_ff
-2048, 8 layers, seq 512, bf16, remat off, seeded weights; ``--small``: a
-4-layer bf16 toy with ``--device cpu``, gloo, to rehearse the same
+2048, 8 layers, seq 512, bf16, remat off, seeded weights; ``--small``:
+toys of every model with ``--device cpu``, gloo, to rehearse the same
 program) on (dp, pp, mp) meshes of four processes, one a GPU (NCCL):
 
 * (1, 1, 4) in megatron (tp + SP), ring and ulysses attention;
@@ -39,7 +39,26 @@ record carries the bubble seconds ``note_bubble`` credited, more than 0.
 
 The world-1 step is the serial flagship's (a (1, 1, 1) mesh); for MoE it
 takes the dp members' rows as microbatches, so each routes its tokens
-with the same capacity as on its member.  Reported per run: host step
+with the same capacity as on its member.
+
+Then the other model families, held to a world-1 step on the same global
+batch by the same three checks (bf16 loss and leaves against the world-1
+bf16 and fp32 steps, fp32 step 0 against the world-1 fp32 step; ResNet's
+exact step runs in float64, its loss and gradients within 1e-9 of the
+world-1 float64 step's), with ``torch.backends.cudnn.allow_tf32`` off,
+and 5 steps each:
+
+* the MoE transformer (the default ``MoEConfig``, remat off, int8
+  dispatch wire) at (dp, ep) = (1, 4) and (2, 2), 8 sequences a member;
+  its world-1 step runs the four members' rows one block at a time (each
+  routed with its member's capacity; the int8 blocks of a destination
+  row fall on the same elements), the loss the blocks' mean;
+* BERT-Base (gathered head, remat off) at (dp, mp) = (2, 2) and (1, 4),
+  8 sequences a dp member;
+* ResNet-50 v1.5 with ``sync_bn_axis="data"`` at dp 4, 16 images a rank
+  through ``DistributedOptimizer(SGD(0.01, momentum 0.9))``; its world-1
+  step is batch norm over all 64 images, the rank's loss and gradients
+  averaged over the ranks.  Reported per run: host step
 (median of steps 1-4, each ending in a synchronize and a barrier), peak
 memory allocated on a rank over steps 1-4, collectives a step (calls at
 torch.distributed, point-to-point batches included), and the bytes of
@@ -92,6 +111,24 @@ RUNS = [
     ("1f1b_dp2_pp2", (2, 2, 1), {}, dict(n_microbatches=4,
                                           pp_schedule="1f1b")),
 ]
+
+
+# The other model families: name, family, mesh shape, config fields.
+MODEL_RUNS = [
+    ("moet_ep4_int8", "moet", (1, 4), dict(dispatch_bits=8)),
+    ("moet_dp2_ep2_int8", "moet", (2, 2), dict(dispatch_bits=8)),
+    ("bert_dp2_mp2", "bert", (2, 2), {}),
+    ("bert_mp4", "bert", (1, 4), {}),
+    ("resnet_sbn_dp4", "resnet", (4,), {}),
+]
+RESNET_ROWS = 16      # images a rank
+RESNET_LR = 0.01      # SGD with momentum 0.9; five steps must fall
+# ResNet's fp32 gradients are chaotic at small batches (batch norm's
+# E[x²] - E[x]² through 16 blocks moves them by ~3% under a 1e-7 move of
+# the input), so its exact step runs in float64, where that amplification
+# leaves the mesh's rounding far below this bar (loss and each gradient).
+TOL_RESNET_F64_REL = 1e-9
+MODEL_AXES = {"moet": ("dp", "ep"), "bert": ("dp", "mp"), "resnet": None}
 
 
 def _free_port() -> int:
@@ -175,6 +212,16 @@ def references(device, small, path):
                                      labels)
                 out[key] = (loss, {k: g.float().cpu() for k, g in
                                    _flat(grads).items()})
+        _no_tf32(torch)
+        for _, family, shape, cf in MODEL_RUNS:
+            for dtype in (torch.bfloat16, _exact_dtype(torch, family)):
+                key = _model_reference_key(family, shape, cf, dtype)
+                if key not in out:
+                    gc.collect()
+                    out[key] = _model_reference(
+                        torch, hvd, family,
+                        _model_config(torch, family, small, dtype, cf),
+                        shape, dev, small)
     finally:
         hvd.shutdown()
     torch.save(out, path)
@@ -302,14 +349,16 @@ def _rel(grads, ref_grads):
     ...) stacks read as the reference's (1, n_layers, ...))."""
     out = {}
     for k, g in ref_grads.items():
-        got = grads[k].float().cpu().reshape(g.shape)
-        out[k] = ((got - g).norm() / g.norm().clamp_min(1e-30)).item()
+        got = grads[k].double().cpu().reshape(g.shape)
+        g = g.double()
+        out[k] = ((got - g).norm() / g.norm().clamp_min(1e-300)).item()
     return out
 
 
 def _against_bf16(ref16, ref32, loss, grads):
     """The bf16 step 0 against the world-1 steps: the loss against the
-    bf16 one; per leaf, the distance from the fp32 gradient against
+    bf16 one; per leaf, the distance from the exact (fp32; ResNet's
+    float64) gradient against
     ``GRAD_NOISE_MULTIPLE`` times the world-1 bf16 gradient's."""
     assert abs(loss - ref16[0]) <= TOL_LOSS, (loss, ref16[0])
     noise = _rel(ref16[1], ref32[1])
@@ -321,6 +370,265 @@ def _against_bf16(ref16, ref32, loss, grads):
             "step0_grad_rel_fp32": err, "world1_grad_rel_fp32": noise,
             "step0_grad_rel": _rel(grads, ref16[1]),
             "noise_multiple": max(err[k] / noise[k] for k in err)}
+
+
+# ---------------------------------------------------------------------------
+# The other model families
+# ---------------------------------------------------------------------------
+
+def _modules():
+    from horovod_tpu_torch.models import bert, resnet
+    from horovod_tpu_torch.models import moe_transformer as moet
+    return {"moet": moet, "bert": bert, "resnet": resnet}
+
+
+def _model_config(torch, family, small, dtype, cf):
+    m = _modules()[family]
+    if family == "moet":
+        kw = dict(vocab_size=256, d_model=64, n_heads=4, d_ff=128,
+                  n_layers=2, seq_len=32, dispatch_block=64) if small else {}
+        return m.MoEConfig(dtype=dtype, remat=False, **kw, **cf)
+    if family == "bert":
+        kw = dict(vocab_size=211, d_model=64, n_heads=4, d_ff=128,
+                  n_layers=2, seq_len=32) if small else {}
+        return m.BertConfig(dtype=dtype, remat=False, **kw, **cf)
+    kw = dict(width=8, num_classes=10) if small else {}
+    return m.ResNetConfig(depth=50, dtype=dtype, sync_bn_axis="data", **kw,
+                          **cf)
+
+
+def _data_members(family, shape) -> int:
+    """The ranks the batch is split over: (dp, ep) for MoE, dp else."""
+    return shape[0] * shape[1] if family == "moet" else shape[0]
+
+
+def _model_rows(family) -> int:
+    return RESNET_ROWS if family == "resnet" else ROWS
+
+
+def _model_batch(family, cfg, n, small, dev):
+    m = _modules()[family]
+    if family == "moet":
+        return m.synthetic_batch(cfg, n, seed=1, device=dev)
+    if family == "bert":
+        return m.synthetic_mlm_batch(cfg, n, seed=1, device=dev)
+    return m.synthetic_batch(n, 64 if small else 224, cfg.num_classes,
+                             seed=1, device=dev)
+
+
+def _rows_of(batch, i, rows):
+    return tuple(t[i * rows:(i + 1) * rows] for t in batch)
+
+
+def _model_build(family, cfg, shape, mesh, dev):
+    m = _modules()[family]
+    if family == "moet":
+        return m.MoETransformer(cfg, m.MoEParallelConfig(*shape), seed=0,
+                                device=dev, mesh=mesh)
+    if family == "bert":
+        return m.Bert(cfg, seed=0, device=dev, mesh=mesh)
+    return m.ResNet(cfg, seed=0, device=dev)
+
+
+def _model_loss(family, cfg, shape, mesh, model, batch):
+    """The loss the step differentiates, on this rank's rows."""
+    m = _modules()[family]
+    if family == "moet":
+        return m.make_loss_fn(cfg, m.MoEParallelConfig(*shape), mesh)(
+            model, *batch)[0]
+    if family == "bert":
+        return m.make_loss_fn(cfg, mesh, gathered=True)(model, *batch)
+    return m.cross_entropy_loss(model(batch[0]), batch[1])
+
+
+def _model_grads(torch, dist, family, cfg, shape, mesh, model):
+    """The full gradient, flat by parameter name: the shards gathered on
+    a mesh; ResNet's averaged over the ranks, as DistributedOptimizer
+    averages them."""
+    m = _modules()[family]
+    if family == "resnet":
+        out = {}
+        for n, p in model.named_parameters():
+            g = p.grad.clone()
+            dist.all_reduce(g)
+            out[n] = g / dist.get_world_size()
+        return out
+    tree = {n: p.grad for n, p in model.named_parameters()
+            if not n.startswith("layers.")}
+    tree["layers"] = {k: p.grad for k, p in model.layers.items()}
+    if family == "moet":
+        return _flat(m.gather_params(cfg, m.MoEParallelConfig(*shape), tree,
+                                     mesh))
+    return _flat(m.gather_params(cfg, tree, mesh))
+
+
+def _exact_dtype(torch, family):
+    """The dtype of a family's exact step: float64 for ResNet."""
+    return torch.float64 if family == "resnet" else torch.float32
+
+
+def _wide(torch, t):
+    """``t`` in fp32, or in float64 where it is float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _no_tf32(torch):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _model_reference_key(family, shape, cf, dtype):
+    return (family, _data_members(family, shape) * _model_rows(family),
+            tuple(sorted(cf.items())), str(dtype))
+
+
+def _model_reference(torch, hvd, family, cfg, shape, dev, small):
+    """Step 0 of the world-1 step on the global batch: (loss, flat
+    gradients).  MoE runs the data members' rows one block at a time (each
+    routed with its member's capacity), the loss their mean; ResNet's
+    batch norm runs over the whole batch."""
+    members, rows = _data_members(family, shape), _model_rows(family)
+    batch = _model_batch(family, cfg, members * rows, small, dev)
+    mesh = None if family == "resnet" else hvd.parallel.create_mesh(
+        dict.fromkeys(MODEL_AXES[family], 1))
+    if family == "resnet":
+        cfg = cfg._replace(sync_bn_axis=None)
+    model = _model_build(family, cfg, (1, 1), mesh, dev)
+    plain = cfg.dtype != torch.bfloat16
+    if plain:
+        os.environ["HVD_TPU_FLASH"] = "0"
+    try:
+        if family == "moet":
+            loss = 0.0
+            for b in range(members):
+                part = _model_loss(family, cfg, (1, 1), mesh, model,
+                                   _rows_of(batch, b, rows)) / members
+                part.backward()
+                loss += part.item()
+        else:
+            out = _model_loss(family, cfg, (1, 1), mesh, model, batch)
+            out.backward()
+            loss = out.item()
+    finally:
+        if plain:
+            del os.environ["HVD_TPU_FLASH"]
+    return loss, {n: _wide(torch, p.grad).cpu() for n, p in
+                  model.named_parameters()}
+
+
+def _model_step0(torch, dist, family, cfg, shape, mesh, dev, batch):
+    """Step 0 of a fresh seed-0 model on the mesh: the loss (averaged
+    over the ranks for ResNet, whose loss is the rank's) and the full
+    gradient; fp32 through the plain attention."""
+    plain = cfg.dtype != torch.bfloat16
+    if plain:
+        os.environ["HVD_TPU_FLASH"] = "0"
+    try:
+        model = _model_build(family, cfg, shape, mesh, dev)
+        loss = _model_loss(family, cfg, shape, mesh, model, batch)
+        loss.backward()
+    finally:
+        if plain:
+            del os.environ["HVD_TPU_FLASH"]
+    loss = _wide(torch, loss.detach())
+    if family == "resnet":
+        dist.all_reduce(loss)
+        loss = loss / dist.get_world_size()
+    return loss.item(), _model_grads(torch, dist, family, cfg, shape, mesh,
+                                     model)
+
+
+def run_model(torch, dist, hvd, dev, small, meshes, refs, spec):
+    name, family, shape, cf = spec
+    m = _modules()[family]
+    cfg = _model_config(torch, family, small, torch.bfloat16, cf)
+    key = (family, shape)
+    if key not in meshes:
+        meshes[key] = None if family == "resnet" else \
+            hvd.parallel.create_mesh(dict(zip(MODEL_AXES[family], shape)))
+    mesh = meshes[key]
+    rows = _model_rows(family)
+    members = _data_members(family, shape)
+    if family == "moet":
+        i, j = mesh.get_coordinate()
+        index = i * shape[1] + j
+    else:
+        index = mesh.get_coordinate()[0] if mesh is not None \
+            else dist.get_rank()
+    batch = _rows_of(_model_batch(family, cfg, members * rows, small, dev),
+                     index, rows)
+    out = {"family": family, "mesh": dict(zip(MODEL_AXES[family] or
+                                                ("dp",), shape))}
+    gc.collect()
+    loss, grads = _model_step0(torch, dist, family, cfg, shape, mesh, dev,
+                               batch)
+    exact = _exact_dtype(torch, family)
+    if dist.get_rank() == 0:
+        out.update(_against_bf16(
+            refs[_model_reference_key(family, shape, cf, cfg.dtype)],
+            refs[_model_reference_key(family, shape, cf, exact)],
+            loss, grads))
+    del grads
+    gc.collect()
+    model = _model_build(family, cfg, shape, mesh, dev)
+    if family == "resnet":
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(
+            model.parameters(), lr=RESNET_LR, momentum=0.9))
+
+        def step(images, labels):   # the loss averaged over the ranks
+            opt.zero_grad(set_to_none=True)
+            loss = m.cross_entropy_loss(model(images), labels)
+            loss.backward()
+            opt.step()
+            loss = loss.detach().clone()
+            dist.all_reduce(loss)
+            return loss / dist.get_world_size()
+    else:
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4 if family ==
+                                "bert" else 3e-4, weight_decay=1e-4)
+        if family == "moet":
+            train = m.make_train_step(cfg, m.MoEParallelConfig(*shape), model,
+                                      opt)
+
+            def step(*b):
+                return train(*b)[0]
+        else:
+            step = m.make_train_step(cfg, model, opt, gathered=True)
+    losses, times = [], []
+    for i in range(N_STEPS):
+        _sync(torch, dist, dev)
+        if i == 1 and dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if i == 1:
+            with _Counted(dist) as counted:
+                loss = step(*batch)
+        else:
+            loss = step(*batch)
+        _sync(torch, dist, dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    if dev.type == "cuda":
+        out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    out.update(losses=losses, step_ms=statistics.median(times[1:]) * 1e3,
+               calls_per_step={n: c for n, c in counted.counts.items() if c})
+    assert all(x == x for x in losses) and losses[-1] < losses[0], losses
+    del model, opt, step
+    gc.collect()
+    loss, grads = _model_step0(torch, dist, family,
+                               cfg._replace(dtype=exact), shape, mesh, dev,
+                               batch)
+    if dist.get_rank() == 0:
+        ref = refs[_model_reference_key(family, shape, cf, exact)]
+        rel = _rel(grads, ref[1])
+        loss_bar, grad_bar = (TOL_RESNET_F64_REL, TOL_RESNET_F64_REL) \
+            if family == "resnet" else (TOL_FP32_LOSS_REL, TOL_FP32_GRAD_REL)
+        out["exact"] = {"dtype": str(exact), "step0_loss": loss,
+                        "world1_loss": ref[0], "step0_grad_rel": rel}
+        assert abs(loss - ref[0]) <= loss_bar * abs(ref[0]), (loss, ref[0])
+        over = {k: r for k, r in rel.items() if r > grad_bar}
+        assert not over, over
+    return out
 
 
 def rank_main(rank, world, port, device, small, tmp):
@@ -350,6 +658,10 @@ def rank_main(rank, world, port, device, small, tmp):
         for spec in RUNS:
             report[spec[0]] = run_mode(torch, dist, hvd, tfm, dev, small,
                                        meshes, refs, spec)
+        _no_tf32(torch)
+        for spec in MODEL_RUNS:
+            report[spec[0]] = run_model(torch, dist, hvd, dev, small, meshes,
+                                        refs, spec)
         if rank == 0:
             report = {"device": torch.cuda.get_device_name(dev)
                       if dev.type == "cuda" else "cpu", "world": world,
