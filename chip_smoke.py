@@ -209,6 +209,27 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              dist.all_to_all_single equal to it; the quantized exchange's
              gradient card against CPU (bit for bit with integer
              cotangents).  (d) the MLP of examples/jax_mnist.py, 3 steps.
+16. recovery — world 1 on NCCL, the peer tier around the flagship's
+             ZeRO stage 2 AdamW training (8 steps through the kernels on
+             seeded batches; two uninterrupted runs give the run-to-run
+             spread).  (a) Commit at step 4 of {"model":
+             model.state_dict(), "opt": optimizer}: extract_zero_state ->
+             replicate("opt_state") -> save_extracted -> seal_commit; the
+             replicated bytes equal the disk shard's payload bytes;
+             extract and replicate timed.  (b) peer_restore and
+             restore_zero_state of step 4 into fresh models and
+             optimizers of another seed, timed: the report's path is
+             "peer", the parameters and moments are on the card and the
+             two restores equal bit for bit; steps 5-8 resumed from the
+             peer restore give the uninterrupted run's losses and state
+             within phase 8's bar; 8 launches of each kernel a step.
+             (c) The signed transport on loopback under seeded
+             HVD_TPU_CHAOS_NET_RESET_PCT / _TRUNCATE: a RendezvousServer
+             and the RecoveryServer with a secret, serve_and_publish,
+             lookup_addr, the step-4 entry pushed under a key of its
+             own (pending until the sealing push), then fetched back from
+             the endpoint's store, verified and equal array for array;
+             hvd_net_retries_total{plane="http"} > 0; the push's MB/s.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -3124,6 +3145,246 @@ def phase_models(torch, hvd, fa, card):
         hvd.shutdown()
 
 
+RECOVERY_SECRET = "chip-smoke-recovery"
+# The wire chaos of phase 16 (c): a schedule under which the push of the
+# step-4 entry fails once and lands on its one retry, and the fetch back
+# retries once (a pure function of the seed and the requests' order; the
+# CPU tests hold the schedule to the reference's).
+RECOVERY_CHAOS = {"HVD_TPU_CHAOS_NET_SEED": "9",
+                  "HVD_TPU_CHAOS_NET_RESET_PCT": "30",
+                  "HVD_TPU_CHAOS_NET_TRUNCATE": "30"}
+
+
+def state_of(model, opt):
+    """The parameters and the optimizer's moments of a ZeRO run, as one
+    tree for the checkpoint engine and the peer tier."""
+    return {"model": model.state_dict(), "opt": opt}
+
+
+def shard_payload_bytes(root, step):
+    """The array bytes held by a committed step's shard files."""
+    import numpy as np
+    from horovod_tpu_torch import checkpoint as ckpt
+    d = ckpt.step_dir(root, step)
+    total = 0
+    for name in ckpt.read_manifest(root, step).shard_filenames():
+        with np.load(os.path.join(d, name)) as z:
+            total += sum(int(z[k].nbytes) for k in z.files)
+    return total
+
+
+def phase_recovery(torch, hvd, tfm, fa, cfg, par, card):
+    """Phase 16: the peer recovery tier around the flagship's ZeRO-2
+    training on the card, and its signed transport on loopback under
+    seeded wire chaos; returns the report."""
+    import dataclasses
+    import tempfile
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import net
+    from horovod_tpu_torch import recovery as rec
+    from horovod_tpu_torch.metrics.registry import registry
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+
+    batch, n_steps, commit_at, stage = 8, 8, 4, 2
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)
+
+    def fresh(seed):
+        model = tfm.Transformer(cfg, par, seed=seed)
+        return model, hvd.ZeroShardedOptimizer(model, adamw, stage=stage)
+
+    def run(model, opt, first, last):
+        step = tfm.make_train_step(cfg, par, model, opt)
+        losses = [step(*batches[i]).item() for i in range(first, last)]
+        assert all(math.isfinite(x) for x in losses), losses
+        return losses
+
+    out = {}
+    hvd.init()
+    try:
+        batches = [tfm.synthetic_batch(cfg, batch, seed=1600 + i)
+                   for i in range(n_steps)]
+        # Run A, uninterrupted, twice: the run-to-run spread.
+        runs = []
+        for _ in range(2):
+            model, opt = fresh(0)
+            runs.append((run(model, opt, 0, n_steps),
+                         snapshot(torch, model, opt)))
+            del model, opt
+        (a_losses, a_snap), (a2_losses, a2_snap) = runs
+        spread_loss = max(abs(x - y) for x, y in zip(a_losses, a2_losses))
+        spread = max_difference(torch, a_snap, a2_snap)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "opt_state")
+            # (a) Run B: 4 steps, then the commit.
+            torch.cuda.synchronize()
+            fa.reset_launches()
+            model, opt = fresh(0)
+            b_first = run(model, opt, 0, commit_at)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ext = ckpt.extract_zero_state(state_of(model, opt))
+            extract_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            replicated = rec.replicate("opt_state", commit_at, ext)
+            replicate_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ckpt.save_extracted(root, ext, commit_at)
+            save_s = time.perf_counter() - t0
+            rec.seal_commit("opt_state", commit_at, ext)
+            payload = shard_payload_bytes(root, commit_at)
+            assert replicated == payload, (replicated, payload)
+            entry = rec.store().get("opt_state", 0)
+            assert entry is not None and entry.sealed and \
+                rec.verify_entry(entry)
+            del model, opt, ext
+            log(f"[recovery] (a) commit at step {commit_at} of the "
+                f"flagship's ZeRO-{stage} state (parameters and AdamW "
+                f"moments): extract {extract_s:.3f} s, replicate "
+                f"{replicated:,} bytes in {replicate_s:.4f} s (= the disk "
+                f"shard's payload), disk save {save_s:.3f} s, on {card}")
+
+            # (b) The peer restore and the disk restore of step 4.
+            restored = {}
+            for path in ("peer", "disk"):
+                model, opt = fresh(1)
+                like = state_of(model, opt)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if path == "peer":
+                    _, extra, report = rec.peer_restore("opt_state", like)
+                else:
+                    ckpt.restore_zero_state(root, like, step=commit_at)
+                torch.cuda.synchronize()
+                restored[path] = (model, opt, time.perf_counter() - t0)
+            assert report.path == "peer" and report.step == commit_at, \
+                report
+            assert extra["run_fingerprint"]["world_size"] == 1, extra
+            (p_model, p_opt, peer_s), (d_model, d_opt, disk_s) = \
+                restored["peer"], restored["disk"]
+            p_snap = snapshot(torch, p_model, p_opt)
+            params, moments, _ = p_snap
+            # Torch keeps AdamW's step count on the host, and so does the
+            # restore; every parameter and moment is on the card.
+            devices = {str(t.device) for t in params.values()} | {
+                str(t.device) for st in moments for k, t in st.items()
+                if k != "step"}
+            assert devices == {str(hvd.device())}, devices
+            peer_vs_disk = max_difference(
+                torch, p_snap, snapshot(torch, d_model, d_opt))
+            assert peer_vs_disk == 0.0, peer_vs_disk
+            del d_model, d_opt, restored
+            b_rest = run(p_model, p_opt, commit_at, n_steps)
+            launches = dict(fa.launches)
+            b_snap = snapshot(torch, p_model, p_opt)
+            del p_model, p_opt
+        for n in KERNELS:
+            assert launches[n] == cfg.n_layers * n_steps, launches
+        b_losses = b_first + b_rest
+        loss_diff = max(abs(x - y) for x, y in zip(b_losses, a_losses))
+        diff = max_difference(torch, b_snap, a_snap)
+        assert loss_diff <= spread_loss and diff <= spread, \
+            (loss_diff, diff, spread_loss, spread)
+        log(f"[recovery] (b) peer_restore of step {commit_at} into a model "
+            f"and optimizer of seed 1: path {report.path!r}, "
+            f"{report.bytes_moved:,} bytes in {peer_s:.4f} s (disk restore "
+            f"{payload:,} bytes in {disk_s:.3f} s), every parameter and "
+            f"moment on {sorted(devices)} and equal to the disk restore "
+            "bit for bit; "
+            f"steps {commit_at + 1}-{n_steps} resumed: losses "
+            + ("equal the uninterrupted run's bit for bit, and so do the "
+               "final parameters and moments" if loss_diff == diff == 0
+               else f"within the run-to-run spread ({loss_diff:.3g}, "
+               f"{diff:.3g})")
+            + f"; kernel launches {launches}, on {card}")
+        out.update(
+            losses_a=a_losses, losses_a2=a2_losses, losses_b=b_losses,
+            run_to_run_loss_spread=spread_loss,
+            run_to_run_state_spread=spread, resumed_loss_diff=loss_diff,
+            resumed_state_diff=diff, replicated_bytes=replicated,
+            disk_payload_bytes=payload, extract_s=extract_s,
+            replicate_s=replicate_s, save_s=save_s,
+            peer_restore_bytes=report.bytes_moved, peer_restore_s=peer_s,
+            peer_report=report.to_dict(), disk_restore_bytes=payload,
+            disk_restore_s=disk_s, peer_vs_disk_max_diff=peer_vs_disk,
+            restored_devices=sorted(devices), launches=launches)
+
+        # (c) The signed transport on loopback under seeded wire chaos.
+        saved = {k: os.environ.get(k) for k in (
+            "HVD_TPU_RENDEZVOUS_SECRET", "HVD_TPU_FLIGHT_HOST",
+            *RECOVERY_CHAOS)}
+        os.environ.update(RECOVERY_CHAOS,
+                          HVD_TPU_RENDEZVOUS_SECRET=RECOVERY_SECRET,
+                          HVD_TPU_FLIGHT_HOST="127.0.0.1")
+        net.reset_net_chaos()
+        retries = registry().counter(
+            "hvd_net_retries_total", "Wire-fabric recovery attempts by "
+            "plane", plane="http")
+        retries0 = retries.value
+        kv = RendezvousServer(host="127.0.0.1", secret=RECOVERY_SECRET)
+        kv.start()
+        rdv_addr = f"127.0.0.1:{kv.port}"
+        try:
+            published = rec.transport.serve_and_publish(0, rdv_addr)
+            addr = rec.transport.lookup_addr(0, rdv_addr)
+            assert addr == published, (addr, published)
+            # The step-4 entry under a key of its own, pending: the
+            # endpoint's store then holds only the copy that crossed the
+            # wire, and serves it once sealed.
+            sent = dataclasses.replace(entry, key="loopback", sealed=False)
+            wire = len(rec.entry_to_bytes(sent))
+            t0 = time.perf_counter()
+            pushed = rec.transport.push_replica(addr, sent, timeout=120)
+            push_s = time.perf_counter() - t0
+            assert pushed, "the step-4 entry did not land"
+            assert rec.store().contribution("loopback") == []
+            assert rec.transport.push_seal(addr, "loopback", commit_at)
+            (held,) = rec.store().contribution("loopback", role="held")
+            assert held.sealed and rec.verify_entry(held)
+            t0 = time.perf_counter()
+            got = rec.transport.fetch_replica(addr, "loopback", 0,
+                                              timeout=120)
+            fetch_s = time.perf_counter() - t0
+            assert got is not None and rec.verify_entry(got)
+            assert (got.step, got.world, got.fingerprint, got.checksum,
+                    got.manifest_json) == (sent.step, sent.world,
+                                           sent.fingerprint, sent.checksum,
+                                           sent.manifest_json)
+            assert sorted(got.arrays) == sorted(sent.arrays)
+            for k, v in sent.arrays.items():
+                assert got.arrays[k].dtype == v.dtype and \
+                    got.arrays[k].tobytes() == v.tobytes(), k
+            http_retries = retries.value - retries0
+            assert http_retries > 0, "the seeded chaos never fired"
+        finally:
+            rec.transport.stop_serving()
+            kv.stop()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            net.reset_net_chaos()
+        push_mb_s = entry.nbytes() / push_s / 1e6
+        log(f"[recovery] (c) loopback transport, signed, under "
+            f"{RECOVERY_CHAOS}: published {published}, looked up; the "
+            f"step-4 entry ({wire:,} wire bytes) pushed in {push_s:.3f} s "
+            f"({push_mb_s:.1f} MB/s of payload), sealed, fetched back in "
+            f"{fetch_s:.3f} s, verified and equal array for array; "
+            f"hvd_net_retries_total{{plane=\"http\"}} +{http_retries:g}, "
+            f"on {card}")
+        out.update(push_wire_bytes=wire, push_s=push_s,
+                   push_payload_mb_s=push_mb_s, fetch_s=fetch_s,
+                   http_retries=http_retries,
+                   net_status=net.status())
+    finally:
+        rec.reset_store()
+        hvd.shutdown()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3332,6 +3593,9 @@ def main() -> int:
     # 15. the other model families: ResNet-50, BERT-Base (the kernels
     # non-causal), the MoE transformer on the quantized wires, the MLP
     report["models"] = phase_models(torch, hvd, fa, card)
+    # 16. the peer recovery tier: commit, peer restore and resume of the
+    # flagship's ZeRO-2 state, the signed transport under wire chaos
+    report["recovery"] = phase_recovery(torch, hvd, tfm, fa, cfg, par, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -3365,6 +3629,7 @@ def main() -> int:
         by_path.update({f"moe_transformer_{w}": r["launches"][name]
                         for w, r in models["moe_transformer"]["runs"]
                         .items()})
+        by_path["recovery"] = report["recovery"]["launches"][name]
         # The serving prefill is a forward: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \

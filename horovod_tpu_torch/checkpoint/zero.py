@@ -185,14 +185,19 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a host numpy array (one device-to-host copy).  numpy
-    has no bfloat16, so a bf16 tensor becomes its raw 2-byte words
-    (dtype ``V2``), the form the reference's ``np.savez`` gives a bf16
-    array: the same bits on disk, stamped ``"bfloat16"``."""
+    """A tensor as a host numpy array that owns its memory: one
+    device-to-host copy, or one copy of a CPU tensor, so the value stays
+    as it was when later steps update the tensor in place (the replica
+    tier keeps it past the commit).  numpy has no bfloat16, so a bf16
+    tensor becomes its raw 2-byte words (dtype ``V2``), the form the
+    reference's ``np.savez`` gives a bf16 array: the same bits on disk,
+    stamped ``"bfloat16"``."""
     t = t.detach()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).cpu().numpy().view("V2")
-    return t.cpu().numpy()
+    bf16 = t.dtype == torch.bfloat16
+    if bf16:
+        t = t.view(torch.int16)
+    host = t.clone() if t.device.type == "cpu" else t.cpu()
+    return host.numpy().view("V2") if bf16 else host.numpy()
 
 
 def from_host(value) -> torch.Tensor:

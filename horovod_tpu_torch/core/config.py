@@ -14,10 +14,13 @@ and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
 (``ControllerConfig``) and the serving plane's (``SERVING_*``, ``SPEC_K``,
 ``TRACE_*``, ``SLO_*``), and the telemetry plane's (``LOG_*``,
 ``METRICS_*``, ``ATTRIBUTION*``, ``PEAK_TFLOPS``, ``PERF_DRIFT*``,
-``FLIGHT_*``), with the reference's defaults and clamps
-(config.py:37, :78-111, :296-362, :475-531).  The attention switch
-``HVD_TPU_FLASH`` is not one of them: the reference reads it under that
-one name (parallel/ring_attention.py), and so does the port.
+``FLIGHT_*``), and the recovery tier's and the wire fabric's
+(``RECOVERY``, ``RECOVERY_STRIDE``, ``CHAOS_*``, ``NET_*``,
+``CHAOS_NET_*``), with the reference's defaults and clamps
+(config.py:37, :78-136, :193-200, :296-372, :438-443, :475-531).  The
+attention switch ``HVD_TPU_FLASH`` is not one of them: the reference
+reads it under that one name (parallel/ring_attention.py), and so does
+the port.
 """
 
 from __future__ import annotations
@@ -166,6 +169,41 @@ FLIGHT_DIR = "FLIGHT_DIR"
 FLIGHT_LAST_EVENTS = "FLIGHT_LAST_EVENTS"
 TREE_KNOBS = (METRICS_TREE, METRICS_TOPK, METRICS_TREE_TIMEOUT_S,
               METRICS_TREE_GRACE_S)
+
+# Peer-to-peer hot recovery (recovery/) and its seeded fault injection
+# (recovery/chaos.py), with the reference's names and defaults
+# (config.py:112-125, :364-372, :559-561): buddy replication on, the buddy
+# ring's shift (0 = the local world size), the chaos schedule's seed, its
+# "rank@step,..." kills, its "<point>[@step]" commit-window crash, the
+# slow-peer latency and the ranks whose buddy copies tear.  The chaos
+# layer is inert unless one CHAOS_* knob is set.
+RECOVERY = "RECOVERY"
+RECOVERY_STRIDE = "RECOVERY_STRIDE"
+CHAOS_SEED = "CHAOS_SEED"
+CHAOS_KILL_STEPS = "CHAOS_KILL_STEPS"
+CHAOS_COMMIT_CRASH = "CHAOS_COMMIT_CRASH"
+CHAOS_SLOW_PEER_MS = "CHAOS_SLOW_PEER_MS"
+CHAOS_TORN_RANKS = "CHAOS_TORN_RANKS"
+
+# The self-healing wire fabric (net/, native/src/net.cc), with the
+# reference's names and defaults (config.py:126-136, :193-200, :438-443,
+# :630-639).  The native ladder's knobs and the CHAOS_NET_* knobs are
+# parsed in C by the runtime as well; the HTTP planes read the attempts
+# per request, the backoff's base and the CHAOS_NET_* schedule here.
+NET_RESILIENCE = "NET_RESILIENCE"
+NET_PROBE_MS = "NET_PROBE_MS"
+NET_RECONNECT_S = "NET_RECONNECT_S"
+NET_OP_DEADLINE_S = "NET_OP_DEADLINE_S"
+NET_MAX_RENEG = "NET_MAX_RENEG"
+NET_RENEGOTIATE = "NET_RENEGOTIATE"
+NET_HTTP_RETRIES = "NET_HTTP_RETRIES"
+NET_HTTP_BACKOFF_MS = "NET_HTTP_BACKOFF_MS"
+CHAOS_NET_SEED = "CHAOS_NET_SEED"
+CHAOS_NET_DROP_PCT = "CHAOS_NET_DROP_PCT"
+CHAOS_NET_RESET_PCT = "CHAOS_NET_RESET_PCT"
+CHAOS_NET_DELAY_MS = "CHAOS_NET_DELAY_MS"
+CHAOS_NET_TRUNCATE = "CHAOS_NET_TRUNCATE"
+CHAOS_NET_BLACKHOLE = "CHAOS_NET_BLACKHOLE"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -479,3 +517,43 @@ def tree_knobs_set() -> list:
 
 def flight_disable() -> bool:
     return get_bool(FLIGHT_DISABLE, TELEMETRY.flight_disable)
+
+
+# ---------------------------------------------------------------------------
+# peer recovery and the wire fabric
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryDefaults:
+    """The defaults of the recovery and HTTP-retry knobs read here
+    (reference ``Config``, config.py:364-372, :442-443); the native
+    ladder's are the runtime's own (``native/src/net.cc``)."""
+    recovery: bool = True
+    recovery_stride: int = 0
+    net_http_retries: int = 3
+    net_http_backoff_ms: float = 50.0
+
+
+RECOVERY_DEFAULTS = RecoveryDefaults()
+
+
+def recovery() -> bool:
+    """Buddy replication at commit and the peer restore before the disk."""
+    return get_bool(RECOVERY, RECOVERY_DEFAULTS.recovery)
+
+
+def recovery_stride() -> int:
+    """The buddy ring's shift; 0 = the local world size."""
+    return max(0, get_int_or(RECOVERY_STRIDE,
+                             RECOVERY_DEFAULTS.recovery_stride))
+
+
+def net_http_retries() -> int:
+    """Attempts per HTTP request, at least 1."""
+    return max(1, get_int_or(NET_HTTP_RETRIES,
+                             RECOVERY_DEFAULTS.net_http_retries))
+
+
+def net_http_backoff_ms() -> float:
+    return get_float(NET_HTTP_BACKOFF_MS,
+                     RECOVERY_DEFAULTS.net_http_backoff_ms)

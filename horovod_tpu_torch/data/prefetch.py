@@ -14,7 +14,7 @@ span, which feeds the ``hvd_data_wait_*`` metrics the step attribution
 reads as its ``input`` component; a stall warning counts in
 ``hvd_data_stall_warnings_total``; waits, stalls and a dead producer are
 flight events.  (The reference's ``HVD_TPU_CHAOS_INPUT_DELAY_MS`` drill
-comes with its chaos layer, ROADMAP queue 1 item 7.)
+comes with the drift diagnosis it exercises, ROADMAP queue 1 item 9b.)
 
 Correctness properties the tests pin down:
 

@@ -9,8 +9,8 @@ The rest of the reference's surface — the ``/debug/*`` HTTP endpoint
 (``serve``, ``serve_and_publish``), the hang watchdog
 (``start_stall_watchdog``), the fleet trace merge and the drift-triggered
 regression report — comes with ROADMAP queue 1 item 9b; those entry
-points raise until then.  ``estimate_clock_offset`` needs the rendezvous
-KV server (item 7) and raises too.
+points raise until then.  ``estimate_clock_offset`` aligns the recorder's
+clock against the rendezvous KV server's.
 """
 
 from . import flight

@@ -19,8 +19,7 @@ Design constraints:
 * **Two clocks per event.**  ``t_mono`` (monotonic: durations survive
   wall-clock steps) and ``t_wall`` (wall: cross-rank alignment).  The
   coordinator clock-offset estimate (:func:`estimate_clock_offset`) rides
-  the rendezvous HTTP channel, which the port gets with ROADMAP queue 1
-  item 7; until then it raises.
+  the rendezvous HTTP channel (the KV server's ``debug/time`` key).
 
 Knobs (``HVD_TPU_FLIGHT_*`` / ``HOROVOD_FLIGHT_*``): ``FLIGHT_DISABLE``,
 ``FLIGHT_CAPACITY`` (default 4096 events), ``FLIGHT_DIR`` (dump
@@ -211,13 +210,35 @@ def last_events_limit() -> int:
 def estimate_clock_offset(addr: Optional[str] = None, samples: int = 5,
                           timeout: float = 2.0) -> Optional[dict]:
     """Estimate ``local_wall - coordinator_wall`` against the rendezvous
-    server's ``debug/time`` key.  The reference signs one GET per sample
-    through ``runner.rendezvous.http_get``, which the port gets with the
-    rendezvous KV server (ROADMAP queue 1 item 7); until then this
-    raises."""
-    raise NotImplementedError(
-        "estimate_clock_offset needs runner.rendezvous.http_get, which the "
-        "port gets with the rendezvous KV server (ROADMAP queue 1 item 7)")
+    server's ``debug/time`` key (``addr``, else
+    ``HVD_TPU_RENDEZVOUS_ADDR``), one signed GET a sample, NTP-style: the
+    server's time against the request's midpoint, the sample with the
+    smallest round trip winning.  Returns ``{"offset_s", "rtt_s",
+    "method"}``, also stored on the recorder, or None when no server
+    answered."""
+    addr = addr or os.environ.get("HVD_TPU_RENDEZVOUS_ADDR")
+    if not addr:
+        return None
+    from ..runner.rendezvous import http_get
+    best = None
+    for _ in range(max(1, samples)):
+        t0 = time.time()
+        body = http_get(addr, "debug", "time", timeout=timeout)
+        t1 = time.time()
+        if body is None:
+            continue
+        try:
+            server = float(body)
+        except ValueError:
+            continue
+        rtt = t1 - t0
+        offset = (t0 + t1) / 2.0 - server
+        if best is None or rtt < best[1]:
+            best = (offset, rtt)
+    if best is None:
+        return None
+    recorder().set_clock(best[0], rtt_s=best[1], method="rendezvous")
+    return dict(recorder().clock)
 
 
 # ---------------------------------------------------------------------------

@@ -139,6 +139,9 @@ def load_library():
             "hvd_native_last_bcast_schedule": (cint, []),
             "hvd_native_last_fused_names": (i64, []),
             "hvd_native_cache_hits": (i64, []),
+            "hvd_native_adasum_scratch_peak": (i64, []),
+            "hvd_native_adasum_scratch_reset": (None, []),
+            "hvd_native_net_counters": (cint, [p64, cint]),
             "hvd_native_set_device_executor": (None, [_DEVICE_EXEC_FN]),
             "hvd_native_shutdown": (None, []),
         }
@@ -757,6 +760,30 @@ class NativeController:
         return {"allreduce": self.last_allreduce_schedule(),
                 "allgather": self.last_allgather_schedule(),
                 "broadcast": self.last_bcast_schedule()}
+
+    def adasum_scratch_peak(self) -> int:
+        """Peak scratch bytes of the host Adasum path since the last
+        reset."""
+        return int(self._lib.hvd_native_adasum_scratch_peak())
+
+    def adasum_scratch_reset(self) -> None:
+        self._lib.hvd_native_adasum_scratch_reset()
+
+    NET_COUNTER_FIELDS = ("retries", "reconnects", "renegotiations",
+                          "resets_avoided", "chaos_injected",
+                          "recovering_now", "last_recovery_age_ms")
+
+    def net_counters(self) -> dict:
+        """The wire fabric's escalation-ladder counters (``net.cc``):
+        recovery attempts, resumed reconnects, ring renegotiations,
+        collectives completed after a recovery, chaos injections, the
+        channels recovering now and the age of the last recovery in ms
+        (-1 = never).  Process-cumulative; ``net.sync_native_metrics``
+        folds them into the registry."""
+        buf = (ctypes.c_int64 * len(self.NET_COUNTER_FIELDS))()
+        n = self._lib.hvd_native_net_counters(buf, len(buf))
+        return {k: int(buf[i]) for i, k in
+                enumerate(self.NET_COUNTER_FIELDS[:n])}
 
     def rank(self) -> int:
         return self._lib.hvd_native_rank()

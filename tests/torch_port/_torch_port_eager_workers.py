@@ -75,12 +75,64 @@ HOST_OPS = ("allreduce_sum", "allreduce_average", "allreduce_min",
             "reducescatter", "adasum", "bf16_sum")
 
 
-def reference_host_rank(rank, world, port, out_dir):
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+REF_NATIVE_SRC = os.path.join(ROOT, "horovod_tpu", "native", "src")
+REF_NATIVE_BUILD = os.path.join(ROOT, "horovod_tpu_torch", "_build",
+                                "reference_native")
+
+
+def reference_native_library() -> str:
+    """The reference's runtime, built once from a pristine copy of
+    ``horovod_tpu/native/src`` into ``_build/reference_native/`` (keyed by
+    the sources' hash) under an ``fcntl`` lock, the library renamed into
+    place whole.  The reference's own loader runs ``make`` in its source
+    tree in every process that finds no library there, so concurrent
+    processes (these ranks, other test workers) race on its ``.o`` files
+    and link a broken library; its ranks here load this one instead."""
+    import fcntl
+    import hashlib
+    import shutil
+    import subprocess
+    import tempfile
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(REF_NATIVE_SRC)):
+        if name.endswith((".cc", ".h")) or name == "Makefile":
+            h.update(name.encode() + b"\0")
+            with open(os.path.join(REF_NATIVE_SRC, name), "rb") as f:
+                h.update(f.read())
+    out = os.path.join(REF_NATIVE_BUILD,
+                       f"libhvdtpu_core-{h.hexdigest()[:16]}.so")
+    if os.path.isfile(out):
+        return out
+    os.makedirs(REF_NATIVE_BUILD, exist_ok=True)
+    with open(os.path.join(REF_NATIVE_BUILD, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.isfile(out):           # built by another process
+            return out
+        tmp = tempfile.mkdtemp(dir=REF_NATIVE_BUILD)
+        try:
+            src = os.path.join(tmp, "src")
+            shutil.copytree(REF_NATIVE_SRC, src, ignore=shutil.ignore_patterns(
+                "*.o", "*.so", "__pycache__"))
+            subprocess.run(["make", "-j", str(os.cpu_count() or 1), "-C",
+                            src], check=True, capture_output=True)
+            # The Makefile links ../libhvdtpu_core.so beside its sources.
+            os.replace(os.path.join(tmp, "libhvdtpu_core.so"), out)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def reference_host_rank(rank, world, port, out_dir, library):
     """One rank of the reference's controller (horovod_tpu) running
-    ``host_plane_ops``; writes ``ref_host<rank>.npz``."""
+    ``host_plane_ops`` on the runtime at ``library``
+    (:func:`reference_native_library`); writes ``ref_host<rank>.npz``."""
     os.environ["HVD_TPU_CYCLE_TIME"] = "1"
     import ml_dtypes
+    from horovod_tpu.native import controller
     from horovod_tpu.native.controller import NativeController
+    controller._lib_path = lambda: library
     ctl = NativeController(rank, world, f"127.0.0.1:{port}")
     try:
         ops = {
@@ -226,13 +278,19 @@ def native_part(rank, world, rendezvous, out_dir):
                                          name="j.host")
         res["join_last"] = hvd.join()
     # Stall: rank 1 is late past the 1 s warning, well within the 5 s
-    # shutdown window; rank 0 reads the inspector meanwhile.
+    # shutdown window; rank 0 reads the inspector meanwhile, from 1.1 s
+    # on until it lists the stall (the barrier starts the ranks' clocks
+    # together, so rank 1 cannot arrive early and leave nothing stalled).
+    hvd.barrier()
     if rank == 1:
         time.sleep(2.0)
     h = hvd.allreduce_async(torch.ones(4), op=hvd.Sum, name="late")
     if rank == 0:
-        time.sleep(1.6)
+        time.sleep(1.1)
         res["stalled"] = ctl.stalled()
+        while not res["stalled"] and not hvd.poll(h):
+            time.sleep(0.05)
+            res["stalled"] = ctl.stalled()
     res["late"] = hvd.synchronize(h)
     hvd.shutdown()
     # Stall shutdown (a 5 s window): only rank 0 submits "never"; the

@@ -10,8 +10,9 @@ zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt), of
 ``_torch_port_modes_workers`` (units, modes, moe), of
 ``_torch_port_models_workers`` (resnet, bert, moet; their inputs written
 by the test file's ``prepare`` hook) and of
-``_torch_port_telemetry_workers`` (telemetry, two ranks) for the test file
-of that part.  The ranks fork from a server that imported torch once
+``_torch_port_telemetry_workers`` (telemetry, two ranks) and of
+``_torch_port_recovery_workers`` (recovery) for the test file of that
+part.  The ranks fork from a server that imported torch once
 for all four."""
 
 import functools
@@ -86,7 +87,7 @@ def part_inputs(part: str) -> dict:
     """The seeded inputs of one part, per rank along axis 0 where they
     differ between ranks (the negotiated plane's parts seed their own)."""
     if part in NEGOTIATED_PARTS or part in MODEL_PARTS or \
-            part == "telemetry":
+            part in ("telemetry", "recovery"):
         return {}
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
                                  "sbn": 14, "ckpt": 15, "gspmd": 16,
@@ -179,7 +180,8 @@ def _spawn(body, out, world: int = WORLD):
          "_torch_port_workers", "_torch_port_training_workers",
          "_torch_port_checkpoint_workers", "_torch_port_parallel_workers",
          "_torch_port_eager_workers", "_torch_port_modes_workers",
-         "_torch_port_models_workers", "_torch_port_telemetry_workers"])
+         "_torch_port_models_workers", "_torch_port_telemetry_workers",
+         "_torch_port_recovery_workers"])
     mp.start_processes(body, args=(world, f"{out}/rendezvous", str(out)),
                        nprocs=world, join=True, start_method="forkserver")
 
@@ -198,7 +200,8 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
     for "ckpt", ``_torch_port_parallel_workers`` for "gspmd" and "ring",
     ``_torch_port_eager_workers`` for the negotiated plane's parts,
     ``_torch_port_modes_workers`` for "units", "modes" and "moe",
-    ``_torch_port_models_workers`` for "resnet", "bert" and "moet"),
+    ``_torch_port_models_workers`` for "resnet", "bert" and "moet",
+    ``_torch_port_recovery_workers`` for "recovery"),
     from one start of the ranks per part and test process.
     ``prepare(out_dir)`` writes what the ranks read beyond the part's
     inputs, before they start; ``part_dir(part)`` is that directory."""
@@ -208,11 +211,12 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
         import _torch_port_models_workers as model_workers
         import _torch_port_modes_workers as modes_workers
         import _torch_port_parallel_workers as par_workers
+        import _torch_port_recovery_workers as rec_workers
         import _torch_port_telemetry_workers as tel_workers
         import _torch_port_training_workers as workers
         out = tmp_path_factory.mktemp(f"{part}_pool")
         np.savez(os.path.join(out, f"{part}.npz"), **part_inputs(part))
-        if part == "zero":
+        if part in ("zero", "recovery"):
             _save_lm(out)
         if prepare is not None:
             prepare(str(out))
@@ -235,7 +239,8 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "resnet": model_workers.resnet_part,
                 "bert": model_workers.bert_part,
                 "moet": model_workers.moet_part,
-                "telemetry": tel_workers.telemetry_part}[part], out, world)
+                "telemetry": tel_workers.telemetry_part,
+                "recovery": rec_workers.recovery_part}[part], out, world)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
                         for r in range(world)]
     return _PARTS[part]

@@ -1,7 +1,8 @@
 """horovod_tpu_torch.debug's flight recorder against horovod_tpu.debug's:
 the same seeded event sequence dumps the same object except for the
 clocks, host and pid; the ring keeps the newest ``capacity`` events;
-``dump`` writes the same file name; the item-9b entry points raise.  And
+``dump`` writes the same file name; the item-9b entry points raise; the
+clock offset aligns against a rendezvous server's clock.  And
 the port's ``utils.logging`` / ``utils.profiler`` beside the
 reference's."""
 
@@ -139,8 +140,35 @@ def test_module_surface_and_item_9b_entry_points():
             fn(*args)
     debug_t.stop_serving()
     debug_t.stop_stall_watchdog()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        debug_t.estimate_clock_offset("127.0.0.1:1")
+    # No rendezvous server answers: no estimate, as in the reference.
+    assert debug_t.estimate_clock_offset("127.0.0.1:1", samples=1,
+                                         timeout=0.2) is None
+    assert debug_t.estimate_clock_offset(None) is None
+
+
+@pytest.mark.parametrize("server", ["port", "reference"])
+def test_clock_offset_against_a_skewed_rendezvous_server(server,
+                                                         monkeypatch):
+    """A rendezvous server whose clock runs 2.5 s ahead: the offset
+    estimate is -2.5 s within loopback noise (the reference's golden),
+    from either package's server, stored on the recorder."""
+    import time
+    from horovod_tpu.runner import rendezvous as rdv_j
+    from horovod_tpu_torch.runner import rendezvous as rdv_t
+    rdv = rdv_t if server == "port" else rdv_j
+    skew = 2.5
+    monkeypatch.setattr(rdv, "_now_wall", lambda: time.time() + skew)
+    monkeypatch.setattr(fl_t, "_recorder", fl_t.FlightRecorder(enabled=True))
+    srv = rdv.RendezvousServer(host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        est = debug_t.estimate_clock_offset(f"127.0.0.1:{srv.port}",
+                                            samples=4)
+        assert abs(est["offset_s"] + skew) < 0.25, est
+        assert est["rtt_s"] < 1.0 and est["method"] == "rendezvous"
+        assert fl_t.recorder().clock == est
+    finally:
+        srv.stop()
 
 
 def test_logging_levels_and_rank_prefix(monkeypatch, capsys):

@@ -37,6 +37,11 @@ import _torch_port_eager_workers as workers
 import _torch_port_pool as pool
 from horovod_tpu_torch.native import _build
 
+# The module's two fixtures start four gloo ranks and four reference
+# ranks (each importing JAX) inside the setup of the first test that uses
+# them; under a loaded suite that has run past the default 180 s limit.
+pytestmark = pytest.mark.timeout(300)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 REF_SRC = os.path.join(ROOT, "horovod_tpu", "native", "src")
@@ -98,12 +103,15 @@ def native(tmp_path_factory):
 @pytest.fixture(scope="module")
 def reference_host(tmp_path_factory):
     """The reference's controller on four ranks (their own processes)
-    running ``host_plane_ops``."""
+    running ``host_plane_ops``, on its runtime built once from a copy of
+    its sources (``workers.reference_native_library``)."""
     out = str(tmp_path_factory.mktemp("ref_host"))
+    library = workers.reference_native_library()
     port = pool.free_ports(1)[0]
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=workers.reference_host_rank,
-                         args=(r, WORLD, port, out)) for r in range(WORLD)]
+                         args=(r, WORLD, port, out, library))
+             for r in range(WORLD)]
     for p in procs:
         p.start()
     for p in procs:

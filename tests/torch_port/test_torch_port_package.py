@@ -95,11 +95,18 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.metrics.baseline",
     "horovod_tpu_torch.metrics.aggregate", "horovod_tpu_torch.debug",
     "horovod_tpu_torch.debug.flight", "horovod_tpu_torch.utils.logging",
-    "horovod_tpu_torch.utils.profiler"])
+    "horovod_tpu_torch.utils.profiler",
+    "horovod_tpu_torch.net", "horovod_tpu_torch.net.retry",
+    "horovod_tpu_torch.net.chaos", "horovod_tpu_torch.net.native",
+    "horovod_tpu_torch.recovery", "horovod_tpu_torch.recovery.buddy",
+    "horovod_tpu_torch.recovery.chaos", "horovod_tpu_torch.recovery.store",
+    "horovod_tpu_torch.recovery.transport",
+    "horovod_tpu_torch.recovery.peer"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     """Each module of the mesh, the GSPMD plane, sequence parallelism,
-    the models, the serving plane and the telemetry plane, imported first
-    in a fresh interpreter where ``import jax`` fails."""
+    the models, the serving plane, the telemetry plane, the wire fabric
+    and the recovery tier, imported first in a fresh interpreter where
+    ``import jax`` fails."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"importlib.import_module({module!r})\n"
