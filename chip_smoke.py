@@ -230,6 +230,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              own (pending until the sealing push), then fetched back from
              the endpoint's store, verified and equal array for array;
              hvd_net_retries_total{plane="http"} > 0; the push's MB/s.
+17. elastic — the flagship's ZeRO stage 2 AdamW (8 steps through the
+             kernels on seeded batches; two uninterrupted runs in this
+             process give the losses and their spread) under the port's
+             ElasticDriver, world 1 on NCCL, a worker (this script with
+             --elastic-worker) training under @elastic.run with a
+             TpuState committing {"model", "opt", "step"} after every
+             step.  (a) Hosts localhost:1 and 127.0.0.1:1, min_np =
+             max_np = 1, HVD_TPU_CHAOS_KILL_STEPS=0@4: the worker exits
+             after its step-4 commit, the driver blacklists localhost
+             and publishes round 1 on 127.0.0.1, the respawned worker's
+             sync reports "disk" at step 4, and the 8 steps' losses
+             equal the uninterrupted run's (within its spread); 64
+             launches of each kernel over the two workers.  (b) One
+             host, HVD_TPU_FLEET_JOB_ID set so rank 0 announces its
+             commits: after two commits announce_resize(), then, once
+             last_commit() is newer, request_resize(1); the worker takes
+             HostsUpdatedInterrupt at its commit, runs shutdown() and
+             init() in its process on the same card, its sync reports
+             "peer" (its own replica), the losses equal the
+             uninterrupted run's; the reset and the sync timed.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -3385,6 +3405,258 @@ def phase_recovery(torch, hvd, tfm, fa, cfg, par, card):
     return out
 
 
+# Phase 17: elastic training of the flagship's ZeRO-2 step under the
+# port's ElasticDriver, world 1 on NCCL.  The worker is this script with
+# --elastic-worker; the driver respawns it.
+ELASTIC_STEPS = 8
+ELASTIC_KILL = "0@4"            # HVD_TPU_CHAOS_KILL_STEPS: rank 0, step 4
+ELASTIC_BATCH_SEED = 1700
+ELASTIC_DEADLINE_S = 300.0
+
+
+def elastic_batches(tfm, cfg, batch):
+    return [tfm.synthetic_batch(cfg, batch, seed=ELASTIC_BATCH_SEED + i)
+            for i in range(ELASTIC_STEPS)]
+
+
+def elastic_worker(log_prefix, ckpt_dir):
+    """One elastic worker of phase 17: the flagship's ZeRO-2 AdamW under
+    @elastic.run, its TpuState committing {"model", "opt", "step"} after
+    every step; one JSON line an event to <log_prefix>.<slot>."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import elastic, recovery
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.metrics.registry import registry
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    def note(**fields):
+        fields.update(slot=os.environ["HVD_TPU_ELASTIC_SLOT"],
+                      pid=os.getpid(), t=time.time())
+        with open(f"{log_prefix}.{fields['slot']}", "a") as f:
+            f.write(json.dumps(fields) + "\n")
+
+    hvd.init()
+    cfg = tfm.TransformerConfig(vocab_size=8192, d_model=512, n_heads=8,
+                                d_ff=2048, n_layers=8, seq_len=512,
+                                dtype=torch.bfloat16, remat=False)
+    par = tfm.ParallelConfig()
+    model = tfm.Transformer(cfg, par, seed=0)
+    opt = hvd.ZeroShardedOptimizer(model, lambda ps: torch.optim.AdamW(
+        ps, lr=3e-4, weight_decay=1e-4), stage=2)
+    counter = torch.zeros((), dtype=torch.int64)
+    state = elastic.TpuState(
+        opt_state={"model": model.state_dict(), "opt": opt,
+                   "step": counter}, checkpoint_dir=ckpt_dir)
+    state.register_reset_callbacks([lambda: note(event="reset_done")])
+    step = tfm.make_train_step(cfg, par, model, opt)
+    batches = elastic_batches(tfm, cfg, 8)
+    sync_s = registry().gauge("hvd_elastic_sync_seconds",
+                              "Duration of the last elastic state sync")
+
+    @elastic.run
+    def train(state):
+        rep = recovery.last_report()
+        note(event="sync", round=global_state.elastic_round,
+             path=rep.path if rep else None, step=int(counter),
+             sync_s=sync_s.value, device=str(hvd.device()))
+        while int(counter) < ELASTIC_STEPS:
+            i = int(counter)
+            loss = step(*batches[i]).item()
+            counter.add_(1)
+            try:
+                state.commit()
+            except hvd.HostsUpdatedInterrupt:
+                note(event="interrupt", step=i + 1, loss=loss,
+                     launches=dict(fa.launches))
+                raise
+            note(event="step", step=i + 1, loss=loss,
+                 round=global_state.elastic_round,
+                 launches=dict(fa.launches))
+            recovery.chaos().maybe_kill(hvd.rank(), i + 1, hard=True)
+
+    train(state)
+    hvd.shutdown()
+
+
+def drive_elastic(hosts, extra_env, log_prefix, ckpt_dir, during=None):
+    """Run the port's ElasticDriver (min_np = max_np = 1) over ``hosts``
+    with phase 17's worker; ``during(driver)`` runs beside it.  Returns
+    (exit code, blacklist, events in time order)."""
+    import glob
+    import threading
+    from horovod_tpu_torch.runner.elastic_driver import (ElasticDriver,
+                                                         FixedHosts)
+    cmd = [sys.executable, os.path.abspath(__file__), "--elastic-worker",
+           json.dumps({"log_prefix": log_prefix, "ckpt_dir": ckpt_dir})]
+    driver = ElasticDriver(FixedHosts(hosts), cmd, min_np=1, max_np=1,
+                           extra_env=extra_env, verbose=True)
+    result = {}
+    th = threading.Thread(target=lambda: result.update(rc=driver.run()),
+                          daemon=True)
+    th.start()
+    try:
+        if during is not None:
+            during(driver)
+    finally:
+        th.join(ELASTIC_DEADLINE_S)
+        if th.is_alive():
+            driver.preempt("chip_smoke phase 17 deadline")
+            th.join(60)
+    events = []
+    for path in glob.glob(log_prefix + ".*"):
+        with open(path) as f:
+            events += [json.loads(line) for line in f]
+    events.sort(key=lambda e: e["t"])
+    return result.get("rc"), sorted(driver._blacklist), events
+
+
+def elastic_losses(events):
+    """{step: loss} of the committed steps (a step logged twice, by a
+    worker and its successor, must agree)."""
+    out = {}
+    for e in events:
+        if e["event"] in ("step", "interrupt"):
+            assert out.get(e["step"], e["loss"]) == e["loss"], e
+            out[e["step"]] = e["loss"]
+    return [out[i] for i in range(1, ELASTIC_STEPS + 1)]
+
+
+def elastic_launches(events):
+    """Kernel launches of every worker process, summed (each process
+    counts from 0)."""
+    last = {}
+    for e in events:
+        if "launches" in e:
+            last[e["pid"]] = e["launches"]
+    return {n: sum(p[n] for p in last.values()) for n in KERNELS}
+
+
+def phase_elastic(torch, hvd, tfm, fa, cfg, par, card):
+    """Phase 17: elastic training on the card; returns the report."""
+    import tempfile
+    from horovod_tpu_torch.runner.hosts import HostInfo
+    report = {}
+    # The uninterrupted run, twice, in this process: the losses to match
+    # and their run-to-run spread.
+    hvd.init()
+    try:
+        batches = elastic_batches(tfm, cfg, 8)
+        clean = []
+        for _ in range(2):
+            model = tfm.Transformer(cfg, par, seed=0)
+            opt = hvd.ZeroShardedOptimizer(
+                model, lambda ps: torch.optim.AdamW(
+                    ps, lr=3e-4, weight_decay=1e-4), stage=2)
+            step = tfm.make_train_step(cfg, par, model, opt)
+            clean.append([step(*b).item() for b in batches])
+            del model, opt, step
+    finally:
+        hvd.shutdown()
+    spread = max(abs(x - y) for x, y in zip(*clean))
+    report.update(clean_losses=clean, clean_spread=spread)
+    torch.cuda.empty_cache()
+
+    # (a) Kill and respawn.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc, blacklist, ev = drive_elastic(
+            [HostInfo("localhost", 1), HostInfo("127.0.0.1", 1)],
+            {"HVD_TPU_CHAOS_KILL_STEPS": ELASTIC_KILL},
+            os.path.join(tmp, "log"), os.path.join(tmp, "ckpt"))
+        wall = time.perf_counter() - t0
+    syncs = [(e["slot"], e["round"], e["path"], e["step"]) for e in ev
+             if e["event"] == "sync"]
+    losses = elastic_losses(ev)
+    launches = elastic_launches(ev)
+    diff = max(abs(x - y) for x, y in zip(losses, clean[0]))
+    steps = [e for e in ev if e["event"] == "step"]
+    resync = [e for e in ev if e["event"] == "sync"][-1]
+    # The death follows the step-4 event at once; the successor's sync
+    # event comes after its start, init and restore.
+    respawn_s = resync["t"] - steps[3]["t"]
+    step_s = statistics.median(b["t"] - a["t"] for a, b in
+                               zip(steps, steps[1:]) if a["pid"] == b["pid"])
+    log(f"[elastic] (a) kill and respawn: exit {rc}, blacklist {blacklist},"
+        f" syncs (slot, round, path, step) {syncs}; losses {losses} "
+        f"against the uninterrupted {clean[0]} (max |diff| {diff:.3g}, "
+        f"run-to-run spread {spread:.3g}); kernel launches {launches}; "
+        f"the death to the successor's synced state {respawn_s:.3f} s, of "
+        f"which the disk sync {resync['sync_s']:.3f} s; a step with its "
+        f"commit {step_s:.3f} s (median); {wall:.1f} s, on {card}")
+    assert rc == 0, rc
+    assert blacklist == ["localhost"], blacklist
+    assert syncs == [("localhost:0", 0, "none", 0),
+                     ("127.0.0.1:0", 1, "disk", 4)], syncs
+    assert diff <= spread, (losses, clean)
+    for n in KERNELS:
+        assert launches[n] == cfg.n_layers * ELASTIC_STEPS, launches
+    report["kill"] = dict(exit=rc, blacklist=blacklist, syncs=syncs,
+                          losses=losses, max_diff=diff, launches=launches,
+                          respawn_s=respawn_s, sync_s=resync["sync_s"],
+                          step_commit_s=step_s, seconds=wall)
+
+    # (b) Reset in place, driven as a fleet scheduler drives it.
+    def resize(driver):
+        deadline = time.time() + ELASTIC_DEADLINE_S
+        while time.time() < deadline:
+            commit = driver.last_commit()
+            if commit is not None and commit["generation"] >= 2:
+                break
+            time.sleep(0.05)
+        announced = driver.announce_resize()
+        while time.time() < deadline:
+            commit = driver.last_commit()
+            if commit is not None and commit["ts"] > announced:
+                break
+            time.sleep(0.05)
+        timing["request"] = time.time()
+        assert driver.request_resize(1, reason="chip_smoke phase 17 (b)")
+
+    timing = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc, blacklist, ev = drive_elastic(
+            [HostInfo("localhost", 1)],
+            {"HVD_TPU_FLEET_JOB_ID": "chip-smoke"},
+            os.path.join(tmp, "log"), os.path.join(tmp, "ckpt"), resize)
+        wall = time.perf_counter() - t0
+    syncs = [(e["round"], e["path"], e["step"]) for e in ev
+             if e["event"] == "sync"]
+    pids = {e["pid"] for e in ev}
+    (interrupt,) = [e for e in ev if e["event"] == "interrupt"]
+    (reset,) = [e for e in ev if e["event"] == "reset_done"]
+    resync = [e for e in ev if e["event"] == "sync"][-1]
+    losses = elastic_losses(ev)
+    launches = elastic_launches(ev)
+    diff = max(abs(x - y) for x, y in zip(losses, clean[0]))
+    reset_s = reset["t"] - interrupt["t"]
+    after_request_s = reset["t"] - timing["request"]
+    log(f"[elastic] (b) reset in place: exit {rc}, one process "
+        f"({len(pids)} pid), HostsUpdatedInterrupt at step "
+        f"{interrupt['step']}, syncs (round, path, step) {syncs}; reset "
+        f"(interrupt -> init done, waiting for the driver's round) "
+        f"{reset_s:.3f} s, of which {after_request_s:.3f} s after "
+        f"request_resize; sync {resync['sync_s']:.3f} s; losses {losses} "
+        f"(max |diff| {diff:.3g} against the uninterrupted run); kernel "
+        f"launches {launches}; {wall:.1f} s, on {card}")
+    assert rc == 0 and blacklist == [], (rc, blacklist)
+    assert len(pids) == 1, pids
+    assert syncs == [(0, "none", 0), (1, "peer", interrupt["step"])], syncs
+    assert diff <= spread, (losses, clean)
+    for n in KERNELS:
+        assert launches[n] == cfg.n_layers * ELASTIC_STEPS, launches
+    report["reset"] = dict(exit=rc, syncs=syncs, losses=losses,
+                           max_diff=diff, launches=launches,
+                           interrupt_step=interrupt["step"],
+                           reset_s=reset_s,
+                           reset_after_request_s=after_request_s,
+                           sync_s=resync["sync_s"], seconds=wall)
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3596,6 +3868,9 @@ def main() -> int:
     # 16. the peer recovery tier: commit, peer restore and resume of the
     # flagship's ZeRO-2 state, the signed transport under wire chaos
     report["recovery"] = phase_recovery(torch, hvd, tfm, fa, cfg, par, card)
+    # 17. elastic training: a worker killed and respawned from the disk,
+    # and a reset in place restored from its own replica
+    report["elastic"] = phase_elastic(torch, hvd, tfm, fa, cfg, par, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -3630,6 +3905,9 @@ def main() -> int:
                         for w, r in models["moe_transformer"]["runs"]
                         .items()})
         by_path["recovery"] = report["recovery"]["launches"][name]
+        by_path["elastic"] = report["elastic"]["kill"]["launches"][name]
+        by_path["elastic_reset"] = \
+            report["elastic"]["reset"]["launches"][name]
         # The serving prefill is a forward: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \
@@ -3656,4 +3934,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(**json.loads(sys.argv[2])))
     sys.exit(main())

@@ -13,8 +13,9 @@ ZeRO plane (``gspmd``), sequence-parallel attention (ring and Ulysses,
 ``parallel``), the negotiated eager plane of the native controller
 (``init(use_controller=True)``: named collectives in any order per rank,
 fused, with the response cache, stall inspector and timeline; ``eager``,
-``dispatch``, ``native``), and the transformer's attention on
-hand-written CUDA flash-attention kernels.
+``dispatch``, ``native``), elastic training under the elastic driver
+(``elastic``, ``runner.elastic_driver``), and the transformer's attention
+on hand-written CUDA flash-attention kernels.
 Imports neither JAX nor ``horovod_tpu``.
 """
 
@@ -42,6 +43,7 @@ from .optimizers import (DistributedOptimizer, ZeroShardedOptimizer,
                          allreduce_gradients, broadcast_object,
                          broadcast_optimizer_state, broadcast_parameters,
                          grad, value_and_grad)
+from . import elastic
 from . import parallel
 from .parallel import mesh as mesh_lib
 from .version import __version__

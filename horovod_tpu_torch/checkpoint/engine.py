@@ -24,10 +24,12 @@ the step attribution's ``checkpoint`` component).
 
 from __future__ import annotations
 
+import contextlib
 import io
 import os
 import shutil
 import tempfile
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -39,9 +41,31 @@ from . import reshard as R
 _ckpt_metrics = None
 
 
+# Foreground/background discrimination for the step attribution: the
+# async committer's flushes run on a daemon thread and overlap training,
+# so their wall time must not land in the blocking-seconds counter the
+# per-step decomposition reads (metrics/attribution.py).
+_io_context = threading.local()
+
+
+@contextlib.contextmanager
+def background_io():
+    """Mark this thread's engine calls as background (the async commit
+    of ``elastic.TpuState``): save/restore durations still feed the
+    ``hvd_checkpoint_*_seconds`` histograms, but are excluded from
+    ``hvd_checkpoint_blocking_seconds_total``."""
+    prev = getattr(_io_context, "background", False)
+    _io_context.background = True
+    try:
+        yield
+    finally:
+        _io_context.background = prev
+
+
 def _record_io_seconds(hist, seconds: float) -> None:
     hist.observe(seconds)
-    _metrics()[6].inc(max(seconds, 0.0))
+    if not getattr(_io_context, "background", False):
+        _metrics()[6].inc(max(seconds, 0.0))
 
 
 def _metrics():
@@ -236,7 +260,7 @@ def save_leaves(root: str, step: int, specs: List[M.LeafSpec],
                 rank_values: Dict[int, List[Optional[np.ndarray]]],
                 world_size: int, *, committer: bool = True,
                 extra: Optional[dict] = None,
-                barrier=None) -> M.Manifest:
+                barrier=None, pre_commit=None) -> M.Manifest:
     """Write shard files for the ranks this process owns, then commit.
 
     ``rank_values[r]`` is the list of per-leaf host arrays for rank *r*
@@ -257,6 +281,8 @@ def save_leaves(root: str, step: int, specs: List[M.LeafSpec],
         write_shard(root, step, rank, world_size, arrays)
     if barrier is not None:
         barrier()
+    if pre_commit is not None:
+        pre_commit()
     manifest = M.Manifest(step=step, world_size=world_size, leaves=specs,
                           extra=extra or {})
     if committer:

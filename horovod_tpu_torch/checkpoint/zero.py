@@ -594,10 +594,18 @@ def save_extracted(root: str, ext: ExtractedState, step: int,
     _check_run_fingerprint(root, ext.fingerprint, direction="save")
     (index,) = ext.rank_values
     multi = ext.world > 1
+    from ..recovery.chaos import chaos as _chaos
+
+    def _pre_commit():
+        # The chaos drill's commit-window crash: shards written, the
+        # manifest not (the torn step the manifest-last protocol and the
+        # replica tier's seal exist for).
+        _chaos().maybe_crash("pre_manifest", int(step))
+
     manifest = E.save_leaves(
         root, step, ext.specs, ext.rank_values, ext.world,
         committer=index == 0, extra=fingerprint_extra(ext, extra),
-        barrier=_barrier if multi else None)
+        barrier=_barrier if multi else None, pre_commit=_pre_commit)
     if keep is not None and index == 0:
         E.gc_steps(root, keep=keep)
     if multi:

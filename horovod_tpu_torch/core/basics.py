@@ -19,10 +19,22 @@ plane and makes the process group its device executor alone runs on,
 then probes the schedule dispatch table (reference basics.py:163-190).
 A controller that was asked for and cannot be built, reached, or lined up
 with the torch world raises.
+
+A worker the elastic driver spawned (``HVD_TPU_ELASTIC_SLOT`` set) takes
+its place from the driver's current rendezvous round instead of the
+environment (reference basics.py:68-103): each ``init()`` fetches a round
+newer than the one its last world belonged to, forms the round's torch
+world on the store address the round names, attaches the native
+controller at the round's controller address, and starts the world watch
+of ``core/failure.py``.  ``shutdown()`` then returns on a world whose peer
+died (the communicators of a failed world are aborted, not destroyed),
+and the ``/metrics`` endpoint stays up across the reset, as in the
+reference.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Union
 
 import torch
@@ -77,15 +89,18 @@ def _is_grid(size: int, topo, dev: torch.device) -> bool:
                                  for r, row in enumerate(table))
 
 
-def _attach_controller(rank: int, size: int, local_size: int) -> None:
-    """Attach the native controller, make its executor's process group
-    (collective over the world: every rank, in the same order) and run
-    the dispatch bootstrap.  The controller's rendezvous and the torch
-    world must agree on every rank's place."""
+def _attach_controller(rank: int, size: int, local_size: int,
+                       coord_addr: Optional[str] = None) -> None:
+    """Attach the native controller (at ``coord_addr``, else the
+    environment's), make its executor's process group (collective over
+    the world: every rank, in the same order) and run the dispatch
+    bootstrap.  The controller's rendezvous and the torch world must
+    agree on every rank's place."""
     from ..native import runtime as native_runtime
     from ..ops import dispatch
     group = dist.new_group(list(range(size)))
-    ctl = native_runtime.attach(rank=rank, size=size, local_size=local_size)
+    ctl = native_runtime.attach(rank=rank, size=size, local_size=local_size,
+                                coord_addr=coord_addr)
     if (ctl.rank(), ctl.size()) != (dist.get_rank(), dist.get_world_size()):
         ctl.shutdown()
         raise RuntimeError(
@@ -121,13 +136,22 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     if global_state.initialized:
         return
     from ..metrics.aggregate import refuse_tree
+    from . import failure
     refuse_tree()
     cpu = device is not None and torch.device(device).type == "cpu"
     if not cpu:
         _cuda_or_raise("horovod_tpu_torch.init()")
 
+    elastic = _elastic_assignment()
     env_rank, env_size = _cfg.get_int(_cfg.RANK), _cfg.get_int(_cfg.SIZE)
-    if dist.is_initialized():
+    if elastic is not None:
+        if dist.is_initialized():
+            raise RuntimeError(
+                "an elastic worker's torch.distributed world is formed by "
+                "init() from each rendezvous round; do not initialize one "
+                "before it")
+        rank, size = elastic["rank"], elastic["size"]
+    elif dist.is_initialized():
         rank, size = dist.get_rank(), dist.get_world_size()
         if env_rank is not None and (env_rank, env_size) != (rank, size):
             raise RuntimeError(
@@ -138,10 +162,14 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
         rank, size = env_rank, env_size
     else:
         rank, size = 0, 1
-    local_rank = _cfg.get_int(_cfg.LOCAL_RANK) or 0
-    local_size = _cfg.get_int(_cfg.LOCAL_SIZE) or 1
-    cross_rank = _cfg.get_int(_cfg.CROSS_RANK) or 0
-    cross_size = _cfg.get_int(_cfg.CROSS_SIZE) or 1
+    if elastic is not None:
+        local_rank, local_size = elastic["local_rank"], elastic["local_size"]
+        cross_rank, cross_size = elastic["cross_rank"], elastic["cross_size"]
+    else:
+        local_rank = _cfg.get_int(_cfg.LOCAL_RANK) or 0
+        local_size = _cfg.get_int(_cfg.LOCAL_SIZE) or 1
+        cross_rank = _cfg.get_int(_cfg.CROSS_RANK) or 0
+        cross_size = _cfg.get_int(_cfg.CROSS_SIZE) or 1
 
     if cpu:
         dev, backend = torch.device("cpu"), "gloo"
@@ -151,14 +179,22 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
 
     owns = False
     if not dist.is_initialized():
-        if size == 1 and init_method is None:
+        kwargs = {}
+        if elastic is not None:
+            kwargs.update(failure.world_options(backend))
+            if size > 1 and init_method is None:
+                kwargs["store"] = _round_store(elastic, rank, size)
+        if "store" in kwargs:
+            dist.init_process_group(backend, rank=rank, world_size=size,
+                                    **kwargs)
+        elif size == 1 and init_method is None:
             # In-process store: no port to collide with parallel workers.
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                    world_size=1)
+                                    world_size=1, **kwargs)
         else:
             dist.init_process_group(backend,
                                     init_method=init_method or "env://",
-                                    rank=rank, world_size=size)
+                                    rank=rank, world_size=size, **kwargs)
         owns = True
 
     two_level = _is_grid(size, (local_rank, local_size, cross_rank,
@@ -193,18 +229,50 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     global_state.device = dev
     global_state.owns_process_group = owns
     global_state.metrics_sync_steps = _cfg.metrics_sync_steps()
+    if elastic is not None:
+        global_state.elastic_round = elastic["round"]
+    global_state.elastic_enabled = _cfg.elastic()
     if use_controller is None:
-        use_controller = bool(_cfg.get_env(_cfg.CONTROLLER_ADDR))
+        use_controller = bool(_cfg.get_env(_cfg.CONTROLLER_ADDR)) or \
+            elastic is not None
     if use_controller:
         try:
-            _attach_controller(rank, size, local_size)
+            _attach_controller(rank, size, local_size,
+                               elastic["controller_addr"] if elastic
+                               else None)
         except BaseException:
             if owns:
                 dist.destroy_process_group()
             global_state.reset()
             raise
+    if elastic is not None:
+        failure.start_watch(elastic["round"])
+    else:
+        failure.reset()
     _start_telemetry()
+    _serve_replicas()
     global_state.initialized = True
+
+
+def _round_store(elastic: dict, rank: int, size: int):
+    """The round's ``torch.distributed`` store, at the address the round
+    names.  It waits for the round's members as long as a worker waits
+    for its round: the world's own timeout is the operation deadline
+    (``core/failure.py``), which a worker slow to start must not fail."""
+    import datetime
+    from ..runner.worker import ROUND_TIMEOUT_S
+    host, port = elastic["store_addr"].rsplit(":", 1)
+    return dist.TCPStore(host, int(port), size, is_master=rank == 0,
+                         timeout=datetime.timedelta(seconds=ROUND_TIMEOUT_S))
+
+
+def _elastic_assignment():
+    """This worker's place in the elastic driver's newest round (one past
+    the round of its last world), or None outside an elastic job."""
+    if not os.environ.get("HVD_TPU_ELASTIC_SLOT"):
+        return None
+    from ..runner.worker import fetch_assignment
+    return fetch_assignment(min_round=global_state.elastic_round + 1)
 
 
 def _start_telemetry() -> None:
@@ -221,7 +289,7 @@ def _start_telemetry() -> None:
     reg.gauge("hvd_size", "Total chips in the communicator").set(
         global_state.size)
     reg.gauge("hvd_elastic_round", "Current elastic rendezvous round "
-              "(-1 outside elastic jobs)").set(-1)
+              "(-1 outside elastic jobs)").set(global_state.elastic_round)
     port = _cfg.metrics_port()
     if port and global_state.local_rank == 0:
         from .. import metrics
@@ -236,20 +304,44 @@ def _start_telemetry() -> None:
         debug.flight.set_identity(rank=global_state.rank,
                                   world=global_state.size)
         debug.flight.record("init", None, rank=global_state.rank,
-                            size=global_state.size, round=-1,
+                            size=global_state.size,
+                            round=global_state.elastic_round,
                             wire=global_state.compression)
         debug.install_signal_handler()
 
 
+def _serve_replicas() -> None:
+    """Multi-process jobs with a rendezvous KV publish this process's
+    replica endpoint, so that buddies can push committed shards to it
+    (reference basics.py:263-279).  Serving is idempotent across elastic
+    rounds, and a bind failure degrades the peer tier to the disk."""
+    rdv = os.environ.get("HVD_TPU_RENDEZVOUS_ADDR")
+    if not (rdv and _cfg.recovery() and global_state.controller is not None):
+        return
+    from .. import recovery
+    try:
+        recovery.transport.serve_and_publish(rank=global_state.rank,
+                                             rdv_addr=rdv)
+    except OSError as e:
+        from ..utils import logging as log
+        log.warning("recovery: cannot serve replica endpoint (%s); peer "
+                    "tier degraded to disk", e)
+
+
 def shutdown() -> None:
-    """Tear down the runtime: the native controller first (it blocks until
-    every rank has asked to leave), then the process groups ``init()`` made
-    (all of them with the world, when ``init()`` made the world).  The
-    ``/metrics`` endpoint stops too (the reference leaves it serving
-    across elastic resets, which the port does not have yet)."""
-    from .. import debug, metrics
+    """Tear down the runtime: the world watch, the native controller (it
+    waits for every rank to ask to leave, and gives up on a dead one),
+    then the process groups ``init()`` made (all of them with the world,
+    when ``init()`` made the world).  A world marked failed had its
+    communicators aborted when it was marked (``core/failure.py``), so
+    they are destroyed without the clean teardown a dead peer never
+    answers.  The ``/metrics``
+    endpoint keeps serving, as the reference's does across elastic
+    resets (reference basics.py:328-363)."""
+    from .. import debug
+    from . import failure
     debug.flight.record("shutdown", None)
-    metrics.stop_serving()
+    failure.stop_watch()
     ctl = global_state.controller
     if ctl is not None:
         from ..ops import dispatch

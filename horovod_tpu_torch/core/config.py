@@ -14,9 +14,10 @@ and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
 (``ControllerConfig``) and the serving plane's (``SERVING_*``, ``SPEC_K``,
 ``TRACE_*``, ``SLO_*``), and the telemetry plane's (``LOG_*``,
 ``METRICS_*``, ``ATTRIBUTION*``, ``PEAK_TFLOPS``, ``PERF_DRIFT*``,
-``FLIGHT_*``), and the recovery tier's and the wire fabric's
+``FLIGHT_*``), the recovery tier's and the wire fabric's
 (``RECOVERY``, ``RECOVERY_STRIDE``, ``CHAOS_*``, ``NET_*``,
-``CHAOS_NET_*``), with the reference's defaults and clamps
+``CHAOS_NET_*``), and elastic training's (``ELASTIC``,
+``ASYNC_COMMIT``), with the reference's defaults and clamps
 (config.py:37, :78-136, :193-200, :296-372, :438-443, :475-531).  The
 attention switch ``HVD_TPU_FLASH`` is not one of them: the reference
 reads it under that one name (parallel/ring_attention.py), and so does
@@ -179,6 +180,12 @@ TREE_KNOBS = (METRICS_TREE, METRICS_TOPK, METRICS_TREE_TIMEOUT_S,
 # layer is inert unless one CHAOS_* knob is set.
 RECOVERY = "RECOVERY"
 RECOVERY_STRIDE = "RECOVERY_STRIDE"
+# Elastic training (elastic/, runner/elastic_driver.py), with the
+# reference's names and defaults (config.py:56, :115, :373, :495): the
+# driver's mark on the workers it spawns, and the background disk
+# committer of ``TpuState``.
+ELASTIC = "ELASTIC"
+ASYNC_COMMIT = "ASYNC_COMMIT"
 CHAOS_SEED = "CHAOS_SEED"
 CHAOS_KILL_STEPS = "CHAOS_KILL_STEPS"
 CHAOS_COMMIT_CRASH = "CHAOS_COMMIT_CRASH"
@@ -525,13 +532,17 @@ def flight_disable() -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class RecoveryDefaults:
-    """The defaults of the recovery and HTTP-retry knobs read here
-    (reference ``Config``, config.py:364-372, :442-443); the native
-    ladder's are the runtime's own (``native/src/net.cc``)."""
+    """The defaults of the recovery, HTTP-retry and elastic knobs read
+    here (reference ``Config``, config.py:293, :364-373, :441-443); the
+    native ladder reads its own copy of the operation deadline
+    (``native/src/net.cc``)."""
     recovery: bool = True
     recovery_stride: int = 0
     net_http_retries: int = 3
     net_http_backoff_ms: float = 50.0
+    net_op_deadline_s: float = 60.0
+    elastic: bool = False
+    async_commit: bool = False
 
 
 RECOVERY_DEFAULTS = RecoveryDefaults()
@@ -557,3 +568,17 @@ def net_http_retries() -> int:
 def net_http_backoff_ms() -> float:
     return get_float(NET_HTTP_BACKOFF_MS,
                      RECOVERY_DEFAULTS.net_http_backoff_ms)
+
+
+def net_op_deadline_s() -> float:
+    """The per-operation deadline of the wire fabric; an elastic world's
+    process-group timeout (core/failure.py)."""
+    return get_float(NET_OP_DEADLINE_S, RECOVERY_DEFAULTS.net_op_deadline_s)
+
+
+def elastic() -> bool:
+    return get_bool(ELASTIC, RECOVERY_DEFAULTS.elastic)
+
+
+def async_commit() -> bool:
+    return get_bool(ASYNC_COMMIT, RECOVERY_DEFAULTS.async_commit)

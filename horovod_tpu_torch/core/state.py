@@ -6,8 +6,10 @@ groups of the two-level (local, cross) topology, the device this process
 computes on, the ``DeviceMesh`` (built on first use of ``mesh()``) and the
 axis hint ``init()`` took for it, the session wire and schedule knobs
 ``init()`` read, the native controller ``init()`` attached with the process
-group of its device executor, and whether ``init()`` created the ``torch.distributed``
-process group (and so must destroy it).
+group of its device executor, whether ``init()`` created the
+``torch.distributed`` process group (and so must destroy it), and the
+elastic bookkeeping: whether the driver spawned this worker and the
+rendezvous round its world belongs to.
 """
 
 from __future__ import annotations
@@ -54,9 +56,16 @@ class GlobalState:
     mesh_axes_hint: Optional[tuple] = None
     # HVD_TPU_METRICS_SYNC_STEPS as init() read it (0 = never sync).
     metrics_sync_steps: int = 0
+    # Elastic bookkeeping (HVD_TPU_ELASTIC). elastic_round survives
+    # reset() so a re-init can demand a *newer* rendezvous round than the
+    # one that just failed.
+    elastic_enabled: bool = False
+    elastic_round: int = -1
 
     def reset(self) -> None:
+        elastic_round = self.elastic_round
         self.__init__()
+        self.elastic_round = elastic_round
 
 
 global_state = GlobalState()

@@ -120,6 +120,7 @@ def load_library():
             "hvd_native_result_dims": (cint, [i64, p64, cint]),
             "hvd_native_result_copy": (cint, [i64, vp, i64]),
             "hvd_native_release": (None, [i64]),
+            "hvd_native_interrupt_waits": (None, [cstr]),
             "hvd_native_join": (cint, []),
             "hvd_native_barrier": (cint, []),
             "hvd_native_last_error": (cstr, []),
@@ -250,6 +251,11 @@ class NativeController:
         # Device plane: tensors staged by name with the event that orders
         # them after their producers; results handed back with theirs.
         self._device_lock = threading.Lock()
+        # Host buffers the runtime reads and writes, by handle, until its
+        # wait; those of waits abandoned on a failed elastic world stay
+        # alive until shutdown (the runtime may still write them).
+        self._buffers = {}
+        self._abandoned = []
         self._device_inputs = {}
         self._device_results = {}
         self._device_cb = None
@@ -292,9 +298,10 @@ class NativeController:
             return DuplicateNameError(err)
         return NativeError(err)
 
-    def _enqueued(self, h: int) -> int:
+    def _enqueued(self, h: int, *buffers) -> int:
         if h < 0:
             raise self._enqueue_error()
+        self._buffers[h] = buffers
         with self._stats_lock:
             self._stats["enqueued"] += 1
         return h
@@ -311,12 +318,25 @@ class NativeController:
     def _wait(self, handle: int):
         if self._lib.hvd_native_wait(handle) != 0:
             err = self._last_error()
-            self._lib.hvd_native_release(handle)
+            buffers = self._buffers.pop(handle, None)
+            if self._lib.hvd_native_poll(handle):
+                self._lib.hvd_native_release(handle)
+            else:
+                # Ended by interrupt_waits on a failed world: the op
+                # stays in flight until shutdown.
+                self._abandoned.append(buffers)
             from ..debug import flight as _flight
             _flight.record("collective.error", None, error=err[:256])
             raise NativeError(err)
+        self._buffers.pop(handle, None)
         self._m_ops.inc()
         self._m_fused.set(self._lib.hvd_native_last_fused_names())
+
+    def interrupt_waits(self, reason: str) -> None:
+        """End every wait of this world, now and until shutdown, with
+        ``NativeError(reason)``: the elastic world failed
+        (``core/failure.py``), and its ops are abandoned to shutdown."""
+        self._lib.hvd_native_interrupt_waits(reason.encode())
 
     # -- counters -----------------------------------------------------------
 
@@ -573,7 +593,7 @@ class NativeController:
             self._auto_name("allreduce", name),
             arr.ctypes.data_as(ctypes.c_void_p),
             out.ctypes.data_as(ctypes.c_void_p), ndim, shape,
-            _dtype_code(arr), int(op), prescale, postscale))
+            _dtype_code(arr), int(op), prescale, postscale), arr, out)
 
     def wait(self, handle: int):
         self._wait(handle)
@@ -613,7 +633,7 @@ class NativeController:
         return self._enqueued(self._lib.hvd_native_allgather(
             self._auto_name("allgather", name),
             arr.ctypes.data_as(ctypes.c_void_p), ndim, shape,
-            _dtype_code(arr))), arr
+            _dtype_code(arr)), arr), arr
 
     def allgather_finish(self, h: int, arr: np.ndarray) -> np.ndarray:
         self._wait(h)
@@ -639,7 +659,7 @@ class NativeController:
             self._auto_name("broadcast", name),
             arr.ctypes.data_as(ctypes.c_void_p),
             out.ctypes.data_as(ctypes.c_void_p), ndim, shape,
-            _dtype_code(arr), int(root_rank)))
+            _dtype_code(arr), int(root_rank)), arr, out)
         return h, arr, out
 
     def broadcast_finish(self, h: int, out: np.ndarray) -> np.ndarray:
@@ -663,7 +683,7 @@ class NativeController:
         return self._enqueued(self._lib.hvd_native_alltoall(
             self._auto_name("alltoall", name),
             arr.ctypes.data_as(ctypes.c_void_p), ndim, shape,
-            _dtype_code(arr), sp, len(splits))), arr
+            _dtype_code(arr), sp, len(splits)), arr), arr
 
     def alltoall_finish(self, h: int, arr: np.ndarray
                         ) -> Tuple[np.ndarray, np.ndarray]:
@@ -798,5 +818,8 @@ class NativeController:
         self._lib.hvd_native_stop_timeline()
 
     def shutdown(self):
-        """Leave the runtime; blocks until every rank has asked to."""
+        """Leave the runtime; blocks until every rank has asked to (or
+        the runtime gives up on a dead one)."""
         self._lib.hvd_native_shutdown()
+        self._buffers.clear()
+        self._abandoned.clear()

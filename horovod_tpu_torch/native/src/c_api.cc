@@ -191,6 +191,9 @@ int hvd_native_result_copy(int64_t handle, void* dst, int64_t nbytes) {
 
 void hvd_native_release(int64_t handle) { Runtime::Get().Release(handle); }
 
+void hvd_native_interrupt_waits(const char* reason) {  // port: elastic wake-up
+  Runtime::Get().InterruptWaits(reason ? reason : "interrupted");  // port: elastic wake-up
+}  // port: elastic wake-up
 int hvd_native_join() { return Runtime::Get().JoinBlocking(); }
 
 int hvd_native_barrier() {

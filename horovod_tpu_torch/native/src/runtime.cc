@@ -17,6 +17,7 @@ Status Runtime::Init(int rank, int size, const std::string& coord_addr,
                      const std::string& timeline_file,
                      size_t cache_capacity) {
   if (initialized_) return Status::OK();
+  interrupted_ = false;  // port: elastic wake-up
   Status st;
   net_ = Network::Connect(rank, size, coord_addr, &st);
   if (!net_) return st;
@@ -56,6 +57,7 @@ void Runtime::Shutdown() {
   enqueue_cv_.notify_all();
   auto deadline = std::chrono::steady_clock::now() +
                   std::chrono::seconds(30);
+  if (interrupted_) deadline = std::chrono::steady_clock::now();  // port: elastic wake-up
   while (!loop_exited_ &&
          std::chrono::steady_clock::now() < deadline) {
     std::this_thread::sleep_for(std::chrono::milliseconds(5));
@@ -150,9 +152,22 @@ Status Runtime::Wait(int64_t handle) {
   auto it = handles_.find(handle);
   if (it == handles_.end()) return Status::InvalidArgument("unknown handle");
   auto hs = it->second;
+  handle_cv_.wait(lk, [&] { return hs->done.load() || interrupted_; });  // port: elastic wake-up
+  if (!hs->done.load()) return Status::Aborted(interrupt_reason_);  // port: elastic wake-up
   handle_cv_.wait(lk, [&] { return hs->done.load(); });
   return hs->status;
 }
+// Ends every Wait of this world with Aborted(reason), now and until the  // port: elastic wake-up
+// next Init, and lets Shutdown skip its wait for the ranks' consensus:  // port: elastic wake-up
+// the world was declared failed, and its ops are left to Shutdown.  // port: elastic wake-up
+void Runtime::InterruptWaits(const std::string& reason) {  // port: elastic wake-up
+  {  // port: elastic wake-up
+    std::lock_guard<std::mutex> lk(handle_mu_);  // port: elastic wake-up
+    interrupt_reason_ = reason;  // port: elastic wake-up
+    interrupted_ = true;  // port: elastic wake-up
+  }  // port: elastic wake-up
+  handle_cv_.notify_all();  // port: elastic wake-up
+}  // port: elastic wake-up
 
 std::shared_ptr<TensorEntry> Runtime::GetEntry(int64_t handle) {
   std::lock_guard<std::mutex> lk(handle_mu_);

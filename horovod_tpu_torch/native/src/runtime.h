@@ -82,6 +82,7 @@ class Runtime {
   int64_t Enqueue(std::shared_ptr<TensorEntry> entry, Status* status);
   bool Poll(int64_t handle);
   Status Wait(int64_t handle);  // blocks; does NOT release
+  void InterruptWaits(const std::string& reason);  // port: elastic wake-up
   std::shared_ptr<TensorEntry> GetEntry(int64_t handle);
   void Release(int64_t handle);
 
@@ -167,6 +168,8 @@ class Runtime {
 
   std::mutex handle_mu_;
   std::condition_variable handle_cv_;
+  std::atomic<bool> interrupted_{false};  // port: elastic wake-up
+  std::string interrupt_reason_;  // port: elastic wake-up
   int64_t next_handle_ = 0;
   std::map<int64_t, std::shared_ptr<HandleState>> handles_;
   std::map<std::string, int64_t> name_to_handle_;

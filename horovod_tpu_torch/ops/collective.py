@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import failure as _failure
 from ..core import handles as _handles
 from ..core.basics import _check_init
 from ..core.state import global_state
@@ -361,10 +362,13 @@ def _op_range(kind: str, name, tensor, comp=None):
     (upstream Horovod's NVTX op range, operations.cc:1018-1033): an NVTX
     range and ``record_function`` named ``hvd.<kind>.<name>``, the
     ``hvd_collective_*`` and ``hvd_wire_*`` families and the
-    ``collective.enqueue`` / ``collective.done`` flight events."""
+    ``collective.enqueue`` / ``collective.done`` flight events.  A
+    failed elastic world raises ``HorovodInternalError`` here
+    (``core/failure.py``)."""
     rec = _OpRecord(kind, name, tensor, comp)
     try:
-        with op_range(f"hvd.{kind}.{name or 'unnamed'}", rec.nbytes):
+        with op_range(f"hvd.{kind}.{name or 'unnamed'}", rec.nbytes), \
+                _failure.guard():
             t = rec.hold()
             try:
                 yield
@@ -379,7 +383,8 @@ def _issue_range(rec: _OpRecord):
     """The profiler span around an asynchronous collective's issue; on
     the host clock its seconds count toward the latency (on CUDA the
     wait's events do)."""
-    with op_range(f"hvd.{rec.kind}.{rec.name or 'unnamed'}", rec.nbytes):
+    with op_range(f"hvd.{rec.kind}.{rec.name or 'unnamed'}", rec.nbytes), \
+            _failure.guard():
         t = time.perf_counter()
         yield
         if not rec.cuda:
@@ -903,10 +908,11 @@ def barrier() -> None:
         E.barrier()
         return
     dev = global_state.device
-    if dev is not None and dev.type == "cuda":
-        dist.barrier(device_ids=[dev.index])
-    else:
-        dist.barrier()
+    with _failure.guard():
+        if dev is not None and dev.type == "cuda":
+            dist.barrier(device_ids=[dev.index])
+        else:
+            dist.barrier()
 
 
 def join() -> int:
@@ -944,11 +950,13 @@ class _TimedWork:
 
     def wait(self):
         if self.waited:
-            return self.work.wait()
+            with _failure.guard():
+                return self.work.wait()
         self.waited = True
         t = self.rec.hold()
         try:
-            return self.work.wait()
+            with _failure.guard():
+                return self.work.wait()
         finally:
             self.rec.release(t)
             self.rec.done()
@@ -968,7 +976,8 @@ def _allocate(work=None, finish=None, result=None,
         work = _TimedWork(work, rec)
 
     def wait():
-        work.wait()
+        with _failure.guard():
+            work.wait()
         return finish()
     return _handles.handle_manager.allocate(_handles.Handle(
         poll_fn=work.is_completed, wait_fn=wait))

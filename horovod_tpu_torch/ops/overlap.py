@@ -48,6 +48,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core import config as _cfg
+from ..core import failure as _failure
 from ..debug import flight as _flight
 
 
@@ -286,6 +287,7 @@ def _record_stream(t: torch.Tensor) -> None:
         t.record_stream(torch.cuda.current_stream(t.device))
 
 
+@_failure.guarded
 def issue_bucket_allreduce(leaves, op, axis, comp, prescale: float = 1.0,
                            postscale: float = 1.0, keep_sent: bool = False,
                            names: Optional[Sequence[str]] = None):
@@ -364,6 +366,7 @@ def _rows_of(x: torch.Tensor, world: int) -> torch.Tensor:
     return F.pad(flat, (0, (-flat.numel()) % world)).view(world, -1)
 
 
+@_failure.guarded
 def bucket_reducescatter(leaves, op, axis, comp) -> List[torch.Tensor]:
     """One bucket's reduce-scatter, one exchange: each leaf's flat shard
     ``[i*k, (i+1)*k)`` of its zero-padded ravel, ``k = ceil(n / world)``,
@@ -422,6 +425,7 @@ def bucket_reducescatter(leaves, op, axis, comp) -> List[torch.Tensor]:
     return outs
 
 
+@_failure.guarded
 def bucket_allgather(shards, likes, axis, comp=None) -> List[torch.Tensor]:
     """One bucket's all-gather: the members' flat shards concatenated,
     gathered once over the axis (in its order), and each leaf's full value

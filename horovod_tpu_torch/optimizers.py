@@ -434,6 +434,7 @@ class ZeroShardedOptimizer:
         with torch.no_grad():
             self.shards = [torch.nn.Parameter(self._my_shard(p))
                            for p in params]
+        self._factory = optimizer
         self.optimizer = optimizer(self.shards)
         self._quant_spec = _quant_spec(self.compression, op)
         self.residual: Optional[List[torch.Tensor]] = None
@@ -457,6 +458,32 @@ class ZeroShardedOptimizer:
 
     def __getattr__(self, name: str) -> Any:
         return getattr(self.__dict__["optimizer"], name)
+
+    def reshard(self) -> bool:
+        """Re-deal the shards over the runtime's current world, after an
+        elastic reset changed it: new shards of the new size (at stages
+        1-2 cut from the replicated parameters, at stage 3 zeros) and the
+        inner optimizer rebuilt on them with its hyper-parameters and no
+        state, for a restore (the peer tier, the disk) to fill.  Returns
+        whether the world or this member's place in it changed."""
+        world = len(C._axis_ranks(self.axis))
+        index = C._axis_index(self.axis)
+        if (world, index) == (self.world, self.index):
+            return False
+        self.world, self.index = world, index
+        dev = self.shards[0].device if self.shards else None
+        with torch.no_grad():
+            self.shards = [torch.nn.Parameter(
+                self._my_shard(p) if self.stage < 3 else torch.zeros(
+                    -(-p.numel() // world), dtype=torch.float32,
+                    device=dev)) for p in self.params]
+        old = self.optimizer.param_groups
+        self.optimizer = self._factory(self.shards)
+        for new_group, old_group in zip(self.optimizer.param_groups, old):
+            new_group.update({k: v for k, v in old_group.items()
+                              if k != "params"})
+        self._new_pass()
+        return True
 
     def _my_shard(self, x: torch.Tensor) -> torch.Tensor:
         """This member's flat fp32 shard of ``x``: row ``index`` of its

@@ -87,7 +87,7 @@ def part_inputs(part: str) -> dict:
     """The seeded inputs of one part, per rank along axis 0 where they
     differ between ranks (the negotiated plane's parts seed their own)."""
     if part in NEGOTIATED_PARTS or part in MODEL_PARTS or \
-            part in ("telemetry", "recovery"):
+            part in ("telemetry", "recovery", "elastic"):
         return {}
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
                                  "sbn": 14, "ckpt": 15, "gspmd": 16,
@@ -181,7 +181,7 @@ def _spawn(body, out, world: int = WORLD):
          "_torch_port_checkpoint_workers", "_torch_port_parallel_workers",
          "_torch_port_eager_workers", "_torch_port_modes_workers",
          "_torch_port_models_workers", "_torch_port_telemetry_workers",
-         "_torch_port_recovery_workers"])
+         "_torch_port_recovery_workers", "_torch_port_elastic_workers"])
     mp.start_processes(body, args=(world, f"{out}/rendezvous", str(out)),
                        nprocs=world, join=True, start_method="forkserver")
 
@@ -201,13 +201,15 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
     ``_torch_port_eager_workers`` for the negotiated plane's parts,
     ``_torch_port_modes_workers`` for "units", "modes" and "moe",
     ``_torch_port_models_workers`` for "resnet", "bert" and "moet",
-    ``_torch_port_recovery_workers`` for "recovery"),
+    ``_torch_port_recovery_workers`` for "recovery",
+    ``_torch_port_elastic_workers`` for "elastic"),
     from one start of the ranks per part and test process.
     ``prepare(out_dir)`` writes what the ranks read beyond the part's
     inputs, before they start; ``part_dir(part)`` is that directory."""
     if part not in _PARTS:
         import _torch_port_checkpoint_workers as ckpt_workers
         import _torch_port_eager_workers as eager_workers
+        import _torch_port_elastic_workers as el_workers
         import _torch_port_models_workers as model_workers
         import _torch_port_modes_workers as modes_workers
         import _torch_port_parallel_workers as par_workers
@@ -240,7 +242,8 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "bert": model_workers.bert_part,
                 "moet": model_workers.moet_part,
                 "telemetry": tel_workers.telemetry_part,
-                "recovery": rec_workers.recovery_part}[part], out, world)
+                "recovery": rec_workers.recovery_part,
+                "elastic": el_workers.elastic_part}[part], out, world)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
                         for r in range(world)]
     return _PARTS[part]

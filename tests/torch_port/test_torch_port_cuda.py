@@ -780,3 +780,175 @@ def test_cuda_quantized_wire_gradient_equals_cpu(cuda_device, bits):
     (o_d, g_d), (o_c, g_c) = got[str(cuda_device)], got["cpu"]
     assert torch.equal(o_d, o_c) and torch.equal(g_d, g_c)
     assert int((g_c != 0).sum()) <= v.numel() // 256 * 2
+
+
+def _elastic_round(kv, rnd, added_only):
+    """Publish round ``rnd`` with this process as its only slot."""
+    import json
+    import socket
+
+    def port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    if rnd > 0:
+        kv.put("elastic", "host_event", json.dumps(
+            {"ts": float(rnd), "added_only": added_only,
+             "round": rnd}).encode())
+    kv.put("elastic", f"round.{rnd}", json.dumps({
+        "round": rnd, "size": 1,
+        "controller_addr": f"127.0.0.1:{port()}",
+        "store_addr": f"127.0.0.1:{port()}",
+        "slots": {"localhost:0": {"rank": 0, "size": 1, "local_rank": 0,
+                                  "local_size": 1, "cross_rank": 0,
+                                  "cross_size": 1}}}).encode())
+    kv.put("elastic", "current_round", str(rnd).encode())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("failed", [False, True])
+def test_cuda_elastic_init_and_reset_in_one_process(cuda_device,
+                                                    monkeypatch, failed):
+    """init() under an elastic assignment on the card: the round's rank,
+    NCCL on cuda:0, the native controller at the round's address and the
+    world watch.  Then the reset in the same process: a round published
+    for a growth (the world stays healthy) or after a failure (the watch
+    marks the world and aborts its NCCL communicator, which shutdown()
+    then tears down without a clean destroy); init() joins the next
+    round on the same card and its collectives run."""
+    import time
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import failure
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.elastic import state as es
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+    kv = RendezvousServer(host="127.0.0.1")
+    kv.start()
+    monkeypatch.setenv("HVD_TPU_RENDEZVOUS_ADDR", f"127.0.0.1:{kv.port}")
+    monkeypatch.setenv("HVD_TPU_ELASTIC_SLOT", "localhost:0")
+    monkeypatch.setenv("HVD_TPU_CONTROLLER_ADDR", "elastic")
+    monkeypatch.setattr(global_state, "elastic_round", -1)
+    _elastic_round(kv, 0, False)
+    try:
+        hvd.init()
+        assert (hvd.rank(), hvd.size(), global_state.elastic_round) == \
+            (0, 1, 0)
+        assert hvd.device() == torch.device("cuda", 0)
+        assert global_state.controller is not None and failure.watching()
+        x = torch.ones(1024, device=cuda_device)
+        assert torch.equal(hvd.allreduce(x, op=hvd.Sum, name="r0"), x)
+        _elastic_round(kv, 1, added_only=not failed)
+        time.sleep(10 * failure.WATCH_INTERVAL_S)
+        assert (failure.failed() is not None) == failed
+        if failed:
+            with pytest.raises(hvd.HorovodInternalError):
+                hvd.allreduce(x, op=hvd.Sum, name="r0.after")
+        t0 = time.perf_counter()
+        es._reset()
+        reset_s = time.perf_counter() - t0
+        assert global_state.elastic_round == 1 and failure.failed() is None
+        assert hvd.device() == torch.device("cuda", 0)
+        y = torch.full((1024,), 2.0, device=cuda_device)
+        assert torch.equal(hvd.allreduce(y, op=hvd.Sum, name="r1"), y)
+        assert reset_s < 30, reset_s
+    finally:
+        hvd.shutdown()
+        kv.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_elastic_commit_refuses_an_aborted_communicator(cuda_device,
+                                                            monkeypatch):
+    """NCCL's watchdog aborts a collective that outlives the operation
+    deadline without raising in the caller and without marking the
+    world.  ``TpuState.commit()`` then checks the world after its copies
+    to the host: the aborted communicator refuses the check, the commit
+    raises ``HorovodInternalError`` and writes nothing, and the restore
+    is the previous commit."""
+    import functools
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.core import failure
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+    kv = RendezvousServer(host="127.0.0.1")
+    kv.start()
+    monkeypatch.setenv("HVD_TPU_RENDEZVOUS_ADDR", f"127.0.0.1:{kv.port}")
+    monkeypatch.setenv("HVD_TPU_ELASTIC_SLOT", "localhost:0")
+    monkeypatch.setattr(global_state, "elastic_round", -1)
+    _elastic_round(kv, 0, False)
+    try:
+        hvd.init()
+        assert failure.watching()
+        torch.manual_seed(0)
+        model = torch.nn.Linear(64, 64).to(cuda_device)
+        opt = hvd.ZeroShardedOptimizer(model, functools.partial(
+            torch.optim.AdamW, lr=1e-2), stage=2)
+        counter = torch.zeros((), dtype=torch.int64)
+        state = elastic.TpuState(
+            opt_state={"model": model.state_dict(), "opt": opt,
+                       "step": counter}, peer_recovery=False)
+
+        def step():
+            x = torch.randn(8, 64, device=cuda_device)
+            model(x).square().mean().backward()
+            opt.reduce_grads()
+            opt.step()
+            opt.zero_grad()
+            counter.add_(1)
+
+        step()
+        state.commit()
+        kept = {k: v.clone() for k, v in model.state_dict().items()}
+        step()
+        failure.abort_groups()   # as the watchdog does: no mark
+        assert failure.failed() is None
+        with pytest.raises(hvd.HorovodInternalError):
+            state.commit()
+        assert failure.failed() is not None
+        state.restore()
+        assert int(counter) == 1
+        for k, v in model.state_dict().items():
+            assert torch.equal(v, kept[k]), k
+    finally:
+        hvd.shutdown()
+        kv.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_elastic_watch_fails_a_stream_past_the_deadline(cuda_device,
+                                                            monkeypatch):
+    """On the card: a beacon behind work that outlives the operation
+    deadline (a spin kernel, standing in for a collective that a peer
+    hung alive holds) fails the world within a watch poll of the
+    deadline, and the next collective raises ``HorovodInternalError``."""
+    import time
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import failure
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+    kv = RendezvousServer(host="127.0.0.1")
+    kv.start()
+    monkeypatch.setenv("HVD_TPU_RENDEZVOUS_ADDR", f"127.0.0.1:{kv.port}")
+    monkeypatch.setenv("HVD_TPU_ELASTIC_SLOT", "localhost:0")
+    monkeypatch.setenv("HVD_TPU_NET_OP_DEADLINE_S", "1")
+    monkeypatch.setattr(global_state, "elastic_round", -1)
+    _elastic_round(kv, 0, False)
+    try:
+        hvd.init()
+        assert failure.watching()
+        torch.cuda._sleep(int(8e9))   # 4 s or more at the H100's clock
+        failure.beacon()
+        t0 = time.monotonic()
+        while failure.failed() is None and time.monotonic() - t0 < 10:
+            time.sleep(0.01)
+        assert failure.failed() is not None
+        assert 0.9 <= time.monotonic() - t0 < 1.5
+        assert "deadline" in failure.failed()
+        with pytest.raises(hvd.HorovodInternalError):
+            hvd.allreduce(torch.ones(8, device=cuda_device), name="late")
+        torch.cuda.synchronize()
+    finally:
+        hvd.shutdown()
+        kv.stop()

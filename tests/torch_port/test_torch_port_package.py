@@ -101,12 +101,17 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.recovery", "horovod_tpu_torch.recovery.buddy",
     "horovod_tpu_torch.recovery.chaos", "horovod_tpu_torch.recovery.store",
     "horovod_tpu_torch.recovery.transport",
-    "horovod_tpu_torch.recovery.peer"])
+    "horovod_tpu_torch.recovery.peer",
+    "horovod_tpu_torch.elastic", "horovod_tpu_torch.elastic.state",
+    "horovod_tpu_torch.runner.hosts", "horovod_tpu_torch.runner.chips",
+    "horovod_tpu_torch.runner.exec", "horovod_tpu_torch.runner.worker",
+    "horovod_tpu_torch.runner.elastic_driver",
+    "horovod_tpu_torch.core.failure"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     """Each module of the mesh, the GSPMD plane, sequence parallelism,
-    the models, the serving plane, the telemetry plane, the wire fabric
-    and the recovery tier, imported first in a fresh interpreter where
-    ``import jax`` fails."""
+    the models, the serving plane, the telemetry plane, the wire fabric,
+    the recovery tier and elastic training, imported first in a fresh
+    interpreter where ``import jax`` fails."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             f"importlib.import_module({module!r})\n"
