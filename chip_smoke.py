@@ -250,6 +250,26 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              init() in its process on the same card, its sync reports
              "peer" (its own replica), the losses equal the
              uninterrupted run's; the reset and the sync timed.
+18. debug — the flagship's data-parallel step (world 1 on NCCL, the
+             native controller attached, DistributedOptimizer(AdamW)) with
+             the debug plane of a launched job: a signed rendezvous KV in
+             this process, init() publishing the debug endpoint under
+             debug/flight_addr_0 and starting the stall watchdog.  (a)
+             10 steps while a thread fetches /debug/flight,
+             /debug/stacks and /healthz, signed, from the published
+             address (the stacks name this phase's frame: the main
+             thread is in a step; an unsigned fetch is refused), every
+             kernel once per layer per step; the native timeline of the
+             10 steps (hvd.start_timeline) merged with the flight dump
+             by debug.merge: every gradient's NEGOTIATE event of step i
+             lies between the flight marks of steps i and i + 1 on the
+             merged clock.  (b) The reference's input drift drill on the
+             card: steps fed by DataLoader(prefetch=False) on the card,
+             a fresh Aggregator's step_end, 20 steps, then 25 with
+             HVD_TPU_CHAOS_INPUT_DELAY_MS=200: no drift before the
+             injection, one after, its component input, and the
+             regression report (on disk and at /debug/regression) names
+             the data subsystem's data.chaos_delay as the suspect.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -277,6 +297,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16 FLOP/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+
+# Phase 18: the steps under the endpoint's fetches, the drift drill's
+# steps before and after the injection, its delay and the detector's
+# knobs (the reference's drill, but a drift must double the step: the
+# 200 ms delay makes a ~50 ms step ~5x, while a card's host jitter
+# between steps stays well under 2x), and the merge's slack beyond the
+# timeline anchor's own uncertainty (half the start_timeline call).
+DEBUG_STEPS = 10
+DRIFT_BASELINE, DRIFT_SLOWED, DRIFT_DELAY_MS = 20, 25, 200
+DRIFT_ENV = {"HVD_TPU_PERF_DRIFT_WARMUP": "10",
+             "HVD_TPU_PERF_DRIFT_THRESHOLD": "6",
+             "HVD_TPU_PERF_DRIFT_MIN_PCT": "100",
+             "HVD_TPU_PERF_DRIFT_COOLDOWN": "100"}
+MERGE_SLACK_US = 2000
 
 # Parity tolerances against the plain version (bf16 inputs).  out and the
 # gradients as the reference's own kernel tests hold them
@@ -3412,6 +3446,9 @@ ELASTIC_STEPS = 8
 ELASTIC_KILL = "0@4"            # HVD_TPU_CHAOS_KILL_STEPS: rank 0, step 4
 ELASTIC_BATCH_SEED = 1700
 ELASTIC_DEADLINE_S = 300.0
+# How long (b) waits for the worker's commit after the announcement: a
+# step with its commit takes 1.4-1.8 s on the card (PERF.md).
+ELASTIC_ANSWER_S = 15.0
 
 
 def elastic_batches(tfm, cfg, batch):
@@ -3607,7 +3644,12 @@ def phase_elastic(torch, hvd, tfm, fa, cfg, par, card):
                 break
             time.sleep(0.05)
         announced = driver.announce_resize()
-        while time.time() < deadline:
+        # The next commit answers the announcement.  A commit whose
+        # announcement landed just before it, and whose poll just after
+        # it, took the interrupt already and waits for the round, so the
+        # wait for a newer commit is bounded.
+        answered = min(deadline, time.time() + ELASTIC_ANSWER_S)
+        while time.time() < answered:
             commit = driver.last_commit()
             if commit is not None and commit["ts"] > announced:
                 break
@@ -3654,6 +3696,240 @@ def phase_elastic(torch, hvd, tfm, fa, cfg, par, card):
                            reset_s=reset_s,
                            reset_after_request_s=after_request_s,
                            sync_s=resync["sync_s"], seconds=wall)
+    return report
+
+
+def merged_step_windows(trace, n_steps):
+    """From a merged trace: the flight marks of the steps (μs on the
+    merged clock), and per gradient name its NEGOTIATE begin events of
+    the native timeline, in order."""
+    marks = {e["name"]: e["ts"] for e in trace["traceEvents"]
+             if e.get("cat") == "smoke.step"}
+    edges = [marks[f"step{i}"] for i in range(n_steps)] + [marks["end"]]
+    negotiated = collections.defaultdict(list)
+    for e in sorted(trace["traceEvents"], key=lambda e: e.get("ts", 0)):
+        if e.get("cat") == "NEGOTIATE" and e.get("ph") == "B" and \
+                str(e.get("name", "")).startswith(
+                    "DistributedOptimizer.grad."):
+            negotiated[e["name"]].append(e)
+    return edges, negotiated
+
+
+def phase_debug(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
+    """Phase 18: the flagship's step with the debug plane of a launched
+    job; returns the report."""
+    import shutil
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    from horovod_tpu_torch import debug, metrics
+    from horovod_tpu_torch.data import ArraySource, DataLoader
+    from horovod_tpu_torch.debug import hang, merge, regression
+    from horovod_tpu_torch.metrics import attribution, baseline
+    from horovod_tpu_torch.runner.rendezvous import (RendezvousServer,
+                                                     http_get, sign_request)
+    report = {}
+    work = tempfile.mkdtemp(prefix="hvd_debug_")
+    secret = "chip-smoke-debug"
+    kv = RendezvousServer(host="127.0.0.1", port=0, secret=secret)
+    kv.start()
+    env = dict(DRIFT_ENV, HVD_TPU_RENDEZVOUS_ADDR=f"127.0.0.1:{kv.port}",
+               HVD_TPU_RENDEZVOUS_SECRET=secret,
+               HVD_TPU_CONTROLLER_ADDR=f"127.0.0.1:{free_port()}",
+               HVD_TPU_FLIGHT_HOST="127.0.0.1", HVD_TPU_FLIGHT_DIR=work)
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def get(addr, path, signed=True):
+        req = urllib.request.Request(f"http://{addr}{path}")
+        if signed:
+            sign_request(req, "GET", "debug", path.rsplit("/", 1)[1])
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=10) as r:
+                return r.status, r.read(), time.perf_counter() - t
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), time.perf_counter() - t
+
+    try:
+        hvd.init(use_controller=True)
+        addr = http_get(env["HVD_TPU_RENDEZVOUS_ADDR"], "debug",
+                        "flight_addr_0").decode()
+        assert hang._watchdog is not None   # rank 0 under FLIGHT_ESCALATE
+        model = tfm.Transformer(cfg, par, seed=0)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=3e-4, weight_decay=1e-4))
+        step = tfm.make_train_step(cfg, par, model, opt)
+        step(tokens, labels)                  # warm-up, outside the count
+        torch.cuda.synchronize()
+
+        # (a) steps under the fetches, timeline on.
+        timeline = os.path.join(work, "timeline.json")
+        t0 = time.time()
+        hvd.start_timeline(timeline)
+        anchor_us = (time.time() - t0) / 2 * 1e6
+        fetched = collections.defaultdict(list)
+        errors, stop = [], threading.Event()
+
+        def fetcher():
+            try:
+                while not stop.is_set():
+                    for path in ("/debug/flight", "/debug/stacks",
+                                 "/healthz"):
+                        fetched[path].append(
+                            get(addr, path, path != "/healthz"))
+                    stop.wait(0.02)
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        th = threading.Thread(target=fetcher, daemon=True)
+        fa.reset_launches()
+        th.start()
+        losses, times = [], []
+        for i in range(DEBUG_STEPS):
+            debug.record("smoke.step", f"step{i}")
+            t = time.perf_counter()
+            loss = step(tokens, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(loss.item())
+        debug.record("smoke.step", "end")
+        launches = dict(fa.launches)
+        stop.set()
+        th.join(30)
+        hvd.stop_timeline()
+        assert not errors and not th.is_alive(), errors
+        assert all(math.isfinite(x) for x in losses), losses
+        assert losses[-1] < losses[0], losses
+        for n in KERNELS:
+            assert launches[n] == cfg.n_layers * DEBUG_STEPS, launches
+        codes = {p: sorted({c for c, _, _ in r}) for p, r in fetched.items()}
+        assert all(c == [200] for c in codes.values()), codes
+        last = json.loads(fetched["/debug/flight"][-1][1])
+        assert any(e["kind"] == "smoke.step" for e in last["events"])
+        assert any(b"phase_debug" in body
+                   for _, body, _ in fetched["/debug/stacks"]), \
+            "no stacks fetched with the main thread in a step"
+        assert all(body == b"ok" for _, body, _ in fetched["/healthz"])
+        refused = get(addr, "/debug/flight", signed=False)[0]
+        assert refused == 403, refused
+        fetch_ms = {p: statistics.median(s for _, _, s in r) * 1e3
+                    for p, r in fetched.items()}
+
+        # The merge: the flight dump and the native timeline on one clock.
+        dump = debug.flight.recorder().dump_obj()
+        trace = merge.merge_dumps([dump], merge.load_timeline(timeline))
+        edges, negotiated = merged_step_windows(trace, DEBUG_STEPS)
+        n_grads = len(list(model.parameters()))
+        assert len(negotiated) == n_grads, sorted(negotiated)
+        slack = anchor_us + MERGE_SLACK_US
+        outside = []
+        for name, evs in negotiated.items():
+            assert len(evs) == DEBUG_STEPS, (name, len(evs))
+            assert not any("merge.unanchored" in (e.get("args") or {})
+                           for e in evs)
+            for i, e in enumerate(evs):
+                if not edges[i] - slack <= e["ts"] <= edges[i + 1] + slack:
+                    outside.append((name, i, e["ts"], edges[i],
+                                    edges[i + 1]))
+        assert not outside, outside[:5]
+        # How far inside its step the first gradient's negotiation starts.
+        lead_ms = [(min(evs[i]["ts"] for evs in negotiated.values())
+                    - edges[i]) / 1e3 for i in range(DEBUG_STEPS)]
+        report["endpoint"] = {
+            "losses": losses, "step_s": statistics.median(times[1:]),
+            "launches": launches,
+            "fetches": {p: len(r) for p, r in fetched.items()},
+            "fetch_ms": fetch_ms, "merged_events": len(trace["traceEvents"]),
+            "timeline_anchor_uncertainty_us": anchor_us,
+            "first_negotiate_after_step_mark_ms": lead_ms}
+        log(f"[debug] (a) {DEBUG_STEPS} steps, median "
+            f"{report['endpoint']['step_s'] * 1e3:.3f} ms, while a thread "
+            f"fetched /debug/flight, /debug/stacks, /healthz "
+            f"{dict(report['endpoint']['fetches'])} times (medians "
+            + ", ".join(f"{p} {v:.2f} ms" for p, v in fetch_ms.items())
+            + f"); launches {launches}; merged trace "
+            f"{len(trace['traceEvents'])} events: every gradient's "
+            f"NEGOTIATE inside its step's flight window (anchor "
+            f"+/-{anchor_us:.0f} us); first negotiation "
+            f"{statistics.median(lead_ms):.3f} ms after the step's mark; "
+            f"on {card}")
+
+        # (b) the input drift drill, fed on the card.  The attribution
+        # starts afresh, as in the reference's drill process: the seconds
+        # earlier phases left in its counters since their last step
+        # (checkpoint saves, collectives) would make the drill's first
+        # record, and with it the detector's baseline shares, theirs.
+        baseline.reset_drift_detector()
+        regression.reset()
+        attribution.attribution().reset()
+        seqs = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (256, cfg.seq_len + 1), dtype=np.int32)
+        agg = metrics.Aggregator()
+        drill_times, n = [], 0
+
+        def drill(n_steps):
+            nonlocal n
+            loader = DataLoader(ArraySource(seqs), tokens.shape[0],
+                                shuffle=True, seed=n, prefetch=False,
+                                device=str(hvd.device()))
+            it = iter(loader)
+            for _ in range(n_steps):
+                t = time.perf_counter()
+                b = next(it)
+                step(b[:, :-1].long(), b[:, 1:].long()).item()
+                n += 1
+                agg.step_end(step=n)
+                drill_times.append(time.perf_counter() - t)
+            loader.close()
+
+        drill(DRIFT_BASELINE)
+        before = baseline.drift_detector().events()
+        assert before == [], [e.as_dict() for e in before]
+        os.environ["HVD_TPU_CHAOS_INPUT_DELAY_MS"] = str(DRIFT_DELAY_MS)
+        try:
+            drill(DRIFT_SLOWED)
+        finally:
+            del os.environ["HVD_TPU_CHAOS_INPUT_DELAY_MS"]
+        (ev,) = baseline.drift_detector().events()
+        rep = regression.last_report()
+        assert ev.component == "input" and ev.ratio > 1.5, ev.as_dict()
+        assert ev.step <= DRIFT_BASELINE + DRIFT_SLOWED, ev.as_dict()
+        assert rep["component"] == "input", rep["component"]
+        assert (rep["suspect"]["subsystem"], rep["suspect"]["kind"]) == \
+            ("data", "data.chaos_delay"), rep["suspect"]
+        assert os.path.exists(rep["path"]) and ev.report_path == rep["path"]
+        code, body, _ = get(addr, "/debug/regression")
+        assert code == 200 and json.loads(body) == json.loads(
+            json.dumps(rep, default=str)), code
+        report["drift"] = {
+            "event": ev.as_dict(), "verdict": rep["verdict"],
+            "suspect": rep["suspect"]["kind"],
+            "vs_onset_s": rep["suspect"]["vs_onset_s"],
+            "step_ms_before": statistics.median(
+                drill_times[1:DRIFT_BASELINE]) * 1e3,
+            "step_ms_after": statistics.median(
+                drill_times[DRIFT_BASELINE:]) * 1e3}
+        log(f"[debug] (b) input drill: {DRIFT_BASELINE} steps fed on the "
+            f"card at {report['drift']['step_ms_before']:.2f} ms, then "
+            f"{DRIFT_SLOWED} with a {DRIFT_DELAY_MS} ms input delay at "
+            f"{report['drift']['step_ms_after']:.2f} ms: one drift at step "
+            f"{ev.step} (onset {ev.onset_step}), component {ev.component}, "
+            f"ratio {ev.ratio:.2f}; report: {rep['verdict']}")
+    finally:
+        baseline.reset_drift_detector()
+        regression.reset()
+        hvd.shutdown()
+        debug.stop_serving()
+        kv.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
     return report
 
 
@@ -3871,6 +4147,10 @@ def main() -> int:
     # 17. elastic training: a worker killed and respawned from the disk,
     # and a reset in place restored from its own replica
     report["elastic"] = phase_elastic(torch, hvd, tfm, fa, cfg, par, card)
+    # 18. the debug plane: the endpoint fetched during training, the merge
+    # of the flight dump and the native timeline, the input drift drill
+    report["debug"] = phase_debug(torch, hvd, tfm, fa, cfg, par, tokens,
+                                  labels, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -3908,6 +4188,7 @@ def main() -> int:
         by_path["elastic"] = report["elastic"]["kill"]["launches"][name]
         by_path["elastic_reset"] = \
             report["elastic"]["reset"]["launches"][name]
+        by_path["debug"] = report["debug"]["endpoint"]["launches"][name]
         # The serving prefill is a forward: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \

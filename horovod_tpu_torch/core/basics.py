@@ -28,7 +28,7 @@ world on the store address the round names, attaches the native
 controller at the round's controller address, and starts the world watch
 of ``core/failure.py``.  ``shutdown()`` then returns on a world whose peer
 died (the communicators of a failed world are aborted, not destroyed),
-and the ``/metrics`` endpoint stays up across the reset, as in the
+and the ``/metrics`` and debug endpoints stay up across the reset, as in the
 reference.
 """
 
@@ -308,6 +308,36 @@ def _start_telemetry() -> None:
                             round=global_state.elastic_round,
                             wire=global_state.compression)
         debug.install_signal_handler()
+        _serve_debug(debug)
+
+
+def _serve_debug(debug) -> None:
+    """The triage plumbing of a job with a rendezvous KV and a native
+    controller (reference core/basics.py:240-258): the coordinator
+    clock-offset estimate, the per-rank debug endpoint with its address
+    published on the KV (it stays up across elastic resets), and, on the
+    coordinator under ``HVD_TPU_FLIGHT_ESCALATE``, the stall → hang-report
+    watchdog.  A failure degrades to a warning: telemetry never kills."""
+    from ..utils import logging as log
+    rdv = os.environ.get("HVD_TPU_RENDEZVOUS_ADDR")
+    if rdv:
+        try:
+            debug.estimate_clock_offset(rdv, samples=3)
+        except Exception as e:  # noqa: BLE001 — telemetry never kills
+            log.debug("flight: clock-offset estimate failed: %r", e)
+    ctl = global_state.controller
+    if ctl is None:
+        return
+    if rdv:
+        try:
+            debug.serve_and_publish(rank=ctl.rank(), rdv_addr=rdv,
+                                    port=_cfg.flight_port())
+        except OSError as e:
+            log.warning("flight: cannot serve debug endpoint (%s); "
+                        "continuing without one", e)
+    if _cfg.flight_escalate() and ctl.rank() == 0:
+        debug.start_stall_watchdog(ctl, report_dir=_cfg.flight_dir(),
+                                   rdv_addr=rdv)
 
 
 def _serve_replicas() -> None:
@@ -329,17 +359,19 @@ def _serve_replicas() -> None:
 
 
 def shutdown() -> None:
-    """Tear down the runtime: the world watch, the native controller (it
-    waits for every rank to ask to leave, and gives up on a dead one),
-    then the process groups ``init()`` made (all of them with the world,
-    when ``init()`` made the world).  A world marked failed had its
-    communicators aborted when it was marked (``core/failure.py``), so
-    they are destroyed without the clean teardown a dead peer never
-    answers.  The ``/metrics``
-    endpoint keeps serving, as the reference's does across elastic
-    resets (reference basics.py:328-363)."""
+    """Tear down the runtime: the world watch and the hang watchdog (before
+    the controller it polls), the native controller (it waits for every
+    rank to ask to leave, and gives up on a dead one; a failed world's
+    gives up at once), then the process groups ``init()`` made (all of
+    them with the world, when ``init()`` made the world).  A world marked
+    failed had its communicators aborted when it was marked
+    (``core/failure.py``), so they are destroyed without the clean
+    teardown a dead peer never answers.  The ``/metrics`` and debug
+    endpoints keep serving, as the reference's do across elastic resets
+    (reference basics.py:328-363)."""
     from .. import debug
     from . import failure
+    debug.stop_stall_watchdog()
     debug.flight.record("shutdown", None)
     failure.stop_watch()
     ctl = global_state.controller

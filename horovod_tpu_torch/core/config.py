@@ -141,11 +141,11 @@ LOG_HIDE_TIME = "LOG_HIDE_TIME"
 # cadence (0 = never) and the Prometheus port (0 = off); the straggler
 # detector's factor, noise floor and patience; the host-sharded tree sync
 # and its knobs, which the port refuses until it has ``observer.py``
-# (ROADMAP queue 1 item 9b); JSONL retention; per-step attribution, its
+# (ROADMAP queue 1 item 9c); JSONL retention; per-step attribution, its
 # JSONL trail and the MFU peak override (TFLOP/s, 0 = detected); the drift
-# detector; the flight recorder.  The debug endpoint's and hang
-# watchdog's knobs (FLIGHT_PORT, FLIGHT_ESCALATE) and the regression
-# report's look-back (PERF_DRIFT_LOOKBACK_S) come with item 9b.
+# detector and the regression report's event-correlation window; the
+# flight recorder, its debug endpoint's port (0 = ephemeral) and the
+# coordinator's stall -> hang-report escalation.
 METRICS_SYNC_STEPS = "METRICS_SYNC_STEPS"
 METRICS_PORT = "METRICS_PORT"
 METRICS_STRAGGLER_FACTOR = "METRICS_STRAGGLER_FACTOR"
@@ -164,10 +164,13 @@ PERF_DRIFT_WARMUP = "PERF_DRIFT_WARMUP"
 PERF_DRIFT_THRESHOLD = "PERF_DRIFT_THRESHOLD"
 PERF_DRIFT_MIN_PCT = "PERF_DRIFT_MIN_PCT"
 PERF_DRIFT_COOLDOWN = "PERF_DRIFT_COOLDOWN"
+PERF_DRIFT_LOOKBACK_S = "PERF_DRIFT_LOOKBACK_S"
 FLIGHT_DISABLE = "FLIGHT_DISABLE"
 FLIGHT_CAPACITY = "FLIGHT_CAPACITY"
 FLIGHT_DIR = "FLIGHT_DIR"
+FLIGHT_PORT = "FLIGHT_PORT"
 FLIGHT_LAST_EVENTS = "FLIGHT_LAST_EVENTS"
+FLIGHT_ESCALATE = "FLIGHT_ESCALATE"
 TREE_KNOBS = (METRICS_TREE, METRICS_TOPK, METRICS_TREE_TIMEOUT_S,
               METRICS_TREE_GRACE_S)
 
@@ -191,6 +194,11 @@ CHAOS_KILL_STEPS = "CHAOS_KILL_STEPS"
 CHAOS_COMMIT_CRASH = "CHAOS_COMMIT_CRASH"
 CHAOS_SLOW_PEER_MS = "CHAOS_SLOW_PEER_MS"
 CHAOS_TORN_RANKS = "CHAOS_TORN_RANKS"
+# The slowdown drills of the drift diagnosis (reference config.py:124-125):
+# extra host latency a batch of the input pipeline (data/prefetch.py) and
+# before each eager collective (ops/collective.py).
+CHAOS_INPUT_DELAY_MS = "CHAOS_INPUT_DELAY_MS"
+CHAOS_COMM_DELAY_MS = "CHAOS_COMM_DELAY_MS"
 
 # The self-healing wire fabric (net/, native/src/net.cc), with the
 # reference's names and defaults (config.py:126-136, :193-200, :438-443,
@@ -229,9 +237,12 @@ class TelemetryDefaults:
     perf_drift_threshold: float = 8.0
     perf_drift_min_pct: float = 10.0
     perf_drift_cooldown: int = 50
+    perf_drift_lookback_s: float = 120.0
     flight_disable: bool = False
     flight_capacity: int = 4096
+    flight_port: int = 0
     flight_last_events: int = 20
+    flight_escalate: bool = True
 
 
 TELEMETRY = TelemetryDefaults()
@@ -524,6 +535,24 @@ def tree_knobs_set() -> list:
 
 def flight_disable() -> bool:
     return get_bool(FLIGHT_DISABLE, TELEMETRY.flight_disable)
+
+
+def flight_port() -> int:
+    return get_int_or(FLIGHT_PORT, TELEMETRY.flight_port)
+
+
+def flight_escalate() -> bool:
+    return get_bool(FLIGHT_ESCALATE, TELEMETRY.flight_escalate)
+
+
+def flight_dir() -> str:
+    return get_env(FLIGHT_DIR, ".") or "."
+
+
+def perf_drift_lookback_s() -> float:
+    """The regression report's look-back before a drift's onset, read as
+    the reference's report reads it (unclamped)."""
+    return get_float(PERF_DRIFT_LOOKBACK_S, TELEMETRY.perf_drift_lookback_s)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,11 @@ guards of its own:
   blocked on the dead
   peer's collective returns within a poll of the driver's exit
   detection, far inside the deadline;
+* a member that marks its world failed publishes the verdict on the KV
+  (``elastic/world_failed_<round>``), and every watch polls that key
+  beside the round: a member whose own beacons and collectives give no
+  sign (four H100s: rank 0 of a hang drill still waited for the next
+  round, 15 s after its peers' deadline; PERF.md) fails with the first;
 * marking the world failed also interrupts the native controller's
   waits, so that a negotiated op on a dead peer ends at the watch's
   verdict rather than after the net ladder's reconnect budget, and its
@@ -117,9 +122,18 @@ def _groups():
 
 def abort_groups() -> None:
     """Abort every NCCL communicator of this process's world, so that a
-    collective blocked on a dead peer returns.  Gloo groups need none:
-    a dead peer's closed socket fails their collectives."""
+    collective blocked on a dead or hung peer returns.  Gloo groups need
+    none: a dead peer's closed socket fails their collectives, a hung
+    one's times out.
+
+    The communicators are aborted together, each on a thread of its own:
+    an abort frees its communicator's buffers, which waits for the card,
+    where the collective of a communicator not yet aborted still spins on
+    the hung peer.  One after the other, the first abort held the next
+    for as long as NCCL's own watchdog took to abort the spinning one
+    (four H100s, torch 2.11: 80 s past the deadline; PERF.md)."""
     import torch
+    aborts = []
     for group in _groups():
         try:
             backend = group._get_backend(torch.device("cuda"))
@@ -128,11 +142,18 @@ def abort_groups() -> None:
         abort = getattr(backend, "abort", None) or \
             getattr(backend, "_abort", None)
         if abort is not None:
-            abort()
+            aborts.append(abort)
+    threads = [threading.Thread(target=abort, name="hvd-tpu-abort",
+                                daemon=True) for abort in aborts]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
 
 
-def mark_failed(reason: str) -> None:
-    """Record the world as broken (once) and abort its communicators."""
+def mark_failed(reason: str, publish: bool = True) -> None:
+    """Record the world as broken (once), tell its other members
+    (``publish``) and abort its communicators."""
     global _failed
     with _lock:
         if _failed is not None:
@@ -143,6 +164,9 @@ def mark_failed(reason: str) -> None:
     flight.record("elastic.world_failed", None, reason=reason)
     log.warning("elastic: world failed (%s); aborting its collectives",
                 reason)
+    watch = _watch
+    if publish and watch is not None:
+        watch.publish(reason)
     from .state import global_state
     ctl = global_state.controller
     if ctl is not None:
@@ -264,15 +288,29 @@ def guarded(fn):
     return wrapper
 
 
+def _failed_key(round_: int) -> str:
+    return f"world_failed_{int(round_)}"
+
+
 class _Watch(threading.Thread):
-    """Polls ``elastic/current_round``; marks the world failed when a
-    round past ``round`` is published for anything but a growth."""
+    """Polls ``elastic/current_round`` and ``elastic/world_failed_<round>``;
+    marks the world failed when a round past ``round`` is published for
+    anything but a growth, or when another member failed it."""
 
     def __init__(self, rdv_addr: str, round_: int):
         super().__init__(name="hvd-tpu-elastic-watch", daemon=True)
         self.rdv_addr = rdv_addr
         self.round = int(round_)
         self.stopped = threading.Event()
+
+    def publish(self, reason: str) -> None:
+        """The verdict on the KV, for the other members' watches."""
+        from ..runner.rendezvous import http_put
+        try:
+            http_put(self.rdv_addr, "elastic", _failed_key(self.round),
+                     reason.encode(), timeout=2)
+        except PermissionError:
+            pass   # a KV of another secret: each member finds its own
 
     def _growth(self, rnd: int) -> bool:
         from ..runner.rendezvous import http_get
@@ -294,6 +332,13 @@ class _Watch(threading.Thread):
             if overdue(deadline):
                 mark_failed(f"the card has not reached a collective within "
                             f"the operation deadline ({deadline:g} s)")
+                return
+            told = http_get(self.rdv_addr, "elastic",
+                            _failed_key(self.round), timeout=2,
+                            policy=single)
+            if told is not None:
+                mark_failed(f"a member of round {self.round} failed the "
+                            f"world: {told.decode()}", publish=False)
                 return
             blob = http_get(self.rdv_addr, "elastic", "current_round",
                             timeout=2, policy=single)

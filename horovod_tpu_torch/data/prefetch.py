@@ -13,8 +13,9 @@ Every blocking wait of the consumer is a ``utils.profiler.data_wait``
 span, which feeds the ``hvd_data_wait_*`` metrics the step attribution
 reads as its ``input`` component; a stall warning counts in
 ``hvd_data_stall_warnings_total``; waits, stalls and a dead producer are
-flight events.  (The reference's ``HVD_TPU_CHAOS_INPUT_DELAY_MS`` drill
-comes with the drift diagnosis it exercises, ROADMAP queue 1 item 9b.)
+flight events.  ``HVD_TPU_CHAOS_INPUT_DELAY_MS`` slows every batch by a
+fixed host latency: the input-regression drill of the drift diagnosis
+(``debug/regression.py``).
 
 Correctness properties the tests pin down:
 
@@ -37,6 +38,7 @@ from __future__ import annotations
 import logging
 import queue
 import threading
+import time
 from typing import Any, Callable, Iterator, Optional
 
 from ..core.exceptions import DataStallError
@@ -48,6 +50,16 @@ _log = logging.getLogger(__name__)
 _BATCH = "batch"
 _END = "end"
 _ERROR = "error"
+
+
+def _chaos_input_delay_s() -> float:
+    """Deterministic input-pipeline slowdown injection
+    (``HVD_TPU_CHAOS_INPUT_DELAY_MS``, read at iterator construction): every
+    batch pays this extra host latency in the producer (prefetch) or inside
+    the wait span (inline), so that the drift detector sees an input
+    regression (reference data/prefetch.py:46-55)."""
+    from ..core import config
+    return max(0.0, config.get_float(config.CHAOS_INPUT_DELAY_MS, 0.0)) / 1e3
 
 
 class InlineIterator:
@@ -70,6 +82,10 @@ class InlineIterator:
         self._last_state: Any = None
         self._finished = False
         self._closed = False
+        self._chaos_delay_s = _chaos_input_delay_s()
+        if self._chaos_delay_s:
+            _flight.record("data.chaos_delay", "inline",
+                           delay_ms=self._chaos_delay_s * 1e3)
 
     def __iter__(self):
         return self
@@ -86,6 +102,8 @@ class InlineIterator:
         # The span covers the whole host cost of the batch: what an
         # unpipelined step pays.
         with profiler.data_wait():
+            if self._chaos_delay_s:
+                time.sleep(self._chaos_delay_s)
             try:
                 item = next(self._it)
             except StopIteration:
@@ -138,6 +156,10 @@ class PrefetchIterator:
         self._finished = False
         self._last_state: Any = None
         self.max_queued = 0  # high-water mark, for overlap diagnostics
+        self._chaos_delay_s = _chaos_input_delay_s()
+        if self._chaos_delay_s:
+            _flight.record("data.chaos_delay", name,
+                           delay_ms=self._chaos_delay_s * 1e3)
         self._thread = threading.Thread(
             target=self._produce, name=f"hvd-tpu-{name}", daemon=True)
         self._thread.start()
@@ -157,6 +179,8 @@ class PrefetchIterator:
     def _produce(self) -> None:
         try:
             for item in self._it:
+                if self._chaos_delay_s:
+                    time.sleep(self._chaos_delay_s)
                 state = self._state_fn() \
                     if self._state_fn is not None else None
                 if self._transfer is not None:

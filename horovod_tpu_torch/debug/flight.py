@@ -140,7 +140,7 @@ class FlightRecorder:
         so a reader never sees a torn file)."""
         obj = self.dump_obj(last=last)
         if path is None:
-            d = _config.get_env(_config.FLIGHT_DIR, ".") or "."
+            d = _config.flight_dir()
             os.makedirs(d, exist_ok=True)
             r = obj["rank"] if obj["rank"] is not None else os.getpid()
             path = os.path.join(d, f"flight_rank{r}.json")

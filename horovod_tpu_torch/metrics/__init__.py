@@ -30,7 +30,7 @@ schedule's bubble, and the serving plane (``hvd_serving_*``,
 ``hvd_slo_*``).
 
 The reference's ``observer.py`` (the host-sharded tree sync) comes with
-ROADMAP queue 1 item 9b and is not part of this package yet.
+ROADMAP queue 1 item 9c and is not part of this package yet.
 """
 
 from .registry import (

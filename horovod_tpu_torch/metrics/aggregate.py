@@ -23,7 +23,7 @@ straggler detector over it (:mod:`.health`).
 
 The reference's hierarchical sync (``HVD_TPU_METRICS_TREE``) exchanges
 digests through the per-host observer, ``observer.py``, which the port
-gets with ROADMAP queue 1 item 9b; until then the tree knobs raise.
+gets with ROADMAP queue 1 item 9c; until then the tree knobs raise.
 """
 
 from __future__ import annotations
@@ -52,14 +52,14 @@ def _sync_cadence() -> int:
 
 def refuse_tree() -> None:
     """Raise when a knob of the hierarchical sync is set (it needs
-    ``observer.py``, ROADMAP queue 1 item 9b)."""
+    ``observer.py``, ROADMAP queue 1 item 9c)."""
     from ..core.config import tree_knobs_set
     knobs = tree_knobs_set()
     if knobs:
         raise NotImplementedError(
             f"the hierarchical metrics sync ({', '.join(knobs)}) needs "
             f"metrics/observer.py, which the port gets with ROADMAP queue "
-            f"1 item 9b")
+            f"1 item 9c")
 
 
 def _data_wait_totals() -> tuple:
@@ -234,7 +234,7 @@ class Aggregator:
 
         The reference's hierarchical sync (``HVD_TPU_METRICS_TREE``)
         raises here until the port has ``observer.py`` (ROADMAP queue 1
-        item 9b)."""
+        item 9c)."""
         refuse_tree()
         t0 = time.perf_counter()
         snap = self.local_snapshot()
@@ -268,10 +268,10 @@ class Aggregator:
     def sync_tree(self) -> List[dict]:
         """The reference's hierarchical sync round (snapshot → host
         observer → O(hosts) exchange → merged fleet digest) needs
-        ``observer.py``, ROADMAP queue 1 item 9b."""
+        ``observer.py``, ROADMAP queue 1 item 9c."""
         raise NotImplementedError(
             "Aggregator.sync_tree needs metrics/observer.py, which the "
-            "port gets with ROADMAP queue 1 item 9b")
+            "port gets with ROADMAP queue 1 item 9c")
 
     @staticmethod
     def _fleet_mfu_gauges(gathered: List[dict], reg) -> None:
@@ -322,7 +322,7 @@ class Aggregator:
 
     def fleet_digest(self) -> Optional[dict]:
         """The merged fleet digest of a tree-mode sync: always None in
-        the port, whose sync is the flat one (item 9b)."""
+        the port, whose sync is the flat one (item 9c)."""
         with self._lock:
             return dict(self._fleet_digest) \
                 if self._fleet_digest is not None else None

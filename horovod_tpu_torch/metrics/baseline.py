@@ -28,10 +28,9 @@ activity — so the report *names the suspect subsystem*.  The detector
 then re-baselines at the new level (a persistent regression is
 reported once, not every step) and mutes for the cooldown.
 
-The port has no ``debug/regression.py`` and no ``autotune.py`` yet
-(ROADMAP queue 1 items 9b and 10): the report and the re-tune hand-off
-stay inside their ``try`` blocks, as in the reference, and do nothing
-until those modules land.
+The port has no ``autotune.py`` yet (ROADMAP queue 1 item 10): the
+re-tune hand-off stays inside its ``try`` block, as in the reference, and
+does nothing until that module lands.
 """
 
 from __future__ import annotations

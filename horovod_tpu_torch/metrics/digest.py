@@ -16,7 +16,7 @@ host can pre-reduce its ranks and the fleet exchange once per host.
 
 The port carries the algebra and the read side (quantiles, shares, MFU);
 the tree sync that exchanges digests between hosts (``observer.py``)
-comes with ROADMAP queue 1 item 9b.  Pure python, stdlib only.
+comes with ROADMAP queue 1 item 9c.  Pure python, stdlib only.
 """
 
 from __future__ import annotations

@@ -7,8 +7,11 @@ Two consumption paths for the same registry:
   exposition format (v0.0.4), byte for byte as the reference renders it;
   :class:`MetricsServer` serves it at ``/metrics`` from a daemon thread on
   the port's ``runner.rendezvous.BackgroundHTTPServer``.  ``/healthz``
-  answers 200 for liveness probes.  The reference's ``/debug/*`` and
-  ``/observe/*`` routes answer 404 here, naming ROADMAP queue 1 item 9b,
+  answers 200 for liveness probes.  The debug routes of
+  ``debug/http.py`` (``/debug/flight``, ``/debug/regression``,
+  ``/debug/stacks``, ``/debug/autotune``, ``/debug/fleet_scalars``) are
+  mounted here too, behind the same HMAC gate.  The reference's
+  ``/observe/*`` routes answer 404, naming ROADMAP queue 1 item 9c,
   which brings them.
 * **Offline analysis** — :class:`JsonlSink` appends one JSON object per
   ``write`` with size-based rotation and retention pruning.
@@ -111,12 +114,57 @@ class _MetricsHandler(BaseHTTPRequestHandler):
             self.send_header("Content-Length", "2")
             self.end_headers()
             self.wfile.write(b"ok")
-        elif path.startswith("/debug/") or path.startswith("/observe/"):
-            # The reference mounts the flight dump, stacks, regression
-            # report and the host observer's views here; the port gets
-            # them with debug/http.py and metrics/observer.py.
-            body = (b'{"error": "the /debug and /observe routes come with '
-                    b'ROADMAP queue 1 item 9b"}')
+        elif path in ("/debug/flight", "/debug/regression",
+                      "/debug/stacks", "/debug/autotune",
+                      "/debug/fleet_scalars"):
+            # The metrics port doubles as a debug surface: one scrape
+            # endpoint per host already exists, so the flight dump, the
+            # last regression report, all-thread stacks, the autotune
+            # loop status and the fleet-scalars view ride it instead of
+            # demanding a second port (debug/http.py serves the same
+            # handlers standalone — and the same HMAC gate applies on
+            # BOTH mounts, or setting the launch secret would protect
+            # one copy of the paths while this one stayed open).
+            from ..debug.http import (render_autotune_json,
+                                      render_fleet_scalars_json,
+                                      render_flight_json,
+                                      render_regression_json,
+                                      render_stacks_text,
+                                      request_authorized)
+            key = path.rsplit("/", 1)[1]
+            if not request_authorized(self.headers, key):
+                self.send_response(403)
+                self.end_headers()
+                return
+            code = 200
+            if path == "/debug/flight":
+                body, ctype = render_flight_json(), "application/json"
+            elif path == "/debug/regression":
+                body, ctype = render_regression_json(), "application/json"
+                if body is None:
+                    body = b'{"error": "no regression report yet"}'
+                    code = 404
+            elif path == "/debug/autotune":
+                body, ctype = render_autotune_json(), "application/json"
+                if body is None:
+                    body = b'{"error": "no active tuner in this process"}'
+                    code = 404
+            elif path == "/debug/fleet_scalars":
+                body, ctype = (render_fleet_scalars_json(),
+                               "application/json")
+            else:
+                body, ctype = (render_stacks_text(),
+                               "text/plain; charset=utf-8")
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        elif path.startswith("/observe/"):
+            # The reference mounts the host observer's views here; the
+            # port gets them with metrics/observer.py.
+            body = (b'{"error": "the /observe routes come with ROADMAP '
+                    b'queue 1 item 9c"}')
             self.send_response(404)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))

@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import json
 import threading
+import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -184,6 +185,9 @@ class NativeController:
                 "HVD_TPU_AUTOTUNE: the autotuner is ROADMAP queue 1 item 10 "
                 "and not ported yet; unset the knob")
         self._lib = load_library()
+        # The wall clock of the native timeline's start (rank 0 starts it
+        # inside init): debug/merge.py's anchor, to the init's precision.
+        t0 = time.time()
         rc = self._lib.hvd_native_init(
             rank, size, coord_addr.encode(), cfg.fusion_threshold_bytes,
             cfg.cycle_time_ms,
@@ -210,6 +214,7 @@ class NativeController:
         self._dispatch_table = None
         from ..debug import flight as _flight
         _flight.set_identity(rank=rank, world=size)
+        _flight.set_meta("native_init_wall", (t0 + time.time()) / 2.0)
         _flight.record("native.attach", None, rank=rank, size=size,
                        coord_addr=coord_addr)
         # Metric children cached on the instance (``_wait`` runs per op).
@@ -812,7 +817,11 @@ class NativeController:
         return self._lib.hvd_native_size()
 
     def start_timeline(self, filename: str):
+        t0 = time.time()
         self._lib.hvd_native_start_timeline(filename.encode())
+        # Merge anchor for runtime-started timelines (debug/merge.py).
+        from ..debug import flight as _flight
+        _flight.set_meta("timeline_start_wall", (t0 + time.time()) / 2.0)
 
     def stop_timeline(self):
         self._lib.hvd_native_stop_timeline()

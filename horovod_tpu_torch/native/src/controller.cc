@@ -467,6 +467,26 @@ std::string Controller::StalledJson() {
   return os.str();
 }
 
+std::string Controller::StalledJsonPlain() {  // port: stall snapshot without iostreams
+  std::lock_guard<std::mutex> lk(table_mu_);  // port: stall snapshot without iostreams
+  auto now = std::chrono::steady_clock::now();  // port: stall snapshot without iostreams
+  std::string out = "[";  // port: stall snapshot without iostreams
+  for (const auto& [name, pt] : table_) {  // port: stall snapshot without iostreams
+    double age = std::chrono::duration<double>(now - pt.first_report).count();  // port: stall snapshot without iostreams
+    if (age <= cfg_.stall_warning_s) continue;  // port: stall snapshot without iostreams
+    std::vector<int32_t> submitted;  // port: stall snapshot without iostreams
+    for (const auto& [r, q] : pt.by_rank) submitted.push_back(r);  // port: stall snapshot without iostreams
+    char age_s[32];  // port: stall snapshot without iostreams
+    snprintf(age_s, sizeof(age_s), "%g", age);  // port: stall snapshot without iostreams
+    if (out.size() > 1) out += ",";  // port: stall snapshot without iostreams
+    out += "{\"name\":\"" + JsonEscape(name) + "\",\"type\":" +  // port: stall snapshot without iostreams
+           std::to_string(static_cast<int>(pt.first.type)) +  // port: stall snapshot without iostreams
+           ",\"age_s\":" + age_s + ",\"missing\":" +  // port: stall snapshot without iostreams
+           RankListStr(MissingRanks(pt)) + ",\"submitted\":" +  // port: stall snapshot without iostreams
+           RankListStr(submitted) + "}";  // port: stall snapshot without iostreams
+  }  // port: stall snapshot without iostreams
+  return out + "]";  // port: stall snapshot without iostreams
+}  // port: stall snapshot without iostreams
 void Controller::CheckStalls(ResponseList& rl) {
   auto now = std::chrono::steady_clock::now();
   for (auto& [name, pt] : table_) {

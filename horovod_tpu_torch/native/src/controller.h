@@ -107,6 +107,9 @@ class Controller {
   // submitted rank lists.  Coordinator-only (other ranks see "[]").
   // Thread-safe against the background loop's Coordinate().
   std::string StalledJson();
+  // The same snapshot built without iostreams, which the runtime serves  // port: stall snapshot without iostreams
+  // (std::ostream crashed in it on the card's machine; PERF.md).  // port: stall snapshot without iostreams
+  std::string StalledJsonPlain();  // port: stall snapshot without iostreams
   int64_t effective_fusion_threshold() const {
     int64_t dyn = fusion_threshold_.load();
     return dyn > 0 ? dyn : cfg_.fusion_threshold_bytes;

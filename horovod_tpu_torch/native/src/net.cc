@@ -650,6 +650,7 @@ Status Channel::AwaitRecoveryFrame(bool verdict, uint64_t epoch,
   Deadline dl = Deadline::After(deadline_s);
   auto last_progress = std::chrono::steady_clock::now();
   for (;;) {
+    if (net_->Closing()) return Status::Error("net: the runtime is shutting down");  // port: failed-world reset
     uint64_t ep = epoch_.load();
     {
       std::lock_guard<std::mutex> lk(smu_);
@@ -912,6 +913,7 @@ Status Channel::PumpOne(int slice_ms) {
 // nobody else is, otherwise wait for their dispatch to make progress.
 Status Channel::Pump(Deadline& dl, bool control, uint64_t /*op_id*/,
                      bool /*for_send*/) {
+  if (net_->Closing()) return Status::Error("net: the runtime is shutting down");  // port: failed-world reset
   if (!control && Aborted())
     return Status::Retry("net: collective attempt aborted by a peer");
   if (rmu_.try_lock()) {
@@ -1053,6 +1055,7 @@ Status Channel::Recover(uint64_t failed_epoch, Deadline& dl) {
   std::lock_guard<std::mutex> rec(recover_mu_);
   if (epoch_.load() > failed_epoch && fd_.load() >= 0)
     return Status::OK();  // another thread already recovered this link
+  if (net_->Closing()) return Status::Error("net: the runtime is shutting down");  // port: failed-world reset
   const NetResilienceConfig& rc = NetResilience();
   if (!rc.enabled)
     return Status::Error("net: connection to rank " +
@@ -1087,6 +1090,7 @@ Status Channel::Recover(uint64_t failed_epoch, Deadline& dl) {
   if (dialer_) {
     int attempt = 0;
     while (std::chrono::steady_clock::now() < end) {
+      if (net_->Closing()) break;  // port: failed-world reset
       std::string host;
       uint16_t port = 0;
       if (!ParseAddr(net_->table()[peer_], &host, &port)) break;
@@ -1131,10 +1135,12 @@ Status Channel::Recover(uint64_t failed_epoch, Deadline& dl) {
     // persistent listener (AdoptResumed swaps the socket in).
     std::unique_lock<std::mutex> lk(smu_);
     bool ok = cv_.wait_until(lk, end, [&] {
+      if (net_->Closing()) return true;  // port: failed-world reset
       return epoch_.load() > failed_epoch && fd_.load() >= 0;
     });
     if (ok) out = Status::OK();
   }
+  if (net_->Closing()) out = Status::Error("net: the runtime is shutting down");  // port: failed-world reset
   NetCounters().recovering_now--;
   NetCounters().last_recovery_ms.store(SteadyNowMs());
   NET_TRACE("recover end ok=%d epoch=%llu", out.ok() ? 1 : 0,
@@ -1533,6 +1539,7 @@ Status Channel::Reset(uint64_t generation, double deadline_s) {
                  std::chrono::duration<double>(deadline_s));
   if (dialer_) {
     while (std::chrono::steady_clock::now() < end) {
+      if (net_->Closing()) break;  // port: failed-world reset
       std::string host;
       uint16_t port = 0;
       if (!ParseAddr(net_->table()[peer_], &host, &port)) break;
@@ -1827,6 +1834,15 @@ void Network::BroadcastAbort() {
   }
 }
 
+// Ends every recovery and wait of this world's links (Runtime::Shutdown).  // port: failed-world reset
+void Network::Close() {  // port: failed-world reset
+  closing_ = true;  // port: failed-world reset
+  for (auto& c : channels_) {  // port: failed-world reset
+    if (!c) continue;  // port: failed-world reset
+    std::lock_guard<std::mutex> lk(c->smu_);  // port: failed-world reset
+    c->cv_.notify_all();  // port: failed-world reset
+  }  // port: failed-world reset
+}  // port: failed-world reset
 void Network::NoteBadLink(int peer) {
   std::lock_guard<std::mutex> lk(bad_mu_);
   bad_links_.insert(peer);

@@ -441,6 +441,9 @@ class Network {
   uint64_t generation() const { return generation_.load(); }
 
   void abort_cv_notify() {}
+  // A failed world's shutdown: every recovery and wait gives up at once.  // port: failed-world reset
+  void Close();  // port: failed-world reset
+  bool Closing() const { return closing_.load(); }  // port: failed-world reset
 
  private:
   friend class Channel;
@@ -471,6 +474,7 @@ class Network {
   std::atomic<uint64_t> attempt_epoch_{0};
   std::atomic<uint64_t> abort_seen_{0};
   std::atomic<uint64_t> generation_{0};
+  std::atomic<bool> closing_{false};  // port: failed-world reset
   mutable std::mutex bad_mu_;
   std::set<int> bad_links_;
   int last_bad_peer_ = -1;

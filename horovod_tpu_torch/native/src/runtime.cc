@@ -58,6 +58,8 @@ void Runtime::Shutdown() {
   auto deadline = std::chrono::steady_clock::now() +
                   std::chrono::seconds(30);
   if (interrupted_) deadline = std::chrono::steady_clock::now();  // port: elastic wake-up
+  // A failed world's links are not recovered: its peer is dead or hung.  // port: failed-world reset
+  if (interrupted_ && net_) net_->Close();  // port: failed-world reset
   while (!loop_exited_ &&
          std::chrono::steady_clock::now() < deadline) {
     std::this_thread::sleep_for(std::chrono::milliseconds(5));
@@ -891,6 +893,7 @@ void Runtime::StartTimeline(const std::string& filename) {
 
 std::string Runtime::StalledJson() {
   if (!initialized_ || !controller_) return "[]";
+  return controller_->StalledJsonPlain();  // port: stall snapshot without iostreams
   return controller_->StalledJson();
 }
 

@@ -283,6 +283,41 @@ def drain_device_latency() -> int:
 add_source_drain(drain_device_latency)
 
 
+# Comm-side chaos (HVD_TPU_CHAOS_COMM_DELAY_MS): the wire analog of the
+# input pipeline's HVD_TPU_CHAOS_INPUT_DELAY_MS drill.  Every eager
+# collective pays a fixed host delay before it is issued, inside its
+# measured span, so that the step attribution sees comm_exposed grow and
+# the drift diagnosis can name a comm regression (reference
+# ops/collective.py:140-165).  Read once and cached; reset_comm_chaos()
+# re-reads the knob.  Inert unless the knob is set.
+_comm_chaos_delay: Optional[float] = None
+
+
+def _chaos_comm_delay_s() -> float:
+    global _comm_chaos_delay
+    if _comm_chaos_delay is None:
+        from ..core import config
+        d = max(0.0, config.get_float(config.CHAOS_COMM_DELAY_MS, 0.0)) / 1e3
+        _comm_chaos_delay = d
+        if d:
+            # Recorded at activation: the drift diagnosis's causal window
+            # must hold the cause.
+            _flight.record("net.chaos_delay", "eager", delay_ms=d * 1e3)
+    return _comm_chaos_delay
+
+
+def reset_comm_chaos() -> None:
+    """Re-read HVD_TPU_CHAOS_COMM_DELAY_MS at the next collective."""
+    global _comm_chaos_delay
+    _comm_chaos_delay = None
+
+
+def _comm_chaos() -> None:
+    delay = _chaos_comm_delay_s()
+    if delay:
+        time.sleep(delay)
+
+
 class _OpRecord:
     """One eager collective's telemetry: the ``collective.enqueue``
     event when it starts, the counters and the latency when its result
@@ -371,6 +406,7 @@ def _op_range(kind: str, name, tensor, comp=None):
                 _failure.guard():
             t = rec.hold()
             try:
+                _comm_chaos()
                 yield
             finally:
                 rec.release(t)
@@ -386,6 +422,7 @@ def _issue_range(rec: _OpRecord):
     with op_range(f"hvd.{rec.kind}.{rec.name or 'unnamed'}", rec.nbytes), \
             _failure.guard():
         t = time.perf_counter()
+        _comm_chaos()
         yield
         if not rec.cuda:
             rec.held += time.perf_counter() - t

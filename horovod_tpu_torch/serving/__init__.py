@@ -20,18 +20,19 @@ One replica is
 * a **radix prefix cache** (``prefix.py``), **chunked prefill** and
   **speculative decoding** (``speculative.py``) on the same geometry,
   each exact under greedy decoding;
-* request **tracing** (``tracing.py``) and per-tenant **SLO error
-  budgets** (``slo.py``), which feed the policy.
+* request **tracing** (``tracing.py``: ``trace.*`` flight events) and
+  per-tenant **SLO error budgets** (``slo.py``), which feed the policy;
+  the engine and the request plane count into the ``hvd_serving_*`` and
+  ``hvd_slo_*`` metric families.
 
 Load client: ``python -m horovod_tpu_torch.serving.submit``.
 
-Not ported yet: the KV-page transport between replicas (the reference's
-``disagg``: ``send``/``receive``/``migrate`` and the bundle codec) waits
-for the recovery transport; the autoscaler (``Autoscaler``,
-``desired_np``) for the elastic driver's resize; the fleet's service job
-kind for the fleet; the ``hvd_serving_*``/``hvd_slo_*`` metric families
-and ``trace.*`` flight events for the port's telemetry (plain counters
-stand in); expert-parallel placement of MoE serving weights.
+Not ported yet (ROADMAP queue 1 item 5b): the KV-page transport between
+replicas (the reference's ``disagg``: ``send``/``receive``/``migrate``
+and the bundle codec, over the ported recovery transport) and the
+autoscaler (``Autoscaler``, ``desired_np``, over the ported elastic
+driver's resize); with item 10b the fleet's service job kind; and
+expert-parallel placement of MoE serving weights.
 """
 
 from .engine import DecodeEngine, Event, Request

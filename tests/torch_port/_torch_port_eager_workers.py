@@ -165,7 +165,9 @@ def _init_ctl(rank, world, out_dir, tag, port, local_size=1, env=None):
     """The port on gloo with the controller of ``port`` attached."""
     _topology_env(rank, world, local_size)
     os.environ.update({"HVD_TPU_CONTROLLER_ADDR": f"127.0.0.1:{port}",
-                       "HVD_TPU_CYCLE_TIME": "1"})
+                       "HVD_TPU_CYCLE_TIME": "1",
+                       # rank 0's stall watchdog writes its reports here
+                       "HVD_TPU_FLIGHT_DIR": out_dir})
     os.environ.update(env or {})
     import torch
     import horovod_tpu_torch as hvd
@@ -248,16 +250,29 @@ def native_part(rank, world, rendezvous, out_dir):
     res["permuted"] = {i: np.asarray(got[i]) for i in range(N_PERMUTED)}
     res["permuted_inputs"] = vals
     res["order"] = order
-    # A name enqueued twice while in flight.
+    # A name enqueued twice while in flight.  In each round one rank gates
+    # the op: it submits only after a gloo barrier the others pass once
+    # they tried the second submission, so their first cannot complete
+    # before it (a rank slowed by a loaded host would otherwise see it
+    # completed, submit the name again and wait for peers that never
+    # match it).  Round "a" holds ranks 1-3, round "b" rank 0.
+    import torch.distributed as dist
     dup = {}
     for plane, x in (("device", torch.ones(3)), ("host", np.ones(3))):
-        h = hvd.allreduce_async(x, name=f"dup.{plane}")
-        try:
-            hvd.allreduce_async(x, name=f"dup.{plane}")
-            dup[plane] = None
-        except hvd.DuplicateNameError as e:
-            dup[plane] = str(e)
-        hvd.synchronize(h)
+        for rnd, gate in (("a", 0), ("b", 1)):
+            name = f"dup.{plane}.{rnd}"
+            if rank == gate:
+                dist.barrier()
+                h = hvd.allreduce_async(x, name=name)
+            else:
+                h = hvd.allreduce_async(x, name=name)
+                try:
+                    hvd.allreduce_async(x, name=name)
+                    dup[plane] = None
+                except hvd.DuplicateNameError as e:
+                    dup[plane] = str(e)
+                dist.barrier()
+            hvd.synchronize(h)
     res["duplicate"] = dup
     # The timeline of a few fused names.
     path = os.path.join(out_dir, f"timeline{rank}.json")

@@ -20,7 +20,8 @@ per epoch to ``<log>.<slot>``.
   and all-gather of a small transformer) while ``victim`` sleeps and
   then exits; the survivors log the ``HorovodInternalError`` with its
   delay after the death, restore, re-form and finish at the smaller
-  world.  With ``hang_s``, the victim instead takes the step with its
+  world; a reset callback logs ``reset`` when the failed world is torn
+  down and the next one formed.  With ``hang_s``, the victim instead takes the step with its
   peers and then sleeps ``hang_s`` alive before its commit (logging
   ``hang``), and only then exits: the survivors' commits fail at the
   operation deadline.
@@ -144,6 +145,9 @@ def detect_worker(log, op, victim, epochs, die_epoch, ckpt, hang_s=0.0):
         opt_state={"model": model.state_dict(), "opt": opt,
                    "step": step_t},
         checkpoint_dir=ckpt)
+    # The reset's end: the failed world torn down and the next one formed.
+    state.register_reset_callbacks([lambda: _log(
+        log, event="reset", t=time.time(), size=hvd.size())])
     step = tfm.make_train_step(cfg, par, model, opt)
 
     @elastic.run

@@ -1,12 +1,20 @@
 """Worker bodies of the telemetry plane's multi-rank tests
-(test_torch_port_observatory.py, test_torch_port_telemetry_families.py):
-two gloo ranks, started once per test process by
-``_torch_port_pool.part_results(..., "telemetry")``, each writing
-``telemetry<rank>.pt``.  Each rank runs the eager collectives on seeded
-inputs and keeps the metric families they moved, then closes
-``N_STEPS`` steps of seeded wall times through ``metrics.step_end`` and
-runs one ``metrics.sync()``.  Torch only: the ranks import neither JAX
-nor horovod_tpu."""
+(test_torch_port_observatory.py, test_torch_port_telemetry_families.py,
+test_torch_port_debug.py): two gloo ranks, started once per test process
+and part by ``_torch_port_pool.part_results``, each writing
+``<part><rank>.pt``.
+
+* ``telemetry``: each rank runs the eager collectives on seeded inputs
+  and keeps the metric families they moved, then closes ``N_STEPS``
+  steps of seeded wall times through ``metrics.step_end`` and runs one
+  ``metrics.sync()``.
+* ``hang``: the reference's forced hang (tests/test_debug_flight.py)
+  through ``init()``: both ranks attach the native controller with the
+  debug endpoint published on the test's rendezvous KV; rank 1 records a
+  ``data.wait`` and never submits the allreduce "never", and rank 0's
+  stall watchdog, started by ``init()``, writes the hang report.
+
+Torch only: the ranks import neither JAX nor horovod_tpu."""
 
 import os
 
@@ -112,3 +120,53 @@ def telemetry_part(rank, world, rendezvous, out_dir):
     res["dump"] = os.path.basename(debug.dump())
     hvd.shutdown()
     torch.save(res, os.path.join(out_dir, f"telemetry{rank}.pt"))
+
+
+# The forced hang's stall window and the controller's stall shutdown
+# (seconds), and how long rank 1 sits out.
+HANG_STALL_S, HANG_SHUTDOWN_S, HANG_SIT_OUT_S = 1, 3, 6.0
+
+
+def hang_part(rank, world, rendezvous, out_dir):
+    import glob
+    import json
+    import time
+    from _torch_port_workers import _topology_env
+    _topology_env(rank, world, 1)
+    with open(os.path.join(out_dir, "ports.json")) as f:
+        (port,) = json.load(f)
+    with open(os.path.join(out_dir, "kv.txt")) as f:
+        kv = f.read().strip()
+    reports = os.path.join(out_dir, "reports")
+    os.environ.update({
+        "HVD_TPU_CONTROLLER_ADDR": f"127.0.0.1:{port}",
+        "HVD_TPU_RENDEZVOUS_ADDR": kv, "HVD_TPU_FLIGHT_HOST": "127.0.0.1",
+        "HVD_TPU_FLIGHT_DIR": reports, "HVD_TPU_CYCLE_TIME": "1",
+        "HVD_TPU_SCHEDULE_PROBE": "0",
+        "HOROVOD_STALL_CHECK_TIME_SECONDS": str(HANG_STALL_S),
+        "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": str(HANG_SHUTDOWN_S)})
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import debug
+    torch.set_num_threads(1)
+    hvd.init(device="cpu", init_method=f"file://{rendezvous}")
+    res = {"warmup": float(hvd.allreduce(torch.ones(4), op=hvd.Sum,
+                                         name="warmup")[0])}
+    if rank == 0:
+        try:
+            hvd.allreduce(torch.ones(4), op=hvd.Sum, name="never")
+            res["error"] = None
+        except Exception as e:  # noqa: BLE001 — the stall's verdict
+            res["error"] = str(e)
+        deadline = time.time() + 10
+        found = []
+        while time.time() < deadline and not found:
+            found = glob.glob(os.path.join(reports, "hang_report_*.json"))
+            time.sleep(0.2)
+        res["reports"] = [json.load(open(p)) for p in sorted(found)]
+    else:
+        # The missing rank, stuck waiting on its input pipeline.
+        debug.record("data.wait", "train_loader", waited_s=2.0)
+        time.sleep(HANG_SIT_OUT_S)
+    hvd.shutdown()
+    torch.save(res, os.path.join(out_dir, f"hang{rank}.pt"))

@@ -334,6 +334,37 @@ def test_world_watch_fails_a_card_past_the_deadline(kv, clean_failure,
         assert not failure._beacons
 
 
+@pytest.mark.parametrize("round_", [0, 3])
+def test_world_watch_publishes_and_follows_a_members_verdict(
+        kv, clean_failure, monkeypatch, round_):
+    """A member that fails its world publishes the verdict under
+    ``elastic/world_failed_<round>``; a watch that finds it there fails
+    its own world at once, and does not publish again.  Another round's
+    verdict is not this world's."""
+    kv.put("elastic", "current_round", str(round_).encode())
+    kv.put("elastic", "world_failed_9", b"an older world")
+    failure.start_watch(round_)
+    time.sleep(3 * failure.WATCH_INTERVAL_S)
+    assert failure.failed() is None
+    t0 = time.monotonic()
+    kv.put("elastic", f"world_failed_{round_}", b"rank 1's deadline")
+    while failure.failed() is None and time.monotonic() - t0 < 2.0:
+        time.sleep(0.01)
+    assert time.monotonic() - t0 < 1.0
+    assert failure.failed() == (f"a member of round {round_} failed the "
+                                "world: rank 1's deadline")
+    assert kv.get("elastic", f"world_failed_{round_}") == \
+        b"rank 1's deadline"
+    failure.stop_watch()
+    # A member's own verdict goes to the KV for the others.
+    failure.reset()
+    failure.start_watch(round_ + 1)
+    failure.mark_failed("this member's deadline")
+    assert kv.get("elastic", f"world_failed_{round_ + 1}") == \
+        b"this member's deadline"
+    failure.stop_watch()
+
+
 def test_notification_filters_stale_events_by_round(kv, monkeypatch):
     from horovod_tpu_torch import elastic
     from horovod_tpu_torch.core.state import global_state

@@ -24,6 +24,13 @@ WORKERS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # The time a survivor may take to raise HorovodInternalError after its
 # peer died inside a collective (PERF.md, core/failure.py).
 DETECT_BOUND_S = 5.0
+# The time a survivor may take from its HorovodInternalError (or, after
+# a hang, from the hung peer's exit, before which no round is published)
+# to the end of its reset: the failed world torn down and the next one
+# formed.  The reset takes 0.7-1.0 s on an idle CPU (PERF.md); it took
+# ~20 s while the native runtime's shutdown waited out its reconnect
+# ladder on the dead peer.  The margin is for the load of parallel tests.
+RESET_BOUND_S = 5.0
 # The operation deadline of the hang drill (HVD_TPU_NET_OP_DEADLINE_S):
 # long enough for a world of three CPU workers to form under it.
 HANG_DEADLINE_S = 8
@@ -46,9 +53,22 @@ def read_logs(prefix, slots):
     return events
 
 
+def _check_resets(events, errors, survivors, death_t):
+    """Each survivor's reset ends within RESET_BOUND_S of its error, or
+    of the death when that came later."""
+    resets = {e["slot"]: e["t"] for e in events if e["event"] == "reset"}
+    assert sorted(resets) == survivors, resets
+    for e in errors:
+        took = resets[e["slot"]] - max(e["t"], death_t)
+        assert 0 <= took <= RESET_BOUND_S, (e["slot"], took)
+
+
 @pytest.fixture
-def elastic_env(monkeypatch):
+def elastic_env(monkeypatch, tmp_path):
     monkeypatch.setenv("HVD_TPU_ELASTIC_DISCOVERY_INTERVAL", "0.2")
+    # Rank 0's stall watchdog writes its hang reports here, not in the
+    # working directory.
+    monkeypatch.setenv("HVD_TPU_FLIGHT_DIR", str(tmp_path / "flight"))
 
 
 @pytest.mark.timeout(300)
@@ -146,6 +166,7 @@ def test_peer_death_inside_a_collective_reaches_every_survivor(
     for e in errors:
         assert e["epoch"] == 2 and e["size"] == 3
         assert 0 <= e["t"] - death["t"] <= DETECT_BOUND_S, (e, death)
+    _check_resets(events, errors, survivors, death["t"])
     for slot in survivors:
         epochs = [e for e in events if e["event"] == "epoch"
                   and e["slot"] == slot]
@@ -191,6 +212,7 @@ def test_peer_that_hangs_alive_fails_the_commit_at_the_deadline(
         assert HANG_DEADLINE_S - 1 <= e["t"] - hang["t"] <= \
             HANG_DEADLINE_S + DETECT_BOUND_S, (e, hang)
         assert e["t"] < death["t"]   # detected with the peer alive
+    _check_resets(events, errors, survivors, death["t"])
     for slot in survivors:
         epochs = [e for e in events if e["event"] == "epoch"
                   and e["slot"] == slot]

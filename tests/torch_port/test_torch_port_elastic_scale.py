@@ -16,8 +16,11 @@ from test_torch_port_elastic_drills import command, read_logs
 
 
 @pytest.fixture
-def elastic_env(monkeypatch):
+def elastic_env(monkeypatch, tmp_path):
     monkeypatch.setenv("HVD_TPU_ELASTIC_DISCOVERY_INTERVAL", "0.2")
+    # Rank 0's stall watchdog writes its hang reports here, not in the
+    # working directory.
+    monkeypatch.setenv("HVD_TPU_FLIGHT_DIR", str(tmp_path / "flight"))
 
 
 @pytest.mark.timeout(300)

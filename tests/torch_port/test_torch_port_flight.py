@@ -1,7 +1,7 @@
 """horovod_tpu_torch.debug's flight recorder against horovod_tpu.debug's:
 the same seeded event sequence dumps the same object except for the
 clocks, host and pid; the ring keeps the newest ``capacity`` events;
-``dump`` writes the same file name; the item-9b entry points raise; the
+``dump`` writes the same file name; the item-9b entry points are there; the
 clock offset aligns against a rendezvous server's clock.  And
 the port's ``utils.logging`` / ``utils.profiler`` beside the
 reference's."""
@@ -129,17 +129,34 @@ def test_signal_handler_keeps_one_already_installed(tmp_path, monkeypatch):
 
 
 def test_module_surface_and_item_9b_entry_points():
+    """The package's surface is the reference's, and its item-9b entry
+    points reach the endpoint, the watchdog and the regression report
+    (test_torch_port_debug.py and …_regression.py hold what they do)."""
+    from horovod_tpu_torch.debug import hang, http, regression
     assert set(debug_t.__all__) == set(
         importlib.import_module("horovod_tpu.debug").__all__)
     fl_t.snapshot()
-    for fn, args in ((debug_t.serve, ()), (debug_t.serve_and_publish, ()),
-                     (debug_t.start_stall_watchdog, (None,)),
-                     (debug_t.last_regression_report, ()),
-                     (debug_t.build_regression_report, (None,))):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            fn(*args)
-    debug_t.stop_serving()
-    debug_t.stop_stall_watchdog()
+    try:
+        server = debug_t.serve(port=0, host="127.0.0.1")
+        assert debug_t.serve() is server is http._server
+        assert debug_t.serve_and_publish(rank=0, rdv_addr=None) is None
+    finally:
+        debug_t.stop_serving()
+    assert http._server is None
+
+    class Quiet:
+        def stalled(self):
+            return []
+
+    try:
+        dog = debug_t.start_stall_watchdog(Quiet(), interval_s=0.05)
+        assert debug_t.start_stall_watchdog(Quiet()) is dog
+        assert isinstance(dog, hang.StallWatchdog)
+    finally:
+        debug_t.stop_stall_watchdog()
+    assert hang._watchdog is None
+    regression.reset()
+    assert debug_t.last_regression_report() is None
     # No rendezvous server answers: no estimate, as in the reference.
     assert debug_t.estimate_clock_offset("127.0.0.1:1", samples=1,
                                          timeout=0.2) is None

@@ -3,7 +3,8 @@ horovod_tpu.metrics': the same seeded operation sequence through both
 registries renders the same Prometheus text byte for byte, with equal
 ``snapshot()``, ``scalars()`` and ``scalar_kinds()``; the JSONL sink
 rotates and prunes to the same file set; the scrape endpoint serves the
-registry, answers ``/healthz`` and refuses the item-9b routes."""
+registry, answers ``/healthz``, mounts the ``/debug/*`` routes and refuses
+the item-9c ``/observe/*`` routes."""
 
 import importlib
 import json
@@ -162,10 +163,16 @@ def test_metrics_server_serves_the_registry():
         assert code == 200 and ctype == ex_j._CONTENT_TYPE
         assert body.decode() == ex_t.render_prometheus(reg)
         assert _get(base + "/healthz")[::2] == (200, b"ok")
-        for path in ("/debug/flight", "/debug/stacks", "/observe/digest"):
-            code, _, body = _get(base + path)
-            assert code == 404 and b"item 9b" in body
-            json.loads(body)
+        # The debug routes are mounted (test_torch_port_debug.py holds
+        # their bodies); the observer's still answer 404, naming item 9c.
+        code, ctype, body = _get(base + "/debug/flight")
+        assert code == 200 and ctype == "application/json"
+        assert "events" in json.loads(body)
+        code, ctype, body = _get(base + "/debug/stacks")
+        assert code == 200 and b"Thread" in body
+        code, _, body = _get(base + "/observe/digest")
+        assert code == 404 and b"item 9c" in body
+        json.loads(body)
         assert _get(base + "/nope")[0] == 404
     finally:
         server.stop()
@@ -185,16 +192,16 @@ def test_serve_is_idempotent_and_stops():
                                         ("METRICS_TOPK", "8")])
 def test_tree_knobs_are_refused(monkeypatch, knob, value):
     """The hierarchical sync needs observer.py (ROADMAP queue 1 item
-    9b): a set knob raises at init() and at sync(), never ignored."""
+    9c): a set knob raises at init() and at sync(), never ignored."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import metrics
     monkeypatch.setenv("HVD_TPU_" + knob, value)
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="item 9c"):
         hvd.init(device="cpu")
     assert not hvd.is_initialized()
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="item 9c"):
         metrics.Aggregator().sync()
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="item 9c"):
         metrics.Aggregator().sync_tree()
 
 

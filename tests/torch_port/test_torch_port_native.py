@@ -47,7 +47,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 REF_SRC = os.path.join(ROOT, "horovod_tpu", "native", "src")
 # The port's own lines, each marked: the response-cache hit counter, and
 # the wake-up of waits on a failed elastic world (core/failure.py).
-MARKS = ("// port: response-cache hit counter", "// port: elastic wake-up")
+MARKS = ("// port: response-cache hit counter", "// port: elastic wake-up",
+         "// port: failed-world reset",
+         "// port: stall snapshot without iostreams")
 WORLD = pool.WORLD
 
 
@@ -159,6 +161,11 @@ def test_stall_warning_names_the_late_rank_then_recovers(native):
     stalled = native[0]["stalled"]
     assert [(s["name"], s["missing"]) for s in stalled] == [("late", [1])]
     assert stalled[0]["age_s"] >= 1.0
+    # The reference's snapshot fields (the port builds it without
+    # iostreams): an allreduce (type 0) the other three submitted.
+    assert sorted(stalled[0]) == ["age_s", "missing", "name", "submitted",
+                                  "type"]
+    assert (stalled[0]["type"], stalled[0]["submitted"]) == (0, [0, 2, 3])
     for r in range(WORLD):
         assert native[r]["late"].tolist() == [4.0] * 4
     with open(os.path.join(pool.part_dir("native"), "stderr0.txt")) as f:

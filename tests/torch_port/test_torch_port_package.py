@@ -94,7 +94,9 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.metrics.digest", "horovod_tpu_torch.metrics.health",
     "horovod_tpu_torch.metrics.baseline",
     "horovod_tpu_torch.metrics.aggregate", "horovod_tpu_torch.debug",
-    "horovod_tpu_torch.debug.flight", "horovod_tpu_torch.utils.logging",
+    "horovod_tpu_torch.debug.flight", "horovod_tpu_torch.debug.http",
+    "horovod_tpu_torch.debug.hang", "horovod_tpu_torch.debug.regression",
+    "horovod_tpu_torch.debug.merge", "horovod_tpu_torch.utils.logging",
     "horovod_tpu_torch.utils.profiler",
     "horovod_tpu_torch.net", "horovod_tpu_torch.net.retry",
     "horovod_tpu_torch.net.chaos", "horovod_tpu_torch.net.native",

@@ -2,7 +2,7 @@
 """The negotiated eager plane across several GPUs.
 
     python3 tools/multi_gpu_eager.py [--world 4] [--device cuda|cpu]
-        [--small]
+        [--small] [--drill hang]
 
 Starts ``--world`` processes, one a GPU (NCCL; ``--device cpu``: gloo on
 the CPU, with ``--small`` shapes, to rehearse the same program), each with
@@ -27,8 +27,20 @@ flagship of chip_smoke.py (vocab 8192, d_model 512, 8 heads, d_ff 2048,
    (``set_wire_compression("int8")`` on rank 0): losses finite and
    falling, bytes raw and sent a step, host step.
 
+``--drill hang`` runs the hang drill instead: every rank attaches the
+controller with the debug endpoint published on a rendezvous KV this
+process serves (``init()`` does both, and starts the stall watchdog on
+rank 0), and after a warm-up allreduce rank 2 records a ``data.wait``
+and holds back the negotiated allreduce "held" for ``HOLD_S``, past the
+stall window ``HOROVOD_STALL_CHECK_TIME_SECONDS`` (``STALL_S``).  Rank
+0's watchdog must write one hang report naming "held" and rank 2, with
+rank 2's state (reachable, input-bound, its last events) fetched from
+its ``/debug/flight``; the allreduce then completes with the world's
+sum on every rank.
+
 Prints one JSON line per result from rank 0 and writes them to
-chiprun_out/multi_gpu_eager.json; exits non-zero if a check fails.
+chiprun_out/multi_gpu_eager.json (the drill: multi_gpu_eager_hang.json);
+exits non-zero if a check fails.
 """
 
 import argparse
@@ -43,6 +55,9 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_STEPS = 6
+# The hang drill: the stall window, how long rank 2 holds "held" back,
+# and the rank that does.
+STALL_S, HOLD_S, HELD_RANK = 2, 8.0, 2
 
 
 def _free_port() -> int:
@@ -227,11 +242,72 @@ def rank_main(rank, world, ports, device, small, out_path):
             json.dump(report, f)
 
 
+def hang_main(rank, world, ports, device, small, out_path):
+    """The hang drill's rank (the module's docstring)."""
+    sys.path.insert(0, ROOT)
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(world),
+                      HOROVOD_LOCAL_RANK=str(rank),
+                      HOROVOD_LOCAL_SIZE=str(world),
+                      HOROVOD_CROSS_RANK="0", HOROVOD_CROSS_SIZE="1",
+                      HVD_TPU_CYCLE_TIME="1", HVD_TPU_FLIGHT_HOST="127.0.0.1",
+                      HVD_TPU_CONTROLLER_ADDR=f"127.0.0.1:{ports[2]}",
+                      HOROVOD_STALL_CHECK_TIME_SECONDS=str(STALL_S))
+    import faulthandler
+    import glob
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable(all_threads=True)   # a crash's Python stacks
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import debug
+    dist.init_process_group(
+        "gloo" if device == "cpu" else "nccl",
+        init_method=f"tcp://localhost:{ports[0]}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    hvd.init(device=device, use_controller=True)
+    dev = hvd.device()
+    x = torch.ones(1 << (10 if small else 20), device=dev)
+    warm = hvd.allreduce(x, op=hvd.Sum, name="warm")
+    if rank == HELD_RANK:
+        debug.record("data.wait", "drill_loader", waited_s=HOLD_S)
+        time.sleep(HOLD_S)
+    t0 = time.perf_counter()
+    held = hvd.allreduce(x, op=hvd.Sum, name="held")
+    held_s = time.perf_counter() - t0
+    assert float(warm[0]) == float(held[-1]) == world, (warm, held)
+    hvd.barrier()
+    report = {"world": world, "held_s_rank0": held_s,
+              "device": torch.cuda.get_device_name(dev)
+              if dev.type == "cuda" else "cpu"}
+    if rank == 0:
+        paths = sorted(glob.glob(os.path.join(
+            os.environ["HVD_TPU_FLIGHT_DIR"], "hang_report_*.json")))
+        with open(paths[0]) as f:
+            rep = json.load(f)
+        report.update(reports=len(paths), report=rep)
+        (held_stall,) = [s for s in rep["stalled"] if s["name"] == "held"]
+        assert held_stall["type_name"] == "allreduce", held_stall
+        assert held_stall["missing"] == [HELD_RANK], held_stall
+        assert rep["missing_ranks"] == [HELD_RANK], rep["missing_ranks"]
+        late = rep["ranks"][str(HELD_RANK)]
+        assert late["missing"] and late["reachable"], late
+        assert late["attribution"] == "input-bound", late["attribution"]
+        assert "data.wait" in [e["kind"] for e in late["last_events"]]
+        assert all(e["reachable"] for e in rep["ranks"].values())
+    hvd.shutdown()
+    dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(report, f)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--world", type=int, default=4)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--drill", choices=("hang",), default=None)
     args = ap.parse_args()
     import tempfile
     import torch
@@ -240,6 +316,8 @@ def main() -> int:
         print(f"needs {args.world} GPUs, found {torch.cuda.device_count()}",
               file=sys.stderr)
         return 2
+    if args.drill == "hang":
+        return hang_drill(args, mp)
     with tempfile.TemporaryDirectory() as tmp:
         out_path = os.path.join(tmp, "report.json")
         ports = [_free_port() for _ in range(3)]
@@ -256,6 +334,51 @@ def main() -> int:
     for part in ("permuted", "flat", "controller", "controller_int8"):
         print(json.dumps({"part": part, **report[part]}))
     print(json.dumps({"device": report["device"], "world": report["world"]}))
+    return 0
+
+
+def hang_drill(args, mp) -> int:
+    """Runs the hang drill's ranks beside a rendezvous KV of this process
+    and writes their report."""
+    import tempfile
+    sys.path.insert(0, ROOT)
+    from horovod_tpu_torch.runner.rendezvous import RendezvousServer
+    kv = RendezvousServer(host="127.0.0.1", port=0)
+    kv.start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.environ.update(HVD_TPU_RENDEZVOUS_ADDR=f"127.0.0.1:{kv.port}",
+                              HVD_TPU_FLIGHT_DIR=tmp)
+            out_path = os.path.join(tmp, "report.json")
+            ports = [_free_port() for _ in range(3)]
+            t0 = time.perf_counter()
+            mp.start_processes(hang_main, args=(args.world, ports,
+                                                args.device, args.small,
+                                                out_path),
+                               nprocs=args.world, join=True,
+                               start_method="spawn")
+            with open(out_path) as f:
+                report = json.load(f)
+            report["seconds"] = time.perf_counter() - t0
+    finally:
+        kv.stop()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "multi_gpu_eager_hang.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    rep = report["report"]
+    print(json.dumps({"drill": "hang", "device": report["device"],
+                      "world": report["world"],
+                      "seconds": report["seconds"],
+                      "held_s_rank0": report["held_s_rank0"],
+                      "reports": report["reports"],
+                      "stalled": rep["stalled"],
+                      "missing_ranks": rep["missing_ranks"],
+                      "rank2": {k: rep["ranks"]["2"][k] for k in
+                                ("missing", "reachable", "attribution")},
+                      "rank2_last_events": [
+                          (e["kind"], e["name"]) for e in
+                          rep["ranks"]["2"]["last_events"]]}))
     return 0
 
 

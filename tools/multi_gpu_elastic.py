@@ -3,7 +3,7 @@
 while the ZeRO step's NCCL collectives are in flight.
 
     python3 tools/multi_gpu_elastic.py [--device cuda|cpu] [--small]
-        [--drill kill|hang|both]   (default: kill)
+        [--drill kill|hang|both]   (default: both)
 
 Runs the port's ``ElasticDriver`` over the alias hosts ``localhost:2``,
 ``127.0.0.1:1`` and ``<hostname>:1`` (four ranks on one machine; each
@@ -30,10 +30,10 @@ exits.  Checks:
   process alive;
 * hang: every survivor raises it at the deadline (the world watch finds
   a beacon of the step's collectives overdue, marks the world failed
-  and aborts its communicators), within ``DETECT_BOUND_S`` past it and
-  before the hung peer exits, and commits nothing of that step: its
-  restore is the previous step, and its resumed losses equal the kill
-  drill's;
+  and aborts its communicators, all at once), within ``DETECT_BOUND_S``
+  past it and before the hung peer exits, and commits nothing of that
+  step: its restore is the previous step, and its resumed losses equal
+  the kill drill's;
 * the driver blacklists 127.0.0.1 and the three survivors re-form a world
   of 3; ``sync()`` reports ``peer`` (rank 3 holds rank 2's copy);
 * the peer restore equals the disk restore of the same step bit for bit
@@ -41,11 +41,13 @@ exits.  Checks:
 * the steps resumed from the peer restore and, rerun, from the disk
   restore give equal losses bit for bit.
 
-The hang drill is not in the default run.  On four H100s under torch
-2.11 its survivors mark the world failed at the deadline, so they commit
-nothing, but the NCCL abort of a world whose peer is alive returns only
-about 80 s later, and their reset then stalls (PERF.md, ROADMAP queue
-3); ``--drill hang`` reproduces that.  On gloo it passes.
+Each survivor also logs the end of its reset (a reset callback: the
+failed world torn down and the next one formed), and each drill reports
+the reset alone, from the survivor's error (after a hang, from the hung
+peer's exit, before which no round is published), held to
+``RESET_BOUND_S``.  In the hang drill a worker whose step outlasts the
+deadline by 3 s writes every thread's Python stack to
+``chiprun_out/multi_gpu_elastic_stacks.<slot>``.
 
 ``--device cpu`` rehearses the same program on gloo.  Prints one JSON
 line per result, writes them to chiprun_out/multi_gpu_elastic.json, and
@@ -66,6 +68,8 @@ VICTIM = "127.0.0.1:0"
 # death of a peer inside the ZeRO step's collectives (PERF.md), and in
 # the hang drill after the operation deadline.
 DETECT_BOUND_S = 5.0
+# The reset alone (the failed world torn down, the next one formed).
+RESET_BOUND_S = 5.0
 HANG_DEADLINE_S = 20
 HANG_S = HANG_DEADLINE_S + 15
 CARDS = {"localhost": "0,1", "127.0.0.1": "2"}   # else GPU 3
@@ -144,11 +148,23 @@ def worker(device, small, log, ckpt_dir, drill):
         opt.reduce_grads = hung_reduce_grads
     state = elastic.TpuState(opt_state=tree, checkpoint_dir=ckpt_dir,
                              checkpoint_keep=STEPS + 1)
+    state.register_reset_callbacks([lambda: _log(
+        log, event="reset", rank=hvd.rank(), size=hvd.size())])
     step = tfm.make_train_step(cfg, par, model, opt)
 
     def batch_of(i):
         return tfm.synthetic_batch(cfg, batch, seed=1000 + 100 * i +
                                    hvd.rank())
+
+    stacks = None
+    if drill == "hang":
+        # Every thread's Python stack, written if a step outlasts the
+        # deadline by 3 s (the hung step; cancelled after each step).
+        import faulthandler
+        os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+        stacks = open(os.path.join(
+            ROOT, "chiprun_out", "multi_gpu_elastic_stacks." +
+            os.environ["HVD_TPU_ELASTIC_SLOT"].replace(":", "_")), "a")
 
     def run(first, last):
         losses = []
@@ -184,6 +200,9 @@ def worker(device, small, log, ckpt_dir, drill):
                 time.sleep(2.0)
                 _log(log, event="death", step=i, rank=hvd.rank())
                 os._exit(1)
+            if stacks is not None:
+                faulthandler.dump_traceback_later(HANG_DEADLINE_S + 3,
+                                                  file=stacks)
             try:
                 loss = step(tokens, labels).item()
                 counter.add_(1)
@@ -192,6 +211,9 @@ def worker(device, small, log, ckpt_dir, drill):
                 _log(log, event="error", step=i, rank=hvd.rank(),
                      error=str(e)[:300])
                 raise
+            finally:
+                if stacks is not None:
+                    faulthandler.cancel_dump_traceback_later()
             _log(log, event="step", step=i, loss=loss, rank=hvd.rank(),
                  size=hvd.size(), round=global_state.elastic_round,
                  launches=dict(fa.launches))
@@ -259,6 +281,10 @@ def _drill(kind, device, small, hosts, slots):
     report["detected_alive"] = {e["slot"]: e["t"] < death[0]["t"]
                                 for e in errors} if death else {}
     report["errors"] = {e["slot"]: e["error"] for e in errors}
+    resets = {e["slot"]: e["t"] for e in events if e["event"] == "reset"}
+    report["reset_s"] = {
+        e["slot"]: resets[e["slot"]] - max(e["t"], death[0]["t"])
+        for e in errors if e["slot"] in resets and death}
     report["syncs"] = syncs
     report["peer_vs_disk"] = [e for e in events
                               if e["event"] == "peer_vs_disk"]
@@ -277,6 +303,7 @@ def _drill(kind, device, small, hosts, slots):
         for s in report["reruns"]}
     report["launches"] = {e["slot"]: e["launches"] for e in steps
                           if e["step"] == STEPS - 1}
+    report["events"] = events
     return report
 
 
@@ -294,6 +321,9 @@ def _check(kind, report, survivors):
         low, high = 0, DETECT_BOUND_S
     assert all(low <= d <= high for d in report["detect_s"].values()), \
         report["detect_s"]
+    assert sorted(report["reset_s"]) == survivors and all(
+        0 <= r <= RESET_BOUND_S for r in report["reset_s"].values()), \
+        report["reset_s"]
     after = [e for e in report["syncs"] if e["round"] > 0]
     assert sorted(e["slot"] for e in after) == survivors, after
     # The restore is the last step committed before the fault.
@@ -311,7 +341,7 @@ def main() -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--drill", choices=("kill", "hang", "both"),
-                    default="kill")
+                    default="both")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -349,7 +379,8 @@ def main() -> int:
         os.environ.pop("HVD_TPU_NET_OP_DEADLINE_S", None)
         with open(os.path.join(out_dir, "multi_gpu_elastic.json"), "w") as f:
             json.dump(report, f, indent=1)
-        for k in ("rc", "seconds", "blacklist", "detect_s", "errors",
+        for k in ("rc", "seconds", "blacklist", "detect_s", "reset_s",
+                  "errors",
                   "peer_vs_disk", "resumed_equal_disk_rerun", "losses",
                   "launches"):
             print(json.dumps({"drill": kind, k: r[k]}), flush=True)
