@@ -270,6 +270,45 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              injection, one after, its component input, and the
              regression report (on disk and at /debug/regression) names
              the data subsystem's data.chaos_delay as the suspect.
+19. observe — the fleet-level observer: the flagship's data-parallel
+             step (world 1 on NCCL) with a signed rendezvous KV in this
+             process and HVD_TPU_METRICS_TREE=1, so that init() starts
+             the host observer.  (a) 20 steps with a tree sync every 5
+             (HVD_TPU_METRICS_SYNC_STEPS): every round fresh, ranks 1,
+             hosts [127.0.0.1], every kernel once per layer per step.
+             (c) /observe/digest, /observe/fleet, /observe/dumps on the
+             observer's port and the metrics port, and
+             /debug/fleet_scalars's merged section, signed (200) and
+             unsigned (403).  (d) The same 20 steps under the flat sync:
+             the sync's seconds a round and the step with its step_end,
+             tree against flat.  (b) Verdict parity: 4 windows of 5
+             steps fed by DataLoader on the card, the third under a 200
+             ms input delay (HVD_TPU_CHAOS_INPUT_DELAY_MS), taken as the
+             snapshots of 4 ranks on 2 hosts: the flat sync's straggler
+             verdicts and MFU gauges equal those of the fleet digest two
+             host observers exchange over a second signed KV (the
+             straggler flagged, cause input; MFU within 1e-9).
+20. disagg — disaggregated prefill/decode between DecodeEngines on the
+             card at phase 13's geometry (8 slots, 16-token pages, 512
+             tokens a slot) on phase 4's model.  (a) A full slot's
+             pages (510 prompt tokens, 32 pages) through the bundle
+             codec: fp32 byte-exact, int8 and int4 within half a grid
+             step of each 256-element block's scale, a flipped byte and
+             a torn tail raise; wire ratios.  (b) migrate() on the fp32
+             wire after prefills of 16, 200 and 496 tokens (16 new
+             tokens each; the decode engine already serves 2 requests,
+             so the migrated one lands in another slot and batch):
+             token for token with the unmigrated decode in fp32; in
+             bf16 the agreement is reported.  The engines prefill
+             through decode_verify (paged attention in torch ops, as the
+             reference's engine does), so this path launches no flash
+             kernel; its launches are counted and reported.  (c) send()/receive()
+             through a RecoveryServer's mailbox on loopback, int8 wire:
+             a push to a closed port raises and keeps the source slot,
+             the mailbox is one-shot; bytes and seconds a migration.
+             (d) The migration counters, the serving.migrate flight
+             events, and a traced request's spans stitched across both
+             engines by debug.merge.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -3933,6 +3972,520 @@ def phase_debug(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
     return report
 
 
+# Phase 19: the flagship's steps under the tree sync (a sync every
+# OBSERVE_SYNC steps), the verdict-parity windows (PARITY_WINDOWS windows
+# of PARITY_STEPS steps, the window PARITY_STRAGGLER fed with a
+# PARITY_DELAY_MS input delay) and the KV's secret.
+OBSERVE_STEPS, OBSERVE_SYNC = 20, 5
+PARITY_WINDOWS, PARITY_STEPS, PARITY_DELAY_MS = 4, 5, 200
+PARITY_STRAGGLER = 2
+OBSERVE_SECRET = "chip-smoke-observe"
+TOL_MFU_PARITY = 1e-9      # min and mean of the MFU: exact up to sum order
+
+
+def phase_observe(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
+    """Phase 19: the fleet-level observer on the card; returns the
+    report."""
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.data import ArraySource, DataLoader
+    from horovod_tpu_torch.metrics import digest as D
+    from horovod_tpu_torch.metrics import observer as OB
+    from horovod_tpu_torch.metrics.health import StragglerDetector
+    from horovod_tpu_torch.runner.rendezvous import (RendezvousServer,
+                                                     sign_request)
+    report = {}
+    host = "127.0.0.1"
+    kvs = [RendezvousServer(host=host, port=0, secret=OBSERVE_SECRET)
+           for _ in range(2)]
+    for kv in kvs:
+        kv.start()
+    env = {"HVD_TPU_RENDEZVOUS_ADDR": f"{host}:{kvs[0].port}",
+           "HVD_TPU_RENDEZVOUS_SECRET": OBSERVE_SECRET,
+           "HVD_TPU_METRICS_TREE": "1",
+           "HVD_TPU_METRICS_SYNC_STEPS": str(OBSERVE_SYNC),
+           "HVD_TPU_FLIGHT_HOST": host}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def get(addr, path, signed=True):
+        req = urllib.request.Request(f"http://{addr}{path}")
+        if signed:
+            scope, key = path.split("?")[0].split("/")[1:3]
+            sign_request(req, "GET", scope, key)
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, r.read(), time.perf_counter() - t
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), time.perf_counter() - t
+
+    try:
+        hvd.init()
+        ob = OB.current_observer()
+        assert ob is not None and ob.local_ranks == [0], ob
+        server = metrics.serve(port=0, host=host)
+        model = tfm.Transformer(cfg, par, seed=0)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=3e-4, weight_decay=1e-4))
+        step = tfm.make_train_step(cfg, par, model, opt)
+        step(tokens, labels)                  # warm-up, outside the count
+        torch.cuda.synchronize()
+        reg = metrics.registry()
+        agg = metrics.aggregator()
+        syncs = reg.counter("hvd_metrics_syncs_total",
+                            "Cross-rank metric aggregations")
+        stale = reg.counter("hvd_metrics_tree_stale_rounds_total",
+                            "Tree syncs that served a previous round's "
+                            "digest (exchange deadline missed)")
+        sync_s = reg.gauge("hvd_metrics_sync_seconds",
+                           "Duration of the last metrics aggregation "
+                           "(gather + health scoring)")
+
+        def run():
+            """OBSERVE_STEPS steps, each closed by step_end (whose
+            cadence runs the sync); the losses, walls (the step and its
+            step_end) and one record a sync."""
+            agg.reset()
+            losses, walls, rounds = [], [], []
+            for _ in range(OBSERVE_STEPS):
+                n = syncs.value
+                t = time.perf_counter()
+                loss = step(tokens, labels)
+                torch.cuda.synchronize()
+                agg.step_end()
+                walls.append(time.perf_counter() - t)
+                losses.append(loss.item())
+                if syncs.value > n:
+                    d = agg.fleet_digest() if global_state.metrics_tree \
+                        else None
+                    rounds.append({"seconds": sync_s.value, **(
+                        {k: d[k] for k in ("round", "ranks", "hosts",
+                                           "failed_hosts", "missing")}
+                        if d else {})})
+            assert all(math.isfinite(x) for x in losses), losses
+            return losses, walls, rounds
+
+        # (a) the tree sync through the observer, every OBSERVE_SYNC steps.
+        stale0 = stale.value
+        fa.reset_launches()
+        tree_losses, tree_walls, tree_rounds = run()
+        launches = dict(fa.launches)
+        for n in KERNELS:
+            assert launches[n] == cfg.n_layers * OBSERVE_STEPS, launches
+        assert [r["round"] for r in tree_rounds] == list(range(
+            1, OBSERVE_STEPS // OBSERVE_SYNC + 1)), tree_rounds
+        assert all((r["ranks"], r["hosts"], r["failed_hosts"],
+                    r["missing"]) == (1, [host], [], [])
+                   for r in tree_rounds), tree_rounds
+        assert stale.value == stale0, "a tree sync served a stale round"
+        report["tree"] = {"losses": tree_losses, "launches": launches,
+                          "rounds": tree_rounds,
+                          "step_s": statistics.median(tree_walls[1:])}
+        log(f"[observe] (a) {OBSERVE_STEPS} steps, a tree sync every "
+            f"{OBSERVE_SYNC}: rounds "
+            f"{[r['round'] for r in tree_rounds]} fresh, ranks 1, hosts "
+            f"[{host}]; launches {launches}; on {card}")
+
+        # (c) the routes, signed and unsigned, on the observer's own port
+        # and on the metrics port.
+        fetched = {}
+        last = tree_rounds[-1]["round"]
+        for where, addr in (("observer", ob.addr),
+                            ("metrics", f"{host}:{server.port}")):
+            routes = ["/observe/digest", f"/observe/fleet?round={last}",
+                      "/observe/dumps"]
+            if where == "metrics":
+                routes.append("/debug/fleet_scalars")
+            for path in routes:
+                code, body, secs = get(addr, path)
+                assert code == 200, (where, path, code, body[:200])
+                refused = get(addr, path, signed=False)[0]
+                assert refused == 403, (where, path, refused)
+                payload = json.loads(body)
+                if path.startswith("/observe/dumps"):
+                    assert payload["host"] == host and \
+                        payload["ranks"]["0"]["events"], payload.keys()
+                elif path.startswith("/debug"):
+                    merged = payload["merged"]
+                    assert merged["ranks_merged"] == 1 and \
+                        merged["hosts"] == [host], merged.keys()
+                    assert merged["counters"]["hvd_steps_total"] > 0
+                else:
+                    assert (payload["round"], payload["hosts"]) == \
+                        (last, [host]), path
+                fetched[f"{where} {path.split('?')[0]}"] = {
+                    "ms": secs * 1e3, "bytes": len(body)}
+        report["routes"] = fetched
+        log(f"[observe] (c) signed 200, unsigned 403: " + ", ".join(
+            f"{k} {v['ms']:.2f} ms ({v['bytes']} B)"
+            for k, v in fetched.items()))
+
+        # (d) the same steps under the flat sync.
+        global_state.metrics_tree = False
+        try:
+            flat_losses, flat_walls, flat_rounds = run()
+        finally:
+            global_state.metrics_tree = True
+        report["flat"] = {"losses": flat_losses, "rounds": flat_rounds,
+                          "step_s": statistics.median(flat_walls[1:])}
+        tree_sync = [r["seconds"] for r in tree_rounds]
+        flat_sync = [r["seconds"] for r in flat_rounds]
+        report["sync_s"] = {"tree": tree_sync, "flat": flat_sync}
+        log(f"[observe] (d) sync a round: tree "
+            f"{statistics.median(tree_sync) * 1e3:.3f} ms (max "
+            f"{max(tree_sync) * 1e3:.3f}), flat "
+            f"{statistics.median(flat_sync) * 1e3:.3f} ms (max "
+            f"{max(flat_sync) * 1e3:.3f}); step with its step_end: tree "
+            f"{report['tree']['step_s'] * 1e3:.3f} ms, flat "
+            f"{report['flat']['step_s'] * 1e3:.3f} ms (medians of steps "
+            f"1-{OBSERVE_STEPS - 1}); on {card}")
+
+        # (b) verdict parity: PARITY_WINDOWS windows of steps on the card
+        # as the snapshots of as many ranks on two hosts; the flat
+        # sync's scoring and MFU gauges against two observers' fleet
+        # digest over the second signed KV.
+        # Each window closes by its own sync, not step_end's cadence.
+        global_state.metrics_tree = False
+        global_state.metrics_sync_steps = 0
+        seqs = np.random.default_rng(19).integers(
+            0, cfg.vocab_size, (64, cfg.seq_len + 1), dtype=np.int32)
+        metrics.set_step_flops(tfm.train_flops_per_seq(cfg)
+                               * tokens.shape[0])
+        window_agg = metrics.Aggregator()
+        snaps, window_ms = [], []
+        try:
+            for w in range(PARITY_WINDOWS):
+                if w == PARITY_STRAGGLER:
+                    os.environ["HVD_TPU_CHAOS_INPUT_DELAY_MS"] = \
+                        str(PARITY_DELAY_MS)
+                loader = DataLoader(ArraySource(seqs), tokens.shape[0],
+                                    shuffle=True, seed=w, prefetch=False,
+                                    device=str(hvd.device()))
+                it = iter(loader)
+                walls = []
+                for _ in range(PARITY_STEPS):
+                    t = time.perf_counter()
+                    b = next(it)
+                    step(b[:, :-1].long(), b[:, 1:].long()).item()
+                    walls.append(time.perf_counter() - t)
+                    window_agg.step_end(step_time_s=walls[-1])
+                loader.close()
+                os.environ.pop("HVD_TPU_CHAOS_INPUT_DELAY_MS", None)
+                (snap,) = window_agg.sync()
+                snap["rank"] = w
+                snaps.append(snap)
+                window_ms.append(statistics.median(walls) * 1e3)
+        finally:
+            os.environ.pop("HVD_TPU_CHAOS_INPUT_DELAY_MS", None)
+            metrics.set_step_flops(0.0)
+            global_state.metrics_tree = True
+            global_state.metrics_sync_steps = OBSERVE_SYNC
+        flat = sorted((h.rank, h.flagged, h.cause)
+                      for h in StragglerDetector().score_ranks(snaps))
+        metrics.Aggregator._fleet_mfu_gauges(snaps, reg)
+        mfu_flat = {k: reg.gauge(f"hvd_mfu_fleet_{k}", "").value
+                    for k in ("min", "mean")}
+        rdv = f"{host}:{kvs[1].port}"
+        obs = [OB.HostObserver(name, ranks, cross_rank=c, cross_size=2,
+                               rdv_addr=rdv).start()
+               for c, (name, ranks) in enumerate(
+                   ((host, [0, 1]), ("localhost", [2, 3])))]
+        try:
+            t = time.perf_counter()
+            for snap in snaps:
+                obs[snap["rank"] // 2].submit_snapshot(1, snap)
+            fleet = obs[0].fleet_digest(min_round=1, wait_s=30)
+            exchange_s = time.perf_counter() - t
+        finally:
+            for o in obs:
+                o.stop()
+        assert (fleet["round"], fleet["ranks"], fleet["hosts"],
+                fleet["failed_hosts"]) == (1, PARITY_WINDOWS,
+                                           [host, "localhost"], []), fleet
+        tree = sorted((h.rank, h.flagged, h.cause)
+                      for h in StragglerDetector().score_digest(fleet))
+        mfu_tree = D.digest_mfu(fleet)
+        assert tree == flat, (tree, flat)
+        assert [(r, c) for r, f, c in tree if f] == \
+            [(PARITY_STRAGGLER, "input")], tree
+        for k in ("min", "mean"):
+            assert abs(mfu_tree[k] - mfu_flat[k]) <= \
+                TOL_MFU_PARITY * mfu_flat[k], (k, mfu_tree, mfu_flat)
+        report["parity"] = {"verdicts": tree, "window_ms": window_ms,
+                            "mfu_flat": mfu_flat, "mfu_tree": mfu_tree,
+                            "exchange_s": exchange_s}
+        log(f"[observe] (b) {PARITY_WINDOWS} windows of {PARITY_STEPS} "
+            f"steps as ranks on two hosts (median step "
+            + ", ".join(f"{x:.1f}" for x in window_ms)
+            + f" ms; window {PARITY_STRAGGLER} under a {PARITY_DELAY_MS} "
+            f"ms input delay): verdicts tree = flat = {tree}; MFU min / "
+            f"mean tree {mfu_tree['min']:.6f} / {mfu_tree['mean']:.6f}, "
+            f"flat {mfu_flat['min']:.6f} / {mfu_flat['mean']:.6f}; two "
+            f"observers' exchange {exchange_s * 1e3:.2f} ms; on {card}")
+    finally:
+        hvd.shutdown()
+        metrics.stop_serving()
+        for kv in kvs:
+            kv.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert OB.current_observer() is None
+    return report
+
+
+# Phase 20: the prompts migrated (PREFILL_LENS, the longest cut so that
+# its DISAGG_NEW decode tokens fit a 512-token slot), the full slot of
+# the codec check (32 pages), and the requests the decode replica already
+# serves, so that a migrated request lands in another slot and batch.
+DISAGG_LENS = PREFILL_LENS[:-1] + (PREFILL_LENS[-1] - 16,)
+DISAGG_NEW = 16
+DISAGG_FULL = SERVE_GEOMETRY["max_len"] - 2
+DISAGG_RESIDENT = 2
+
+
+def phase_disagg(torch, hvd, tfm, fa, cfg, par, model, card):
+    """Phase 20: disaggregated prefill/decode between two engines on the
+    card; returns the report."""
+    import numpy as np
+    from horovod_tpu_torch import debug, metrics
+    from horovod_tpu_torch import serving as S
+    from horovod_tpu_torch.debug import merge
+    from horovod_tpu_torch.recovery import transport
+    from horovod_tpu_torch.serving import disagg, tracing
+    report = {}
+    hvd.init()
+    rng = np.random.default_rng(20)
+    cfg32 = cfg._replace(dtype=torch.float32)
+
+    def engine(c):
+        return S.DecodeEngine(c, model, prefix_cache=False,
+                              **SERVE_GEOMETRY)
+
+    def prompt(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    def request(rid, p, **kw):
+        return S.Request(id=rid, prompt=list(p),
+                         max_new_tokens=DISAGG_NEW, **kw)
+
+    def finish(e, rid, toks):
+        """Decode iterations until ``rid`` finishes; its tokens."""
+        while True:
+            for ev in e.step():
+                if ev.request.id != rid:
+                    continue
+                if ev.kind == "token":
+                    toks.append(ev.token)
+                elif ev.kind == "finish":
+                    return toks
+
+    def first(events, rid):
+        return [ev.token for ev in events
+                if ev.kind == "token" and ev.request.id == rid]
+
+    # (a) the codec on a full slot's pages (fp32 pool).
+    e = engine(cfg32)
+    e.admit(S.Request(id="full", prompt=prompt(DISAGG_FULL),
+                      max_new_tokens=2))
+    state, k, v = e.export_request("full")
+    assert k.shape == (cfg.n_layers, SERVE_GEOMETRY["max_len"]
+                       // SERVE_GEOMETRY["page_tokens"],
+                       SERVE_GEOMETRY["page_tokens"], cfg.n_heads,
+                       cfg.head_dim), k.shape
+    del e
+    codec = {}
+    for bits in (0, 8, 4):
+        t = time.perf_counter()
+        blob = disagg.encode_bundle(state, k, v, bits=bits)
+        enc = time.perf_counter() - t
+        t = time.perf_counter()
+        state2, k2, v2 = disagg.decode_bundle(blob)
+        dec = time.perf_counter() - t
+        assert state2 == json.loads(json.dumps(state))
+        if bits == 0:
+            assert k2.tobytes() == k.tobytes() and \
+                v2.tobytes() == v.tobytes()
+            worst = 0.0
+        else:
+            # Half a grid step of the block's scale, plus the fp32
+            # roundings of the scale and of the dequantized product (two
+            # units in the last place of the block's absmax).
+            worst = 0.0
+            for got, want in ((k2, k), (v2, v)):
+                blocks = want.reshape(-1, 256)
+                absmax = np.abs(blocks).max(axis=1)
+                step_ = absmax / (127.0 if bits == 8 else 7.0)
+                err = np.abs(got.reshape(-1, 256) - blocks).max(axis=1)
+                assert np.all(err <= 0.5 * step_ + 2 * np.finfo(
+                    np.float32).eps * absmax), bits
+                worst = max(worst, float((err / np.where(
+                    step_ > 0, step_, 1.0)).max()))
+        bad = bytearray(blob)
+        bad[-1] ^= 0xFF
+        for broken in (bytes(bad), blob[:-3]):
+            try:
+                disagg.decode_bundle(broken)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("a corrupted bundle decoded")
+        codec[bits] = {"bytes": len(blob),
+                       "wire_ratio": disagg.wire_ratio(bits, k.size),
+                       "encode_s": enc, "decode_s": dec,
+                       "worst_err_in_grid_steps": worst}
+    report["codec"] = {"shape": list(k.shape), "wires": codec}
+    log(f"[disagg] (a) a full slot's pages {tuple(k.shape)} fp32: "
+        + "; ".join(f"bits {b}: {c['bytes']} B, wire ratio "
+                    f"{c['wire_ratio']:.3f}, encode {c['encode_s']:.3f} s, "
+                    f"decode {c['decode_s']:.3f} s, worst error "
+                    f"{c['worst_err_in_grid_steps']:.3f} grid steps"
+                    for b, c in codec.items())
+        + "; a flipped byte and a torn tail raise")
+
+    # (b) migrate on the fp32 wire after each prefill; the decode replica
+    # already serves DISAGG_RESIDENT requests.
+    def migrate_all(c, bits):
+        ref = engine(c)
+        want = {}
+        for n in DISAGG_LENS:
+            rid = f"u{n}"
+            want[n] = finish(ref, rid, first(
+                ref.admit(request(rid, prompts[n])), rid))
+        del ref
+        src, dst = engine(c), engine(c)
+        for i in range(DISAGG_RESIDENT):
+            dst.admit(S.Request(
+                id=f"res{i}", prompt=prompt(32),
+                max_new_tokens=SERVE_GEOMETRY["max_len"] - 32))
+        got, walls, sizes = {}, [], []
+        fa.reset_launches()
+        for n in DISAGG_LENS:
+            rid = f"m{n}"
+            toks = first(src.admit(request(rid, prompts[n])), rid)
+            t = time.perf_counter()
+            sizes.append(disagg.migrate(src, rid, dst, bits=bits))
+            walls.append(time.perf_counter() - t)
+            got[n] = finish(dst, rid, toks)
+        launches = dict(fa.launches)
+        agree = {n: next((i for i, (a, b) in enumerate(
+            zip(got[n], want[n])) if a != b), len(want[n]))
+            for n in DISAGG_LENS}
+        return got, want, agree, walls, sizes, launches
+
+    prompts = {n: prompt(n) for n in DISAGG_LENS}
+    got, want, agree, walls, sizes, _ = migrate_all(cfg32, 0)
+    assert got == want, agree
+    got16, want16, agree16, walls16, sizes16, launches = migrate_all(cfg, 0)
+    report["migrate"] = {
+        "lens": DISAGG_LENS, "fp32": {"equal": True, "seconds": walls,
+                                      "bytes": sizes},
+        "bf16": {"tokens_agreeing": agree16, "equal": got16 == want16,
+                 "seconds": walls16, "bytes": sizes16},
+        "launches": launches}
+    log(f"[disagg] (b) migrate on the fp32 wire after prefills of "
+        f"{DISAGG_LENS}, {DISAGG_NEW} tokens each, beside "
+        f"{DISAGG_RESIDENT} resident requests: fp32 token for token "
+        f"({', '.join(f'{s} B in {w * 1e3:.1f} ms' for s, w in zip(sizes, walls))}); "
+        f"bf16 tokens agreeing before the first difference "
+        f"{agree16} of {DISAGG_NEW}; launches {launches}; on {card}")
+
+    # (c) send / receive through a recovery server's mailbox, int8 wire.
+    server = transport.RecoveryServer(host="127.0.0.1")
+    addr = f"127.0.0.1:{server.start()}"
+    reg = metrics.registry()
+    migrations = reg.counter("hvd_serving_migrations_total",
+                             "Requests migrated prefill-pool -> decode-pool")
+    wire = reg.counter("hvd_serving_migrate_bytes_total",
+                       "KV-migration payload bytes put on the wire")
+    m0, b0 = migrations.value, wire.value
+    # The recorder is a ring that earlier phases filled: events are
+    # told apart by their sequence numbers, not by the ring's length.
+    seq0 = max((ev["seq"] for ev in debug.snapshot()), default=-1)
+    src, dst = engine(cfg), engine(cfg)
+    sent = []
+    try:
+        os.environ["HVD_TPU_NET_HTTP_RETRIES"] = "1"
+        rid = "dead"
+        src.admit(request(rid, prompts[DISAGG_LENS[0]]))
+        try:
+            disagg.send(src, rid, f"127.0.0.1:{free_port()}", bits=8,
+                        timeout=2.0)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("a push to a closed port landed")
+        assert src.active() == 1             # the source kept the slot
+        del os.environ["HVD_TPU_NET_HTTP_RETRIES"]
+        first_bytes = disagg.send(src, rid, addr, bits=8)
+        assert src.active() == 0
+        assert disagg.receive(dst, rid, addr)
+        assert not disagg.receive(dst, rid, addr)   # one-shot mailbox
+        finish(dst, rid, [])
+        ctx = tracing.mint("traced", rate=1.0, seed=0)
+        for n in DISAGG_LENS:
+            rid = "traced" if n == DISAGG_LENS[-1] else f"s{n}"
+            toks = first(src.admit(request(
+                rid, prompts[n], trace=ctx if rid == "traced" else None)),
+                rid)
+            t = time.perf_counter()
+            nbytes = disagg.send(src, rid, addr, bits=8)
+            t_send = time.perf_counter() - t
+            t = time.perf_counter()
+            assert disagg.receive(dst, rid, addr)
+            t_recv = time.perf_counter() - t
+            toks = finish(dst, rid, toks)
+            sent.append({"length": n, "bytes": nbytes, "send_s": t_send,
+                         "receive_s": t_recv,
+                         "tokens_agreeing": next(
+                             (i for i, (a, b) in enumerate(zip(
+                                 toks, want16[n])) if a != b),
+                             DISAGG_NEW)})
+    finally:
+        os.environ.pop("HVD_TPU_NET_HTTP_RETRIES", None)
+        server.stop()
+    report["send"] = sent
+    log(f"[disagg] (c) send/receive over the recovery mailbox, int8 wire: "
+        + "; ".join(f"{s['length']} tokens: {s['bytes']} B, send "
+                    f"{s['send_s'] * 1e3:.1f} ms, receive "
+                    f"{s['receive_s'] * 1e3:.1f} ms, {s['tokens_agreeing']}"
+                    f"/{DISAGG_NEW} tokens as bf16 unmigrated"
+                    for s in sent)
+        + "; a failed push kept the source slot, the mailbox is one-shot")
+
+    # (d) the counters, the flight events and the stitched trace.
+    events = [ev for ev in debug.snapshot() if ev["seq"] > seq0]
+    n_sent = len(sent) + 1
+    assert migrations.value - m0 == n_sent, migrations.value - m0
+    assert wire.value - b0 == first_bytes + sum(s["bytes"] for s in sent)
+    assert sum(1 for ev in events if ev["kind"] == "serving.migrate") \
+        == n_sent
+    kinds = [sp[0] for sp in tracing.spans(ctx.trace_id)]
+    for stage in ("admit", "migrate_export", "migrate", "migrate_adopt",
+                  "finish"):
+        assert stage in kinds, (stage, kinds)
+    assert kinds.index("migrate_export") < kinds.index("migrate_adopt")
+    trace = merge.merge_dumps(merge.filter_trace(
+        [debug.flight.recorder().dump_obj()], ctx.trace_id))
+    cats = [ev.get("cat") for ev in trace["traceEvents"]]
+    assert "trace.migrate_export" in cats and \
+        "trace.migrate_adopt" in cats, cats
+    report["events"] = {"migrations": migrations.value - m0,
+                        "bytes": wire.value - b0, "trace_spans": kinds}
+    log(f"[disagg] (d) hvd_serving_migrations_total +{n_sent}, "
+        f"hvd_serving_migrate_bytes_total +{int(wire.value - b0)}, "
+        f"{n_sent} serving.migrate events, the traced request's spans "
+        f"{kinds} stitched into one trace")
+    hvd.shutdown()
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4151,6 +4704,14 @@ def main() -> int:
     # of the flight dump and the native timeline, the input drift drill
     report["debug"] = phase_debug(torch, hvd, tfm, fa, cfg, par, tokens,
                                   labels, card)
+    # 19. the fleet-level observer: the tree sync on the card, verdict
+    # parity with the flat sync, the /observe routes
+    report["observe"] = phase_observe(torch, hvd, tfm, fa, cfg, par, tokens,
+                                      labels, card)
+    # 20. disaggregated prefill/decode: the bundle codec, migration on
+    # the fp32 wire, send/receive through the recovery mailbox
+    report["disagg"] = phase_disagg(torch, hvd, tfm, fa, cfg, par, model,
+                                    card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -4189,7 +4750,8 @@ def main() -> int:
         by_path["elastic_reset"] = \
             report["elastic"]["reset"]["launches"][name]
         by_path["debug"] = report["debug"]["endpoint"]["launches"][name]
-        # The serving prefill is a forward: no backward kernel runs there.
+        by_path["observe"] = report["observe"]["tree"]["launches"][name]
+        # The serving prefills are forwards: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \
             (name, by_path)

@@ -135,9 +135,7 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     """
     if global_state.initialized:
         return
-    from ..metrics.aggregate import refuse_tree
     from . import failure
-    refuse_tree()
     cpu = device is not None and torch.device(device).type == "cpu"
     if not cpu:
         _cuda_or_raise("horovod_tpu_torch.init()")
@@ -229,6 +227,7 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     global_state.device = dev
     global_state.owns_process_group = owns
     global_state.metrics_sync_steps = _cfg.metrics_sync_steps()
+    global_state.metrics_tree = _cfg.metrics_tree()
     if elastic is not None:
         global_state.elastic_round = elastic["round"]
     global_state.elastic_enabled = _cfg.elastic()
@@ -252,6 +251,29 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     _start_telemetry()
     _serve_replicas()
     global_state.initialized = True
+    _start_observer()
+
+
+def _start_observer() -> None:
+    """Tree mode: local rank 0 hosts the per-host observer (the host's
+    one serving slot, the metrics port's gate) that merges its ranks'
+    snapshots and runs the O(hosts) digest exchange (reference
+    core/basics.py:284-296).  A failure to start degrades to a warning,
+    as every telemetry server's does: the sync then reports itself as a
+    local-only digest, named.  A gateway push the port cannot make (item
+    10b) is no such failure: it refuses the init, world torn down."""
+    if not (global_state.metrics_tree and global_state.local_rank == 0):
+        return
+    from ..metrics.observer import start_host_observer
+    try:
+        start_host_observer()
+    except NotImplementedError:
+        shutdown()
+        raise
+    except Exception as e:  # noqa: BLE001 — telemetry never kills
+        from ..utils import logging as log
+        log.warning("metrics tree: cannot start host observer (%r); "
+                    "sync degrades to local-only digests", e)
 
 
 def _round_store(elastic: dict, rank: int, size: int):
@@ -368,9 +390,13 @@ def shutdown() -> None:
     (``core/failure.py``), so they are destroyed without the clean
     teardown a dead peer never answers.  The ``/metrics`` and debug
     endpoints keep serving, as the reference's do across elastic resets
-    (reference basics.py:328-363)."""
+    (reference basics.py:328-363).  The host observer stops first of
+    all: its identity (cross rank, local ranks) is the world's, so a
+    re-init after an elastic renumber builds a fresh one."""
     from .. import debug
+    from ..metrics.observer import stop_host_observer
     from . import failure
+    stop_host_observer()
     debug.stop_stall_watchdog()
     debug.flight.record("shutdown", None)
     failure.stop_watch()

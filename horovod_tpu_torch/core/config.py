@@ -14,9 +14,9 @@ and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
 (``ControllerConfig``) and the serving plane's (``SERVING_*``, ``SPEC_K``,
 ``TRACE_*``, ``SLO_*``), and the telemetry plane's (``LOG_*``,
 ``METRICS_*``, ``ATTRIBUTION*``, ``PEAK_TFLOPS``, ``PERF_DRIFT*``,
-``FLIGHT_*``), the recovery tier's and the wire fabric's
-(``RECOVERY``, ``RECOVERY_STRIDE``, ``CHAOS_*``, ``NET_*``,
-``CHAOS_NET_*``), and elastic training's (``ELASTIC``,
+``FLIGHT_*``, and the host observer's ``FLEET_*``), the recovery
+tier's and the wire fabric's (``RECOVERY``, ``RECOVERY_STRIDE``,
+``CHAOS_*``, ``NET_*``, ``CHAOS_NET_*``), and elastic training's (``ELASTIC``,
 ``ASYNC_COMMIT``), with the reference's defaults and clamps
 (config.py:37, :78-136, :193-200, :296-372, :438-443, :475-531).  The
 attention switch ``HVD_TPU_FLASH`` is not one of them: the reference
@@ -108,8 +108,11 @@ AUTOTUNE = "AUTOTUNE"
 # (max_len 0 = the model's seq_len), the default output cap, the bounded
 # admission queue, the checkpoint watch cadence, the radix prefix cache,
 # chunked prefill (0 = the whole prompt), page-reservation aging, the
-# replica-wide TTFT target, speculative draft tokens a round (0 = off),
-# and request tracing's sample rate and trace-id seed; the SLO tracker's
+# replica-wide TTFT target, the autoscaler's queued requests a replica
+# and cooldown between resizes (its on/off switch is the fleet's
+# ``kind: service``, item 10b), the KV-migration wire (0 = fp32,
+# 8 or 4; anything else reads as 8), speculative draft tokens a round (0 =
+# off), and request tracing's sample rate and trace-id seed; the SLO tracker's
 # attainment target, window and burn threshold.
 SERVING_PORT = "SERVING_PORT"
 SERVING_ADDR = "SERVING_ADDR"
@@ -124,6 +127,9 @@ SERVING_PREFIX_CACHE = "SERVING_PREFIX_CACHE"
 SERVING_PREFILL_CHUNK = "SERVING_PREFILL_CHUNK"
 SERVING_AGING_S = "SERVING_AGING_S"
 SERVING_SLO_TTFT_S = "SERVING_SLO_TTFT_S"
+SERVING_TARGET_QUEUE = "SERVING_TARGET_QUEUE"
+SERVING_SCALE_COOLDOWN_S = "SERVING_SCALE_COOLDOWN_S"
+SERVING_MIGRATE_BITS = "SERVING_MIGRATE_BITS"
 SPEC_K = "SPEC_K"
 TRACE_SAMPLE = "TRACE_SAMPLE"
 TRACE_SEED = "TRACE_SEED"
@@ -140,10 +146,11 @@ LOG_HIDE_TIME = "LOG_HIDE_TIME"
 # names and defaults (config.py:78-111, :326-362): the cross-rank sync
 # cadence (0 = never) and the Prometheus port (0 = off); the straggler
 # detector's factor, noise floor and patience; the host-sharded tree sync
-# and its knobs, which the port refuses until it has ``observer.py``
-# (ROADMAP queue 1 item 9c); JSONL retention; per-step attribution, its
-# JSONL trail and the MFU peak override (TFLOP/s, 0 = detected); the drift
-# detector and the regression report's event-correlation window; the
+# (``metrics/observer.py``): on/off, outlier evidence a host, the
+# exchange deadline and the laggard-snapshot grace; JSONL retention;
+# per-step attribution, its JSONL trail and the MFU peak override
+# (TFLOP/s, 0 = detected); the drift detector and the regression
+# report's event-correlation window; the
 # flight recorder, its debug endpoint's port (0 = ephemeral) and the
 # coordinator's stall -> hang-report escalation.
 METRICS_SYNC_STEPS = "METRICS_SYNC_STEPS"
@@ -171,8 +178,13 @@ FLIGHT_DIR = "FLIGHT_DIR"
 FLIGHT_PORT = "FLIGHT_PORT"
 FLIGHT_LAST_EVENTS = "FLIGHT_LAST_EVENTS"
 FLIGHT_ESCALATE = "FLIGHT_ESCALATE"
-TREE_KNOBS = (METRICS_TREE, METRICS_TOPK, METRICS_TREE_TIMEOUT_S,
-              METRICS_TREE_GRACE_S)
+# The fleet gateway a host observer pushes its digests to, the job they
+# are filed under and the push cadence (0 = off), with the reference's
+# names (config.py:140, :152-153): the push needs ``fleet/``, ROADMAP
+# queue 1 item 10b, and ``metrics/observer.py`` refuses it until then.
+FLEET_ADDR = "FLEET_ADDR"
+FLEET_JOB_ID = "FLEET_JOB_ID"
+FLEET_OBSERVE_PUSH_S = "FLEET_OBSERVE_PUSH_S"
 
 # Peer-to-peer hot recovery (recovery/) and its seeded fault injection
 # (recovery/chaos.py), with the reference's names and defaults
@@ -243,6 +255,11 @@ class TelemetryDefaults:
     flight_port: int = 0
     flight_last_events: int = 20
     flight_escalate: bool = True
+    metrics_tree: bool = False
+    metrics_topk: int = 4
+    metrics_tree_timeout_s: float = 10.0
+    metrics_tree_grace_s: float = 2.0
+    fleet_observe_push_s: float = 0.0
 
 
 TELEMETRY = TelemetryDefaults()
@@ -497,6 +514,20 @@ def trace_seed() -> int:
     return get_int_or(TRACE_SEED, 0)
 
 
+def serving_target_queue() -> float:
+    return max(0.5, get_float(SERVING_TARGET_QUEUE, 4.0))
+
+
+def serving_scale_cooldown_s() -> float:
+    return max(0.0, get_float(SERVING_SCALE_COOLDOWN_S, 10.0))
+
+
+def serving_migrate_bits() -> int:
+    """The KV-migration wire: 0 (fp32), 8 or 4; anything else is 8."""
+    bits = get_int_or(SERVING_MIGRATE_BITS, 8)
+    return bits if bits in (0, 4, 8) else 8
+
+
 def slo_target() -> float:
     return min(0.9999, max(0.5, get_float(SLO_TARGET, 0.99)))
 
@@ -522,15 +553,38 @@ def metrics_port() -> int:
 
 
 def metrics_tree() -> bool:
-    return get_bool(METRICS_TREE, False)
+    return get_bool(METRICS_TREE, TELEMETRY.metrics_tree)
 
 
-def tree_knobs_set() -> list:
-    """The host-sharded tree sync's knobs that are set (METRICS_TREE only
-    when true): the port refuses them until it has ``observer.py``."""
-    return [k for k in TREE_KNOBS
-            if (metrics_tree() if k == METRICS_TREE
-                else get_env(k) is not None)]
+def metrics_topk() -> int:
+    """Outlier evidence a host digest keeps (at least 0)."""
+    return max(get_int_or(METRICS_TOPK, TELEMETRY.metrics_topk), 0)
+
+
+def metrics_tree_timeout_s() -> float:
+    """The inter-host exchange's deadline (at least 0.5 s)."""
+    return max(get_float(METRICS_TREE_TIMEOUT_S,
+                         TELEMETRY.metrics_tree_timeout_s), 0.5)
+
+
+def metrics_tree_grace_s() -> float:
+    """How long an observer waits for laggard local snapshots before it
+    seals a round partial (at least 0.1 s)."""
+    return max(get_float(METRICS_TREE_GRACE_S,
+                         TELEMETRY.metrics_tree_grace_s), 0.1)
+
+
+def fleet_addr() -> Optional[str]:
+    return get_env(FLEET_ADDR)
+
+
+def fleet_job_id() -> Optional[str]:
+    return get_env(FLEET_JOB_ID)
+
+
+def fleet_observe_push_s() -> float:
+    return max(0.0, get_float(FLEET_OBSERVE_PUSH_S,
+                              TELEMETRY.fleet_observe_push_s))
 
 
 def flight_disable() -> bool:

@@ -54,8 +54,10 @@ class GlobalState:
     controller: Any = None
     controller_group: Any = None
     mesh_axes_hint: Optional[tuple] = None
-    # HVD_TPU_METRICS_SYNC_STEPS as init() read it (0 = never sync).
+    # HVD_TPU_METRICS_SYNC_STEPS as init() read it (0 = never sync), and
+    # HVD_TPU_METRICS_TREE (the host-sharded sync through the observers).
     metrics_sync_steps: int = 0
+    metrics_tree: bool = False
     # Elastic bookkeeping (HVD_TPU_ELASTIC). elastic_round survives
     # reset() so a re-init can demand a *newer* rendezvous round than the
     # one that just failed.

@@ -22,9 +22,10 @@ crosses the warning window it
 
 The report is what the first responder needs before deciding whether to
 evict a host (elastic blacklist), raise the data-stall timeout, or go
-read one rank's ``/debug/stacks``.  Every dump is fetched per rank: the
-reference's per-host fan-in goes through observers the port does not
-publish yet (ROADMAP queue 1 item 9c), its own fallback when none is.
+read one rank's ``/debug/stacks``.  Where per-host observers are
+published (``HVD_TPU_METRICS_TREE``, ``metrics/observer.py``) the dumps
+come one request per host, and the report's ``hosts`` section names each
+host's fan-in; ranks no observer answered for are fetched one by one.
 """
 
 from __future__ import annotations
@@ -235,12 +236,12 @@ class StallWatchdog:
         return dumps
 
     def _collect_dumps_status(self, world: int):
-        """(rank dumps, per-host fan-in status).  With per-host
-        observers published the fetch would be one request per host,
-        hosts whose observer fails falling back to per-rank fetches and
-        named in the report's ``hosts`` section; without observers, the
-        port's case until ROADMAP queue 1 item 9c, it is the flat
-        per-rank fan-out."""
+        """(rank dumps, per-host fan-in status).  When per-host
+        observers published (HVD_TPU_METRICS_TREE — metrics/observer.py)
+        the fetch is ONE request per host returning all its ranks'
+        dumps; hosts whose observer fails fall back to per-rank fetches
+        for the uncovered ranks and are named in the report's ``hosts``
+        section.  Without observers it is the flat per-rank fan-out."""
         host_status: Dict[str, str] = {}
         covered: Dict[int, Optional[dict]] = {}
         if self._rdv:
@@ -250,12 +251,14 @@ class StallWatchdog:
         return {r: covered.get(r) for r in range(world)}, host_status
 
     def _collect_via_observers(self):
-        """The per-host fan-in through published observers
-        (``metrics/observer.py``, ROADMAP queue 1 item 9c).  The port
-        publishes none, so no rank is covered and no host named: the
-        per-rank path fetches every dump, as the reference's does when
-        no observer is published."""
-        return {}, {}
+        # One request per host through the published observers
+        # (metrics/observer.py).  Ranks an observer could not answer
+        # for — observer down, or a sibling that timed out inside the
+        # observer's fan-in — are NOT marked covered, so the per-rank
+        # path still retries them with this watchdog's own timeout.
+        from ..metrics.observer import collect_fleet_dumps
+        return collect_fleet_dumps(self._rdv,
+                                   timeout=self._fetch_timeout)
 
     def _collect_per_rank(self, ranks: List[int]) -> Dict[int, Optional[dict]]:
         from concurrent.futures import ThreadPoolExecutor

@@ -62,9 +62,11 @@ def render_autotune_json() -> Optional[bytes]:
 
 def render_fleet_scalars_json() -> bytes:
     """The aggregator's queryable fleet surface: per-rank flat scalars
-    from the last sync round ({} before the first).  The ``merged``
-    section of a tree-mode digest is there only once the port has the
-    tree sync (ROADMAP queue 1 item 9c); the flat sync has none."""
+    from the last sync round ({} before the first).  Under the tree
+    path the per-rank section is EMPTY by design (outlier evidence is
+    pruned of scalar maps — metrics/digest.py) and the ``merged``
+    section carries the fleet digest's exact counter totals and
+    (min, max, last) gauge envelopes instead."""
     from ..metrics.aggregate import aggregator
     agg = aggregator()
     payload: dict = {"ranks": {str(r): s for r, s in

@@ -39,10 +39,10 @@ Request-scoped traces (``serving/tracing.py``): ``--trace <trace_id>``
 filters every dump down to that one request's ``trace.*`` spans before
 merging.
 
-A live fleet (``--from-fleet``) is swept rank by rank through the
-``debug/flight_addr_<rank>`` addresses on the rendezvous KV: the
-reference's one request per host goes through observers the port does not
-publish yet (ROADMAP queue 1 item 9c).
+A live fleet (``--from-fleet``) is fetched one request per host through
+the published host observers (``metrics/observer.py``), and rank by rank
+through the ``debug/flight_addr_<rank>`` addresses on the rendezvous KV
+for whatever no observer answered for.
 """
 
 from __future__ import annotations
@@ -63,22 +63,34 @@ def load_dump(path: str) -> dict:
 
 def fetch_fleet_dumps(rdv_addr: str,
                       timeout: float = 5.0) -> Dict[int, dict]:
-    """Fetch every reachable rank's flight dump from a LIVE fleet — the
-    merge CLI's ``--from-fleet`` source: a per-rank sweep of the
-    ``debug/flight_addr_<rank>`` endpoints (the reference's fallback
-    when no per-host observer is published, the port's only path until
-    ROADMAP queue 1 item 9c).  Unreachable ranks are skipped with a
-    stderr note, never fatal."""
+    """Fetch every reachable rank's flight dump from a LIVE fleet —
+    the merge CLI's ``--from-fleet`` source.
+
+    Host-sharded when per-host observers are published
+    (``HVD_TPU_METRICS_TREE`` — metrics/observer.py): one
+    ``GET /observe/dumps`` per host returns all its ranks' dumps, so a
+    125-host fleet costs 125 requests, not 1000.  Hosts without an
+    observer (or whose observer is down) degrade to per-rank fetches of
+    the ``debug/flight_addr_<rank>`` endpoints; either way unreachable
+    ranks are skipped with a stderr note, never fatal."""
+    from ..metrics.observer import collect_fleet_dumps
     from ..runner.rendezvous import http_get, http_list
     from . import http as _dhttp
 
-    dumps: Dict[int, dict] = {}
+    dumps, host_status = collect_fleet_dumps(rdv_addr, timeout=timeout)
+    for host, status in sorted(host_status.items()):
+        if status != "ok":
+            sys.stderr.write(f"merge: {host} {status}\n")
+
+    # Per-rank sweep for whatever the observers did not cover.
     debug_keys = http_list(rdv_addr, "debug", timeout=timeout) or []
     for key in sorted(k for k in debug_keys
                       if k.startswith("flight_addr_")):
         try:
             rank = int(key[len("flight_addr_"):])
         except ValueError:
+            continue
+        if rank in dumps:
             continue
         raw = http_get(rdv_addr, "debug", key, timeout=timeout)
         addr = raw.decode() if raw else None
@@ -249,7 +261,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="native Chrome timeline (HVD_TPU_TIMELINE file)")
     p.add_argument("--from-fleet", default=None, metavar="RDV_ADDR",
                    help="fetch dumps from a live fleet via its "
-                        "rendezvous KV (host:port), rank by rank")
+                        "rendezvous KV (host:port) — one request per "
+                        "host when per-host observers are running, "
+                        "per-rank otherwise")
     p.add_argument("--trace", default=None, metavar="TRACE_ID",
                    help="emit only this request's trace.* spans "
                         "(serving/tracing.py trace id) — one "

@@ -17,6 +17,10 @@ straggler health (port of horovod_tpu/metrics/__init__.py).
   {component}``) and grades live MFU (``set_step_flops`` →
   ``hvd_mfu_ratio`` against the card's peak).
 * :mod:`.digest` — the mergeable digest algebra and its read side.
+* :mod:`.observer` — the per-host observer of the host-sharded sync
+  (``HVD_TPU_METRICS_TREE``): ranks hand their snapshots to their host's
+  observer, hosts exchange O(hosts) digests through the rendezvous KV,
+  and ``/observe/*`` serves the digests and one host's flight dumps.
 * :mod:`.baseline` — EWMA/CUSUM drift detection over step time and
   component shares; a sustained regression emits a ``perf.drift`` flight
   event.
@@ -28,9 +32,6 @@ dispatch probe, the input pipeline (data-wait spans, stalls), the
 checkpoint engine (save/restore durations and bytes), the pipeline
 schedule's bubble, and the serving plane (``hvd_serving_*``,
 ``hvd_slo_*``).
-
-The reference's ``observer.py`` (the host-sharded tree sync) comes with
-ROADMAP queue 1 item 9c and is not part of this package yet.
 """
 
 from .registry import (

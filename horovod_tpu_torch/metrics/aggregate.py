@@ -21,9 +21,11 @@ sketch and attribution sums, plus the flat counter/gauge scalars.  Every
 rank holds the assembled fleet view (:meth:`fleet`) and runs the
 straggler detector over it (:mod:`.health`).
 
-The reference's hierarchical sync (``HVD_TPU_METRICS_TREE``) exchanges
-digests through the per-host observer, ``observer.py``, which the port
-gets with ROADMAP queue 1 item 9c; until then the tree knobs raise.
+Under ``HVD_TPU_METRICS_TREE`` the sync is hierarchical instead
+(:meth:`Aggregator.sync_tree`): each rank hands its snapshot to its
+host's observer (``observer.py``), the hosts exchange O(hosts) digests
+through the rendezvous KV, and every rank reads the merged fleet digest
+back.  No collective runs on that path.
 """
 
 from __future__ import annotations
@@ -50,16 +52,17 @@ def _sync_cadence() -> int:
     return metrics_sync_steps()
 
 
-def refuse_tree() -> None:
-    """Raise when a knob of the hierarchical sync is set (it needs
-    ``observer.py``, ROADMAP queue 1 item 9c)."""
-    from ..core.config import tree_knobs_set
-    knobs = tree_knobs_set()
-    if knobs:
-        raise NotImplementedError(
-            f"the hierarchical metrics sync ({', '.join(knobs)}) needs "
-            f"metrics/observer.py, which the port gets with ROADMAP queue "
-            f"1 item 9c")
+def _tree_enabled() -> bool:
+    """The hierarchical (host-sharded) sync path — see metrics/digest.py
+    and metrics/observer.py.  Off by default: small worlds lose nothing
+    to the flat allgather, and the knob must agree on every rank (it is
+    env-driven, exported by the launcher) or half a fleet would wait on
+    observers that never hear from the other half."""
+    from ..core.state import global_state
+    if global_state.initialized:
+        return global_state.metrics_tree
+    from ..core.config import metrics_tree
+    return metrics_tree()
 
 
 def _data_wait_totals() -> tuple:
@@ -232,10 +235,14 @@ class Aggregator:
         elastic reset re-zeroes every member's step counter so rejoined
         worlds stay aligned — see elastic/state.py ``_reset``).
 
-        The reference's hierarchical sync (``HVD_TPU_METRICS_TREE``)
-        raises here until the port has ``observer.py`` (ROADMAP queue 1
-        item 9c)."""
-        refuse_tree()
+        Under ``HVD_TPU_METRICS_TREE`` the sync is hierarchical
+        instead: intra-host merge through the per-host observer, one
+        O(hosts) digest exchange, and the merged fleet digest back —
+        see :meth:`sync_tree`.  The return value is then the digest's
+        bounded outlier evidence (the per-rank entries that survived
+        aggregation), not one entry per rank."""
+        if _tree_enabled():
+            return self.sync_tree()
         t0 = time.perf_counter()
         snap = self.local_snapshot()
         from ..core.state import global_state
@@ -266,12 +273,80 @@ class Aggregator:
         return gathered
 
     def sync_tree(self) -> List[dict]:
-        """The reference's hierarchical sync round (snapshot → host
-        observer → O(hosts) exchange → merged fleet digest) needs
-        ``observer.py``, ROADMAP queue 1 item 9c."""
-        raise NotImplementedError(
-            "Aggregator.sync_tree needs metrics/observer.py, which the "
-            "port gets with ROADMAP queue 1 item 9c")
+        """The hierarchical sync round: snapshot → host observer →
+        O(hosts) exchange → merged fleet digest.  No collective runs;
+        an unreachable observer degrades to a local-only digest (named
+        as partial) rather than blocking the step.  Health and the
+        fleet MFU gauges evaluate from the digest; the bounded outlier
+        entries stand in for the flat path's per-rank list."""
+        t0 = time.perf_counter()
+        from . import digest as _dig
+        from . import observer as _observer
+        snap = self.local_snapshot()
+        with self._lock:
+            self._sync_round += 1
+            round_idx = self._sync_round
+        fleet_digest = _observer.rank_sync(snap, round_idx)
+        self._advance_window()
+        from ..core.state import global_state
+        if fleet_digest is None:
+            # No observer reachable (single process, or the host's
+            # serving slot died): a digest of this rank alone — the
+            # read surfaces stay coherent and the degradation is
+            # visible (ranks=1, hosts empty).
+            kinds = None
+            try:
+                kinds = _registry().scalar_kinds()
+            except Exception:  # noqa: BLE001
+                pass
+            expected = [snap["rank"]]
+            if global_state.initialized and global_state.size > 1:
+                # The most-degraded mode must SAY so: every other rank
+                # is unreported here, and the unreported gauges would
+                # otherwise read a clean 0/0 while the fleet view
+                # silently covered one rank.
+                expected = list(range(global_state.size))
+            fleet_digest = _dig.snapshot_digest(
+                [snap], host="", top_k=_observer.top_k(),
+                expected_ranks=expected,
+                scalar_kinds=kinds, peak=_attr.peak_flops())
+            fleet_digest["round"] = round_idx
+        reg = _registry()
+        fresh = int(fleet_digest.get("round", -1)) == round_idx
+        if fresh:
+            _detector().evaluate_digest(
+                fleet_digest, warn=global_state.rank == 0)
+        else:
+            # The observer served a PREVIOUS round's digest (this
+            # round's exchange missed its deadline).  Keep it for the
+            # read surfaces, but feeding it to the stateful evaluator
+            # again would double-count straggler streaks — one
+            # transient flagged round must not fabricate a
+            # blacklist_hint.
+            reg.counter(
+                "hvd_metrics_tree_stale_rounds_total",
+                "Tree syncs that served a previous round's digest "
+                "(exchange deadline missed)").inc()
+        mfu = _dig.digest_mfu(fleet_digest)
+        if mfu is not None:
+            reg.gauge("hvd_mfu_fleet_min",
+                      "Lowest per-rank MFU in the last aggregation "
+                      "window").set(mfu["min"])
+            reg.gauge("hvd_mfu_fleet_mean",
+                      "Mean per-rank MFU in the last aggregation "
+                      "window").set(mfu["mean"])
+        reg.counter("hvd_metrics_syncs_total",
+                    "Cross-rank metric aggregations").inc()
+        reg.gauge("hvd_metrics_sync_seconds",
+                  "Duration of the last metrics aggregation "
+                  "(gather + health scoring)").set(
+            time.perf_counter() - t0)
+        outliers = [dict(s) for s in fleet_digest.get("outliers") or []]
+        with self._lock:
+            self._fleet = outliers
+            self._fleet_step = snap["step"]
+            self._fleet_digest = fleet_digest
+        return outliers
 
     @staticmethod
     def _fleet_mfu_gauges(gathered: List[dict], reg) -> None:
@@ -321,8 +396,8 @@ class Aggregator:
         return {int(s["rank"]): dict(s.get("scalars", {})) for s in fleet}
 
     def fleet_digest(self) -> Optional[dict]:
-        """The merged fleet digest of a tree-mode sync: always None in
-        the port, whose sync is the flat one (item 9c)."""
+        """The merged fleet digest from the most recent tree-mode sync
+        (None before the first, and always None on the flat path)."""
         with self._lock:
             return dict(self._fleet_digest) \
                 if self._fleet_digest is not None else None
@@ -349,6 +424,15 @@ class Aggregator:
             self._win_sketch = QuantileSketch()
             self._sync_round = 0
             self._fleet_digest = None
+        # The tree plane's round clock restarts with this aggregator:
+        # the host's observer (when this process hosts one) re-zeroes
+        # its sealed-round guard, and the observer-address cache is
+        # dropped (an elastic round can reseat local rank 0).
+        from . import observer as _observer
+        ob = _observer.current_observer()
+        if ob is not None:
+            ob.reset_rounds()
+        _observer.reset_addr_cache()
         if _attr.enabled():
             # Re-anchor the attribution marks at the counters' current
             # values (the elastic run() loop re-anchors AGAIN after the

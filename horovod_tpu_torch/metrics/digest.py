@@ -14,9 +14,9 @@ host can pre-reduce its ranks and the fleet exchange once per host.
 * **top-K outlier evidence rides along raw**, so straggler attribution
   by component survives aggregation.
 
-The port carries the algebra and the read side (quantiles, shares, MFU);
-the tree sync that exchanges digests between hosts (``observer.py``)
-comes with ROADMAP queue 1 item 9c.  Pure python, stdlib only.
+The host observers (``observer.py``) merge with it, and the read side
+(quantiles, shares, MFU) grades the fleet digest.  Pure python, stdlib
+only.
 """
 
 from __future__ import annotations

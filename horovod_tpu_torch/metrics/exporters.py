@@ -10,9 +10,9 @@ Two consumption paths for the same registry:
   answers 200 for liveness probes.  The debug routes of
   ``debug/http.py`` (``/debug/flight``, ``/debug/regression``,
   ``/debug/stacks``, ``/debug/autotune``, ``/debug/fleet_scalars``) are
-  mounted here too, behind the same HMAC gate.  The reference's
-  ``/observe/*`` routes answer 404, naming ROADMAP queue 1 item 9c,
-  which brings them.
+  mounted here too, behind the same HMAC gate, and so are the host
+  observer's ``/observe/{digest,fleet,dumps}`` (``observer.py``; 404
+  when no observer runs in this process).
 * **Offline analysis** — :class:`JsonlSink` appends one JSON object per
   ``write`` with size-based rotation and retention pruning.
 
@@ -161,12 +161,15 @@ class _MetricsHandler(BaseHTTPRequestHandler):
             self.end_headers()
             self.wfile.write(body)
         elif path.startswith("/observe/"):
-            # The reference mounts the host observer's views here; the
-            # port gets them with metrics/observer.py.
-            body = (b'{"error": "the /observe routes come with ROADMAP '
-                    b'queue 1 item 9c"}')
-            self.send_response(404)
-            self.send_header("Content-Type", "application/json")
+            # The host observer's surface also answers on the metrics
+            # port (one host, one serving slot — both are rank-gated to
+            # local rank 0): /observe/digest, /observe/fleet,
+            # /observe/dumps.  404 when no observer runs here.
+            from .observer import current_observer, handle_observe_get
+            code, body, ctype = handle_observe_get(
+                current_observer(), self.path, self.headers)
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)

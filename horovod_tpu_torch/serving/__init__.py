@@ -25,16 +25,23 @@ One replica is
   the engine and the request plane count into the ``hvd_serving_*`` and
   ``hvd_slo_*`` metric families.
 
+* **disaggregated prefill/decode** (``disagg.py``): a prefilled
+  request's KV pages and host state migrate to another replica in a
+  sha256-checked bundle on an fp32, int8 or int4 wire, in process
+  (``migrate``) or over the recovery transport's one-shot mailbox
+  (``send`` / ``receive``);
+* the **autoscaler** (``autoscale.py``): ``desired_np`` from queue
+  depth, TTFT and SLO burn, and ``Autoscaler`` driving the elastic
+  driver's ``request_resize``.
+
 Load client: ``python -m horovod_tpu_torch.serving.submit``.
 
-Not ported yet (ROADMAP queue 1 item 5b): the KV-page transport between
-replicas (the reference's ``disagg``: ``send``/``receive``/``migrate``
-and the bundle codec, over the ported recovery transport) and the
-autoscaler (``Autoscaler``, ``desired_np``, over the ported elastic
-driver's resize); with item 10b the fleet's service job kind; and
-expert-parallel placement of MoE serving weights.
+Not ported yet: the fleet's ``kind: service`` job (ROADMAP queue 1 item
+10b).
 """
 
+from .autoscale import Autoscaler, desired_np
+from .disagg import decode_bundle, encode_bundle, migrate, receive, send
 from .engine import DecodeEngine, Event, Request
 from .loadgen import drive, synthetic_workload
 from .policy import RequestView, plan
@@ -47,6 +54,8 @@ from .speculative import DraftSpec
 from .tracing import TraceContext, mint, parse_header, span
 
 __all__ = [
+    "Autoscaler", "desired_np",
+    "decode_bundle", "encode_bundle", "migrate", "receive", "send",
     "DecodeEngine", "Event", "Request",
     "drive", "synthetic_workload",
     "RequestView", "plan",

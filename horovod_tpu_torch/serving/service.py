@@ -16,8 +16,9 @@ between decode iterations — so a hot swap equals a cold load of that
 step.
 
 :class:`ServingService` composes engine + request plane + watcher into
-one long-lived replica.  The reference's fleet job kind and autoscaler
-come with the port's launcher.
+one long-lived replica.  Its resizes are ``autoscale.Autoscaler``'s over
+the elastic driver; the reference's fleet job kind (``kind: service``)
+comes with ``fleet/``, ROADMAP queue 1 item 10b.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt), of
 ``_torch_port_modes_workers`` (units, modes, moe), of
 ``_torch_port_models_workers`` (resnet, bert, moet; their inputs written
 by the test file's ``prepare`` hook) and of
-``_torch_port_telemetry_workers`` (telemetry and hang, two ranks) and of
+``_torch_port_telemetry_workers`` (telemetry and hang, two ranks;
+observe, four) and of
 ``_torch_port_recovery_workers`` (recovery) for the test file of that
 part.  The ranks fork from a server that imported torch once
 for all four."""
@@ -87,7 +88,8 @@ def part_inputs(part: str) -> dict:
     """The seeded inputs of one part, per rank along axis 0 where they
     differ between ranks (the negotiated plane's parts seed their own)."""
     if part in NEGOTIATED_PARTS or part in MODEL_PARTS or \
-            part in ("telemetry", "hang", "recovery", "elastic"):
+            part in ("telemetry", "hang", "observe", "recovery",
+                     "elastic"):
         return {}
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
                                  "sbn": 14, "ckpt": 15, "gspmd": 16,
@@ -244,6 +246,7 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "moet": model_workers.moet_part,
                 "telemetry": tel_workers.telemetry_part,
                 "hang": tel_workers.hang_part,
+                "observe": tel_workers.observe_part,
                 "recovery": rec_workers.recovery_part,
                 "elastic": el_workers.elastic_part}[part], out, world)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))

@@ -13,10 +13,17 @@ and part by ``_torch_port_pool.part_results``, each writing
   debug endpoint published on the test's rendezvous KV; rank 1 records a
   ``data.wait`` and never submits the allreduce "never", and rank 0's
   stall watchdog, started by ``init()``, writes the hang report.
+* ``observe``: four ranks as two hosts of two (``LOCAL_SIZE=2``) under
+  ``HVD_TPU_METRICS_TREE``, a host observer on each host's local rank 0
+  and the test's rendezvous KV: the same seeded steps synced through
+  the tree and then through the flat allgather (the straggler verdicts
+  of both), a hang report collected one request per host, and a tree
+  round with host 1's observer stopped.
 
 Torch only: the ranks import neither JAX nor horovod_tpu."""
 
 import os
+import time
 
 import numpy as np
 
@@ -170,3 +177,128 @@ def hang_part(rank, world, rendezvous, out_dir):
         time.sleep(HANG_SIT_OUT_S)
     hvd.shutdown()
     torch.save(res, os.path.join(out_dir, f"hang{rank}.pt"))
+
+
+# The observe part: steps a sync window, host 1's straggler (rank 3,
+# its input pipeline slow) and the tree's deadlines (seconds).
+OBSERVE_WORLD, OBSERVE_LOCAL = 4, 2
+OBSERVE_STEPS = 6
+OBSERVE_STRAGGLER = 3
+OBSERVE_TIMEOUT_S = "2"
+
+
+def observe_steps(rank: int) -> list:
+    """Seeded (step time, data wait) pairs: rank 3 2.5x slower, the
+    excess spent waiting for input."""
+    rng = np.random.default_rng(50 + rank)
+    out = []
+    for z in rng.standard_normal(OBSERVE_STEPS):
+        t = 0.020 * (1.0 + 0.02 * z)
+        wait = 0.001
+        if rank == OBSERVE_STRAGGLER:
+            t, wait = t + 0.030, wait + 0.030
+        out.append((float(t), wait))
+    return out
+
+
+def _observe_window(metrics, reg, rank: int) -> None:
+    waits = reg.counter("hvd_data_wait_seconds_total",
+                        "Cumulative input-pipeline wait")
+    spans = reg.counter("hvd_data_wait_spans_total",
+                        "Number of input-pipeline wait spans")
+    for t, wait in observe_steps(rank):
+        waits.inc(wait)
+        spans.inc()
+        metrics.step_end(step_time_s=t)
+
+
+def _verdicts(metrics) -> list:
+    return sorted((h.rank, h.flagged, h.cause)
+                  for h in metrics.straggler_report())
+
+
+def observe_part(rank, world, rendezvous, out_dir):
+    from _torch_port_workers import _topology_env
+    _topology_env(rank, world, OBSERVE_LOCAL)
+    with open(os.path.join(out_dir, "kv.txt")) as f:
+        kv = f.read().strip()
+    os.environ.update({
+        "HVD_TPU_RENDEZVOUS_ADDR": kv, "HVD_TPU_METRICS_TREE": "1",
+        # Two names of this machine: the observers' host names, and the
+        # addresses they advertise.
+        "HVD_TPU_FLIGHT_HOST": ("127.0.0.1", "localhost")[
+            rank // OBSERVE_LOCAL],
+        "HVD_TPU_METRICS_TREE_TIMEOUT_S": OBSERVE_TIMEOUT_S,
+        "HVD_TPU_ATTRIBUTION": "0", "HVD_TPU_FLIGHT_DIR": out_dir})
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import debug, metrics
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.debug import hang
+    from horovod_tpu_torch.metrics import observer
+    torch.set_num_threads(1)
+    hvd.init(device="cpu", init_method=f"file://{rendezvous}")
+    reg = metrics.registry()
+    res = {"observer": observer.current_observer() is not None}
+    dist.barrier()                     # every host's observer published
+
+    # The tree sync, then the flat one, over the same window.
+    _observe_window(metrics, reg, rank)
+    res["tree_outliers"] = [o["rank"] for o in metrics.sync()]
+    digest = metrics.fleet_digest()
+    res["tree_digest"] = {k: digest[k] for k in (
+        "round", "ranks", "hosts", "failed_hosts", "missing", "window")}
+    res["tree"] = _verdicts(metrics)
+    metrics.detector().reset()
+    global_state.metrics_tree = False
+    _observe_window(metrics, reg, rank)
+    res["flat_ranks"] = [s["rank"] for s in metrics.sync()]
+    res["flat"] = _verdicts(metrics)
+    global_state.metrics_tree = True
+
+    # The hang watchdog's collection: one request per host.
+    debug.serve_and_publish(rank=rank, rdv_addr=kv)
+    dist.barrier()
+    if rank == 0:
+        wd = hang.StallWatchdog(None, rdv_addr=kv)
+        per_rank = []
+        fallback = wd._collect_per_rank
+        wd._collect_per_rank = lambda ranks: (
+            per_rank.append(list(ranks)), fallback(ranks))[1]
+        dumps = wd._collect_dumps(world)
+        report = hang.build_hang_report(
+            [{"name": "held", "type": 0, "missing": [OBSERVE_STRAGGLER]}],
+            dumps, world=world, step=1, host_status=wd.last_host_status)
+        res["hang"] = {"hosts": report["hosts"], "per_rank": per_rank,
+                       "reachable": [report["ranks"][str(r)]["reachable"]
+                                     for r in range(world)]}
+    dist.barrier()
+
+    # Host 1's observer stops: the sync still returns (the round's
+    # exchange outlasts the ranks' wait, so they keep the previous
+    # round's digest, counted stale, or fall back to their own), and
+    # host 0's observer names host 1 failed in round 2's digest.
+    if rank == OBSERVE_LOCAL:
+        observer.stop_host_observer()
+    dist.barrier()
+    _observe_window(metrics, reg, rank)
+    stale = reg.counter("hvd_metrics_tree_stale_rounds_total", "")
+    stale0 = stale.value
+    t0 = time.perf_counter()
+    metrics.sync()
+    res["failed_round_s"] = time.perf_counter() - t0
+    digest = metrics.fleet_digest()
+    res["failed_sync"] = {"round": digest["round"],
+                          "ranks": digest["ranks"],
+                          "stale": stale.value - stale0}
+    if rank < OBSERVE_LOCAL:
+        addr = observer.observer_addr_for(0)
+        digest = observer.fetch_fleet_digest(
+            addr, min_round=2, wait_s=float(OBSERVE_TIMEOUT_S))
+        res["failed_digest"] = {k: digest[k] for k in (
+            "round", "ranks", "hosts", "failed_hosts", "missing")}
+    dist.barrier()
+    debug.stop_serving()
+    hvd.shutdown()
+    torch.save(res, os.path.join(out_dir, f"observe{rank}.pt"))

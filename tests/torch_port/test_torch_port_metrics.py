@@ -3,8 +3,10 @@ horovod_tpu.metrics': the same seeded operation sequence through both
 registries renders the same Prometheus text byte for byte, with equal
 ``snapshot()``, ``scalars()`` and ``scalar_kinds()``; the JSONL sink
 rotates and prunes to the same file set; the scrape endpoint serves the
-registry, answers ``/healthz``, mounts the ``/debug/*`` routes and refuses
-the item-9c ``/observe/*`` routes."""
+registry, answers ``/healthz``, mounts the ``/debug/*`` routes and answers
+the host observer's ``/observe/*`` routes with 404 when no observer runs
+(``test_torch_port_observer.py`` serves them through a running one); the
+tree knobs take effect."""
 
 import importlib
 import json
@@ -164,14 +166,16 @@ def test_metrics_server_serves_the_registry():
         assert body.decode() == ex_t.render_prometheus(reg)
         assert _get(base + "/healthz")[::2] == (200, b"ok")
         # The debug routes are mounted (test_torch_port_debug.py holds
-        # their bodies); the observer's still answer 404, naming item 9c.
+        # their bodies); the observer's answer 404 while none runs.
         code, ctype, body = _get(base + "/debug/flight")
         assert code == 200 and ctype == "application/json"
         assert "events" in json.loads(body)
         code, ctype, body = _get(base + "/debug/stacks")
         assert code == 200 and b"Thread" in body
+        from horovod_tpu_torch.metrics import observer
+        assert observer.current_observer() is None
         code, _, body = _get(base + "/observe/digest")
-        assert code == 404 and b"item 9c" in body
+        assert code == 404 and b"no host observer running" in body
         json.loads(body)
         assert _get(base + "/nope")[0] == 404
     finally:
@@ -190,19 +194,43 @@ def test_serve_is_idempotent_and_stops():
 
 @pytest.mark.parametrize("knob,value", [("METRICS_TREE", "1"),
                                         ("METRICS_TOPK", "8")])
-def test_tree_knobs_are_refused(monkeypatch, knob, value):
-    """The hierarchical sync needs observer.py (ROADMAP queue 1 item
-    9c): a set knob raises at init() and at sync(), never ignored."""
+def test_tree_knobs_take_effect(monkeypatch, knob, value):
+    """Each tree knob takes effect where the reference reads it: with
+    METRICS_TREE, ``init()`` starts the host observer on local rank 0,
+    the sync is the tree sync (no collective runs) and ``shutdown()``
+    stops the observer; METRICS_TOPK caps a digest's outlier
+    evidence."""
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch import metrics, optimizers
+    from horovod_tpu_torch.metrics import observer
     monkeypatch.setenv("HVD_TPU_" + knob, value)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        hvd.init(device="cpu")
-    assert not hvd.is_initialized()
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        metrics.Aggregator().sync()
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        metrics.Aggregator().sync_tree()
+    monkeypatch.setenv("HVD_TPU_METRICS_TREE_GRACE_S", "0.1")
+
+    def no_collective(*a, **k):
+        raise AssertionError("the tree sync ran a collective")
+
+    monkeypatch.setattr(optimizers, "allgather_object", no_collective)
+    hvd.init(device="cpu")
+    try:
+        agg = metrics.Aggregator()
+        for i in range(3):
+            agg.step_end(0.01, step=i)
+        if knob == "METRICS_TREE":
+            ob = observer.current_observer()
+            assert ob is not None and ob.local_ranks == [0]
+            agg.sync()
+            d = agg.fleet_digest()
+            assert d["round"] == 1 and d["ranks"] == 1
+            assert d["hosts"] == [ob.host] and d["top_k"] == 4
+        else:
+            assert observer.current_observer() is None
+            assert len(agg.sync()) == 1        # the flat sync
+            assert agg.fleet_digest() is None
+            agg.sync_tree()                    # a local-only digest
+            assert agg.fleet_digest()["top_k"] == 8
+    finally:
+        hvd.shutdown()
+    assert observer.current_observer() is None
 
 
 def test_package_surface_matches_the_reference():
@@ -214,4 +242,7 @@ def test_package_surface_matches_the_reference():
     import horovod_tpu_torch.metrics as metrics_t
     assert set(metrics_t.__all__) == set(metrics_j.__all__)
     assert isinstance(metrics_t.attribution, types.ModuleType)
-    assert not hasattr(metrics_t, "observer")
+    # The observer is a submodule, outside the package's names.
+    assert "observer" not in metrics_t.__all__
+    assert isinstance(importlib.import_module(
+        "horovod_tpu_torch.metrics.observer"), types.ModuleType)

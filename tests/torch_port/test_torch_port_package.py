@@ -88,12 +88,14 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.serving.loadgen", "horovod_tpu_torch.serving.slo",
     "horovod_tpu_torch.serving.server", "horovod_tpu_torch.serving.submit",
     "horovod_tpu_torch.serving.service",
+    "horovod_tpu_torch.serving.disagg", "horovod_tpu_torch.serving.autoscale",
     "horovod_tpu_torch.metrics", "horovod_tpu_torch.metrics.registry",
     "horovod_tpu_torch.metrics.exporters",
     "horovod_tpu_torch.metrics.attribution",
     "horovod_tpu_torch.metrics.digest", "horovod_tpu_torch.metrics.health",
     "horovod_tpu_torch.metrics.baseline",
-    "horovod_tpu_torch.metrics.aggregate", "horovod_tpu_torch.debug",
+    "horovod_tpu_torch.metrics.aggregate",
+    "horovod_tpu_torch.metrics.observer", "horovod_tpu_torch.debug",
     "horovod_tpu_torch.debug.flight", "horovod_tpu_torch.debug.http",
     "horovod_tpu_torch.debug.hang", "horovod_tpu_torch.debug.regression",
     "horovod_tpu_torch.debug.merge", "horovod_tpu_torch.utils.logging",

@@ -5,7 +5,12 @@ the same per-rank inputs), a checkpoint save and restore, the prefetch
 and inline loaders, and a ``DecodeEngine`` burst, the set of (family,
 kind, label keys) each path moves is equal, and so are the event
 counters (ops, bytes, saves, restores, spans, requests, tokens) and the
-flight events' kinds.  Timings are not compared."""
+flight events' kinds.  Likewise for a KV migration on the int8 wire with
+the autoscaler's resizes (its bytes, migrations and resizes by
+direction), and for the tree sync's rounds through a host observer
+(late snapshots, a stale round; the gateway push, which the port
+refuses until ROADMAP queue 1 item 10b, moves in neither).  Timings are
+not compared."""
 
 import importlib
 import time
@@ -50,7 +55,11 @@ EVENT_FAMILIES = (
     "hvd_serving_shed_total", "hvd_serving_ttft_seconds",
     "hvd_serving_token_seconds", "hvd_serving_prefix_hits_total",
     "hvd_serving_prefix_misses_total",
-    "hvd_serving_prefix_tokens_reused_total")
+    "hvd_serving_prefix_tokens_reused_total",
+    "hvd_serving_migrate_bytes_total", "hvd_serving_migrations_total",
+    "hvd_serving_autoscale_total", "hvd_metrics_tree_stale_rounds_total",
+    "hvd_observe_late_snapshots_total", "hvd_observe_pushes_total",
+    "hvd_metrics_syncs_total")
 
 
 def _signature(delta: dict) -> set:
@@ -209,6 +218,81 @@ def test_decode_engine_burst_families():
     assert w.port["hvd_serving_ttft_seconds"]["series"][""] == served
     assert w.port_events.count("serving.admit") == served
     assert w.port_events.count("serving.retire") == served
+
+
+def test_migration_and_autoscale_families():
+    from horovod_tpu.serving import autoscale as auto_j
+    from horovod_tpu.serving import disagg as dis_j
+    from horovod_tpu_torch.serving import autoscale as auto_t
+    from horovod_tpu_torch.serving import disagg as dis_t
+    cfg_j = tfm_j.TransformerConfig(dtype=jnp.float32, **SMALL)
+    cfg_t = tfm_t.TransformerConfig(dtype=torch.float32, **SMALL)
+    pj = tfm_j.init_params(jax.random.PRNGKey(0), cfg_j,
+                           tfm_j.ParallelConfig())
+    model = tfm_t.Transformer(cfg_t, device="cpu")
+    model.load_state_dict(convert.params_from_jax(pj))
+    kw = dict(slots=2, page_tokens=8, max_len=32, prefix_cache=False)
+
+    class Driver:
+        def request_resize(self, np_, reason):
+            return True
+
+    with _Watch() as w:
+        for eng, cfg, p, dis, auto in (
+                (eng_j, cfg_j, pj, dis_j, auto_j),
+                (eng_t, cfg_t, model, dis_t, auto_t)):
+            src = eng.DecodeEngine(cfg, p, **kw)
+            dst = eng.DecodeEngine(cfg, p, **kw)
+            src.admit(eng.Request(id="q", prompt=list(range(3, 20)),
+                                  max_new_tokens=4))
+            dis.migrate(src, "q", dst, bits=8)
+            status = {"np": 1, "queue_depth": 9}
+            a = auto.Autoscaler(Driver(), lambda: status, min_np=1,
+                                max_np=3, target_queue=4.0, cooldown_s=0)
+            a.maybe_resize(now=10.0)
+            status.update(np=2, queue_depth=0)
+            a.maybe_resize(now=20.0)
+    w.assert_equal()
+    assert w.port["hvd_serving_migrations_total"]["series"][""] == 1
+    assert w.port["hvd_serving_migrate_bytes_total"]["series"][""] == \
+        w.ref["hvd_serving_migrate_bytes_total"]["series"][""] > 0
+    assert w.port["hvd_serving_autoscale_total"]["series"] == \
+        {"direction=up": 1, "direction=down": 1}
+    assert w.port_events.count("serving.migrate") == 1
+    assert w.port_events.count("serving.autoscale") == 2
+
+
+def test_tree_sync_families(monkeypatch):
+    """A late snapshot at an observer, then a fresh and a stale tree
+    round of an aggregator, in each package."""
+    from horovod_tpu.metrics import aggregate as agg_j
+    from horovod_tpu.metrics import observer as ob_j
+    from horovod_tpu_torch.metrics import aggregate as agg_t
+    from horovod_tpu_torch.metrics import observer as ob_t
+    monkeypatch.setenv("HVD_TPU_METRICS_TREE", "1")
+    monkeypatch.setenv("HVD_TPU_METRICS_TREE_GRACE_S", "0.1")
+    with _Watch() as w:
+        for agg, ob in ((agg_j, ob_j), (agg_t, ob_t)):
+            observer = ob.HostObserver("h", [0]).start()
+            try:
+                snap = agg.Aggregator().local_snapshot()
+                observer.submit_snapshot(1, snap)
+                fresh = observer.fleet_digest(min_round=1, wait_s=10)
+                observer.submit_snapshot(1, snap)          # late
+            finally:
+                observer.stop()
+            served = []
+            monkeypatch.setattr(ob, "rank_sync",
+                                lambda s, r: served.pop(0))
+            a = agg.Aggregator()
+            served += [dict(fresh, round=1), dict(fresh, round=1)]
+            a.sync()                                   # round 1: fresh
+            a.sync()                                   # round 2: stale
+    w.assert_equal()
+    assert w.port["hvd_metrics_tree_stale_rounds_total"]["series"][""] == 1
+    assert w.port["hvd_observe_late_snapshots_total"]["series"][""] == 1
+    assert w.port["hvd_metrics_syncs_total"]["series"][""] == 2
+    assert "hvd_observe_pushes_total" not in w.port
 
 
 # -- the public views keep their own counts ----------------------------------

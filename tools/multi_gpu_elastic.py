@@ -3,7 +3,7 @@
 while the ZeRO step's NCCL collectives are in flight.
 
     python3 tools/multi_gpu_elastic.py [--device cuda|cpu] [--small]
-        [--drill kill|hang|both]   (default: both)
+        [--drill kill|hang|both|autoscale]   (default: both)
 
 Runs the port's ``ElasticDriver`` over the alias hosts ``localhost:2``,
 ``127.0.0.1:1`` and ``<hostname>:1`` (four ranks on one machine; each
@@ -49,6 +49,16 @@ peer's exit, before which no round is published), held to
 deadline by 3 s writes every thread's Python stack to
 ``chiprun_out/multi_gpu_elastic_stacks.<slot>``.
 
+``--drill autoscale`` (not part of ``both``) runs the serving
+autoscaler's resizes instead: the same workers, with no fault, pace
+their steps (``AUTOSCALE_PACE_S``) under a driver of ``min_np`` 2 and
+``max_np`` 3, and ``serving.Autoscaler`` drives the driver's
+``request_resize`` from a scripted status: an idle queue takes the world
+from 3 to 2, queue pressure from 2 to 3, and an idle queue after the
+cooldown from 3 to 2.  The driver's rounds (each survivor's sync: round,
+size, restore path, step) and the workers' losses go in the JSON; every
+loss is finite and the last world of 2 finishes the steps.
+
 ``--device cpu`` rehearses the same program on gloo.  Prints one JSON
 line per result, writes them to chiprun_out/multi_gpu_elastic.json, and
 exits non-zero if a check fails.
@@ -74,6 +84,14 @@ HANG_DEADLINE_S = 20
 HANG_S = HANG_DEADLINE_S + 15
 CARDS = {"localhost": "0,1", "127.0.0.1": "2"}   # else GPU 3
 RUN_DEADLINE_S = 240.0   # a drill's
+# The autoscale drill: its steps, their pacing (the driver's resizes land
+# between them), the autoscaler's cooldown, the steps a round takes
+# before the next scripted status, and the script: (queue depth, the
+# width the autoscaler must ask for).
+AUTOSCALE_STEPS, AUTOSCALE_PACE_S = 30, 0.3
+AUTOSCALE_COOLDOWN_S = 5.0
+AUTOSCALE_ROUND_STEPS = 3
+AUTOSCALE_SCRIPT = ((0, 2), (20, 3), (0, 2))
 
 
 def _log(prefix, **fields):
@@ -146,8 +164,10 @@ def worker(device, small, log, ckpt_dir, drill):
             reduce_grads()
 
         opt.reduce_grads = hung_reduce_grads
+    autoscale = drill == "autoscale"
+    n_steps = AUTOSCALE_STEPS if autoscale else STEPS
     state = elastic.TpuState(opt_state=tree, checkpoint_dir=ckpt_dir,
-                             checkpoint_keep=STEPS + 1)
+                             checkpoint_keep=n_steps + 1)
     state.register_reset_callbacks([lambda: _log(
         log, event="reset", rank=hvd.rank(), size=hvd.size())])
     step = tfm.make_train_step(cfg, par, model, opt)
@@ -179,7 +199,8 @@ def worker(device, small, log, ckpt_dir, drill):
              rank=hvd.rank(), size=hvd.size(), step=int(counter),
              path=rep.path if rep else None,
              report=rep.to_dict() if rep else None)
-        if global_state.elastic_round > 0 and rep is not None:
+        if global_state.elastic_round > 0 and rep is not None and \
+                not autoscale:
             # The disk restore of the step the peer tier restored, into a
             # model and optimizer of another seed.
             _, _, like = build(1)
@@ -192,7 +213,7 @@ def worker(device, small, log, ckpt_dir, drill):
             _log(log, event="peer_vs_disk", equal=equal, leaves=len(a),
                  step=rep.step)
         fa.reset_launches()
-        while int(counter) < STEPS:
+        while int(counter) < n_steps:
             i = int(counter)
             tokens, labels = batch_of(i)
             if victim and drill == "kill" and i == KILL_AT:
@@ -217,7 +238,9 @@ def worker(device, small, log, ckpt_dir, drill):
             _log(log, event="step", step=i, loss=loss, rank=hvd.rank(),
                  size=hvd.size(), round=global_state.elastic_round,
                  launches=dict(fa.launches))
-        if global_state.elastic_round > 0:
+            if autoscale:
+                time.sleep(AUTOSCALE_PACE_S)
+        if global_state.elastic_round > 0 and not autoscale:
             # Rerun the resumed steps from the disk restore of the same
             # committed step.
             rep = recovery.last_report()
@@ -307,6 +330,111 @@ def _drill(kind, device, small, hosts, slots):
     return report
 
 
+def _autoscale(device, small, hosts, slots):
+    """The autoscale drill's run (the module's docstring): the driver's
+    rounds, the autoscaler's resizes, the workers' losses."""
+    import tempfile
+    import threading
+    from horovod_tpu_torch.metrics.registry import registry
+    from horovod_tpu_torch.runner.elastic_driver import (ElasticDriver,
+                                                         FixedHosts)
+    from horovod_tpu_torch.serving import Autoscaler
+    report = {"ticks": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "log")
+        cmd = [sys.executable, os.path.abspath(__file__), "--worker",
+               json.dumps({"device": device, "small": small, "log": log,
+                           "ckpt_dir": os.path.join(tmp, "ckpt"),
+                           "drill": "autoscale"})]
+        driver = ElasticDriver(FixedHosts(hosts), cmd, min_np=2, max_np=3,
+                               verbose=True)
+        status = {}
+        scaler = Autoscaler(driver, lambda: dict(status), min_np=2,
+                            max_np=3, target_queue=4.0, slo_ttft_s=0.0,
+                            cooldown_s=AUTOSCALE_COOLDOWN_S)
+        result = {}
+        t0 = time.time()
+        th = threading.Thread(
+            target=lambda: result.update(rc=driver.run()), daemon=True)
+        th.start()
+
+        def world(after_round):
+            """(round, size) once a round past ``after_round`` has taken
+            AUTOSCALE_ROUND_STEPS steps; None at the deadline."""
+            while time.time() - t0 < RUN_DEADLINE_S and th.is_alive():
+                steps = [e for e in _read(log, slots)
+                         if e["event"] == "step"
+                         and e["round"] > after_round]
+                rounds = {}
+                for e in steps:
+                    rounds.setdefault((e["round"], e["size"]),
+                                      set()).add(e["step"])
+                done = [k for k, v in rounds.items()
+                        if len(v) >= AUTOSCALE_ROUND_STEPS]
+                if done:
+                    return min(done)
+                time.sleep(0.2)
+            return None
+
+        last = -1
+        for queue, want in AUTOSCALE_SCRIPT:
+            cur = world(last)
+            assert cur is not None, ("no round to resize", report["ticks"])
+            last = cur[0]
+            status.update(np=cur[1], queue_depth=queue, occupancy=0.0)
+            got = None
+            while got is None and time.time() - t0 < RUN_DEADLINE_S:
+                got = scaler.maybe_resize()
+                if got is None:
+                    time.sleep(0.2)
+            report["ticks"].append({"t": time.time() - t0, "wall": time.time(),
+                                    "round": cur[0], "size": cur[1],
+                                    "queue_depth": queue, "asked": got,
+                                    "want": want})
+        th.join(max(RUN_DEADLINE_S - (time.time() - t0), 1))
+        if th.is_alive():
+            driver.preempt("the tool's deadline")
+            th.join(60)
+        report["seconds"] = time.time() - t0
+        report["rc"] = result.get("rc")
+        events = _read(log, slots)
+    report["resizes"] = {
+        c["labels"]["direction"]: c["value"]
+        for c in registry().snapshot().get(
+            "hvd_serving_autoscale_total", {}).get("series", [])}
+    report["syncs"] = [(e["slot"], e["round"], e["size"], e["path"],
+                        e["step"]) for e in events if e["event"] == "sync"]
+    steps = [e for e in events if e["event"] == "step"]
+    report["sizes_by_round"] = sorted({(e["round"], e["size"])
+                                       for e in steps})
+    report["losses"] = {s: [(e["step"], e["round"], e["size"], e["loss"])
+                            for e in steps if e["slot"] == s]
+                        for s in slots}
+    report["last_step"] = max((e["step"] for e in steps), default=None)
+    # Each resize, from the autoscaler's request to the first step of the
+    # round it started.
+    firsts = {}
+    for e in steps:
+        firsts[e["round"]] = min(firsts.get(e["round"], e["t"]), e["t"])
+    report["resize_s"] = [firsts[t["round"] + 1] - t["wall"]
+                          for t in report["ticks"]
+                          if t["round"] + 1 in firsts]
+    return report
+
+
+def _check_autoscale(report):
+    import math
+    assert report["rc"] == 0, report["rc"]
+    assert [(t["asked"], t["want"]) for t in report["ticks"]] == \
+        [(w, w) for _, w in AUTOSCALE_SCRIPT], report["ticks"]
+    sizes = [size for _, size in report["sizes_by_round"]]
+    assert sizes == [3, 2, 3, 2], report["sizes_by_round"]
+    assert report["resizes"] == {"down": 2, "up": 1}, report["resizes"]
+    assert report["last_step"] == AUTOSCALE_STEPS - 1, report["last_step"]
+    assert all(math.isfinite(x[3]) for v in report["losses"].values()
+               for x in v), report["losses"]
+
+
 def _check(kind, report, survivors):
     """The drill's checks (the module's docstring)."""
     assert report["rc"] == 0, report["rc"]
@@ -340,8 +468,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--small", action="store_true")
-    ap.add_argument("--drill", choices=("kill", "hang", "both"),
-                    default="both")
+    ap.add_argument("--drill", choices=("kill", "hang", "both",
+                                        "autoscale"), default="both")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -371,6 +499,17 @@ def main() -> int:
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     print(json.dumps({"cards": report.get("cards", ["cpu"])}), flush=True)
+    if args.drill == "autoscale":
+        report["autoscale"] = r = _autoscale(args.device, args.small, hosts,
+                                             slots)
+        with open(os.path.join(out_dir, "multi_gpu_elastic_autoscale.json"),
+                  "w") as f:
+            json.dump(report, f, indent=1)
+        for k in ("rc", "seconds", "ticks", "resizes", "resize_s",
+                  "sizes_by_round", "syncs", "last_step", "losses"):
+            print(json.dumps({"drill": "autoscale", k: r[k]}), flush=True)
+        _check_autoscale(r)
+        return 0
     for kind in kinds:
         if kind == "hang":
             os.environ["HVD_TPU_NET_OP_DEADLINE_S"] = str(HANG_DEADLINE_S)
