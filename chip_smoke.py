@@ -309,6 +309,31 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              (d) The migration counters, the serving.migrate flight
              events, and a traced request's spans stitched across both
              engines by debug.merge.
+21. launch — the port's launcher on the card.  (a) ``python -m
+             horovod_tpu_torch.runner.launch -np 1 -v python
+             chip_smoke.py --launched-worker '<json>'``: the worker
+             (the launcher's plan: one slot inherits the card) trains
+             the flagship with DistributedOptimizer(AdamW) for 10 steps
+             on seeded batches, the native controller attached from the
+             launcher's env, on cuda:0; 80 launches of each kernel; its
+             losses equal two in-process runs of the same steps under
+             the controller within their spread (bit-equality
+             reported); the launched step against the in-process one,
+             and the seconds from the launcher's start to the worker's
+             start, init and first step.  (b) ``runner.run(fn, np=1)``
+             and ``run(fn, np=1, hosts="localhost:1")``: each worker on
+             "cuda", its step-0 loss equal to (a)'s.  (c)
+             ``--worker-platform cpu -np 2``: two gloo workers pinned to
+             the CPU (the launcher says so) give the reference test's
+             allreduce, allgather and broadcast values;
+             ``--check-build`` names CUDA and the built kernels and
+             changes nothing under _build/.  (d) Phase 17 (a) through
+             the CLI: ``--min-np 1 --max-np 1 --host-discovery-script``
+             (localhost:1, 127.0.0.1:1) with HVD_TPU_CHAOS_KILL_STEPS=
+             0@4, through main() and run_elastic: the worker respawns on
+             127.0.0.1, its sync reports "disk", the 8 steps' losses
+             equal phase 17 (a)'s within its spread, 64 launches of each
+             kernel.  (b) and (c) run beside (d).
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -4486,6 +4511,309 @@ def phase_disagg(torch, hvd, tfm, fa, cfg, par, model, card):
     return report
 
 
+# Phase 21: the launcher.  The launched worker is this script with
+# --launched-worker; (a) trains the flagship on seeded batches, (b) runs
+# one step through runner.run, (c) checks the reference's collective
+# values on two CPU slots, (d) reruns phase 17 (a) through the CLI.
+LAUNCH_STEPS = 10
+LAUNCH_BATCH_SEED = 2100
+LAUNCH_DEADLINE_S = 300.0
+
+
+def launch_batches(tfm, cfg, batch, n_steps=LAUNCH_STEPS):
+    return [tfm.synthetic_batch(cfg, batch, seed=LAUNCH_BATCH_SEED + i)
+            for i in range(n_steps)]
+
+
+def launch_train(torch, hvd, tfm, fa, n_steps=LAUNCH_STEPS):
+    """The flagship's data-parallel step, DistributedOptimizer(AdamW), on
+    phase 21's seeded batches: losses, host seconds a step and the
+    kernels' launches.  Both the launched worker and the in-process run
+    of (a) take it, on the world init() formed."""
+    cfg = tfm.TransformerConfig(vocab_size=8192, d_model=512, n_heads=8,
+                                d_ff=2048, n_layers=8, seq_len=512,
+                                dtype=torch.bfloat16, remat=False)
+    par = tfm.ParallelConfig()
+    model = tfm.Transformer(cfg, par, seed=0)
+    hvd.broadcast_parameters(model.state_dict())
+    opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+        model.parameters(), lr=3e-4, weight_decay=1e-4))
+    step = tfm.make_train_step(cfg, par, model, opt)
+    batches = launch_batches(tfm, cfg, 8, n_steps)
+    fa.reset_launches()
+    losses, times, first = [], [], None
+    for tokens, labels in batches:
+        torch.cuda.synchronize()
+        if first is None:
+            first = time.time()
+        t0 = time.perf_counter()
+        loss = step(tokens, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    return {"losses": losses, "step_times_s": times,
+            "step_s": statistics.median(times[1:]) if len(times) > 1
+            else times[0], "launches": dict(fa.launches),
+            "first_step_t": first}
+
+
+def launched_worker(out, kind="train"):
+    """A worker the port's launcher started: ``train`` runs (a)'s steps on
+    the card the launcher's plan gave it, ``cpu`` the reference's
+    collective values (tests/test_runner.py:90-125) on a slot it pinned
+    to the CPU.  One JSON file a rank at ``<out>.<rank>``."""
+    started = time.time()
+    sys.path.insert(0, ROOT)
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    inited = time.time()
+    rank, size = hvd.rank(), hvd.size()
+    rec = {"rank": rank, "size": size, "device": str(hvd.device()),
+           "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "controller": global_state.controller is not None,
+           "started_t": started, "init_t": inited}
+    if kind == "train":
+        rec.update(launch_train(torch, hvd, tfm, fa),
+                   device_count=torch.cuda.device_count())
+    else:
+        x = hvd.allreduce(torch.full((8,), float(rank + 1)), op=hvd.Sum)
+        g = hvd.allgather(torch.full((rank + 1, 2), float(rank)))
+        b = hvd.broadcast(torch.full((3,), float(rank)), root_rank=0)
+        rec.update(sum=x.tolist(), gathered_rows=g.shape[0],
+                   broadcast=b.tolist(),
+                   backend=torch.distributed.get_backend())
+    hvd.shutdown()
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump(rec, f)
+
+
+def launched_step():
+    """(b): one flagship step through ``runner.run``, as its worker:
+    (device type, step-0 loss)."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer as tfm
+    from horovod_tpu_torch.ops import flash_attention as fa
+    hvd.init()
+    try:
+        r = launch_train(torch, hvd, tfm, fa, n_steps=1)
+        return hvd.device().type, r["losses"][0], r["launches"]
+    finally:
+        hvd.shutdown()
+
+
+def launcher(args, env=None, timeout=LAUNCH_DEADLINE_S):
+    """``python -m horovod_tpu_torch.runner.launch <args>`` from the
+    checkout's root: (exit code, output, wall seconds, start time)."""
+    t0, wall = time.time(), time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+        env=dict(os.environ, **(env or {})))
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        log(out[-6000:])
+    return proc.returncode, out, time.perf_counter() - wall, t0
+
+
+def build_listing():
+    root = os.path.join(ROOT, "horovod_tpu_torch", "_build")
+    return sorted((os.path.relpath(os.path.join(d, f), root),
+                   os.path.getmtime(os.path.join(d, f)))
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def phase_launch(torch, hvd, tfm, fa, cfg, par, elastic_report, card):
+    """Phase 21: the port's launcher on the card; returns the report."""
+    import glob
+    import tempfile
+    import threading
+    from horovod_tpu_torch import runner
+    report = {}
+    # (a)'s bar: one in-process run of the same steps under the
+    # controller, held within the run-to-run spread that phase 17
+    # measured on the flagship at world 1 (phase 11 holds the
+    # controller-attached step bit-equal to the step without it).
+    os.environ["HVD_TPU_CONTROLLER_ADDR"] = f"127.0.0.1:{free_port()}"
+    try:
+        hvd.init(use_controller=True)
+        inproc = launch_train(torch, hvd, tfm, fa)
+    finally:
+        hvd.shutdown()
+        del os.environ["HVD_TPU_CONTROLLER_ADDR"]
+    spread = elastic_report["clean_spread"]
+    torch.cuda.empty_cache()
+    phase_t0 = time.perf_counter()
+
+    # (a) a static launch of one worker, (b) runner.run(fn) in process
+    # (spawn) and through the launcher's machinery (hosts=), and (c) two
+    # CPU slots: each in a thread beside (d), all sharing the card.
+    static, runs, cpu, errors = {}, {}, {}, {}
+
+    def static_launch():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "launched")
+            rc, static["text"], static["wall_s"], static["t0"] = launcher(
+                ["-np", "1", "-v", "--controller-port", str(free_port()),
+                 sys.executable, os.path.abspath(__file__),
+                 "--launched-worker", json.dumps({"out": out})])
+            assert rc == 0, rc
+            with open(out + ".0") as f:
+                static["worker"] = json.load(f)
+
+    def run_fn(label, kw):
+        t1 = time.perf_counter()
+        (res,) = runner.run(launched_step, np=1,
+                            controller_port=free_port(), **kw)
+        runs[label] = dict(device=res[0], loss=res[1], launches=res[2],
+                           seconds=time.perf_counter() - t1)
+
+    def cpu_slots():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "cpu")
+            cpu["rc"], cpu["text"], cpu["wall_s"], _ = launcher(
+                ["-np", "2", "--worker-platform", "cpu",
+                 "--controller-port", str(free_port()), sys.executable,
+                 os.path.abspath(__file__), "--launched-worker",
+                 json.dumps({"out": out, "kind": "cpu"})])
+            cpu["ranks"] = [json.load(open(f"{out}.{r}")) for r in range(2)
+                            if os.path.exists(f"{out}.{r}")]
+
+    def guarded(name, fn, *a):
+        try:
+            fn(*a)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[name] = e
+
+    side = [threading.Thread(target=guarded, args=a, daemon=True)
+            for a in (("static", static_launch),
+                      ("run_spawn", run_fn, "spawn", {}),
+                      ("run_hosts", run_fn, "hosts",
+                       {"hosts": "localhost:1"}),
+                      ("cpu_slots", cpu_slots))]
+    for th in side:
+        th.start()
+
+    # (d) Phase 17 (a) through the CLI: --host-discovery-script offers
+    # localhost:1 and 127.0.0.1:1, min = max = 1; rank 0 dies after its
+    # step-4 commit and the driver respawns it on 127.0.0.1.
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "discover.sh")
+        with open(script, "w") as f:
+            f.write("#!/bin/sh\necho localhost:1\necho 127.0.0.1:1\n")
+        os.chmod(script, 0o755)
+        log_prefix = os.path.join(tmp, "log")
+        rc, text, wall_d, _ = launcher(
+            ["--min-np", "1", "--max-np", "1", "--host-discovery-script",
+             script, "--slots", "1", "-v", sys.executable,
+             os.path.abspath(__file__), "--elastic-worker",
+             json.dumps({"log_prefix": log_prefix,
+                         "ckpt_dir": os.path.join(tmp, "ckpt")})],
+            env={"HVD_TPU_CHAOS_KILL_STEPS": ELASTIC_KILL})
+        ev = []
+        for path in glob.glob(log_prefix + ".*"):
+            with open(path) as f:
+                ev += [json.loads(line) for line in f]
+        ev.sort(key=lambda e: e["t"])
+    syncs = [(e["slot"], e["round"], e["path"], e["step"]) for e in ev
+             if e["event"] == "sync"]
+    losses = elastic_losses(ev)
+    launches = elastic_launches(ev)
+    ref = elastic_report["kill"]["losses"]
+    diff_d = max(abs(x - y) for x, y in zip(losses, ref))
+    log(f"[launch] (d) hvdrun --host-discovery-script (min = max = 1, "
+        f"{ELASTIC_KILL} killed): exit {rc}, syncs (slot, round, path, "
+        f"step) {syncs}; losses {losses} against phase 17 (a)'s (max "
+        f"|diff| {diff_d:.3g}, spread {elastic_report['clean_spread']:.3g});"
+        f" kernel launches {launches}; {wall_d:.1f} s, on {card}")
+    assert rc == 0, rc
+    assert syncs == [("localhost:0", 0, "none", 0),
+                     ("127.0.0.1:0", 1, "disk", 4)], syncs
+    assert diff_d <= elastic_report["clean_spread"], (losses, ref)
+    for n in KERNELS:
+        assert launches[n] == cfg.n_layers * ELASTIC_STEPS, launches
+    report["elastic_cli"] = dict(exit=rc, syncs=syncs, losses=losses,
+                                 max_diff=diff_d, launches=launches,
+                                 seconds=wall_d)
+
+    for th in side:
+        th.join(LAUNCH_DEADLINE_S)
+    for name, e in errors.items():
+        raise AssertionError(f"phase 21 {name} failed") from e
+    w, t0 = static["worker"], static["t0"]
+    diff = max(abs(x - y) for x, y in zip(w["losses"], inproc["losses"]))
+    bit_equal = w["losses"] == inproc["losses"]
+    start = {"worker_start_s": w["started_t"] - t0,
+             "init_done_s": w["init_t"] - t0,
+             "first_step_s": w["first_step_t"] - t0}
+    log(f"[launch] (a) hvdrun -np 1: worker on {w['device']} "
+        f"(CUDA_VISIBLE_DEVICES {w['cuda_visible']}, {w['device_count']} "
+        f"card(s) seen), controller attached {w['controller']}; losses "
+        f"{w['losses']} against the in-process run's {inproc['losses']} "
+        f"(max |diff| {diff:.3g}, phase 17's run-to-run spread "
+        f"{spread:.3g}, bit-equal {bit_equal}); kernel launches "
+        f"{w['launches']}; step {w['step_s'] * 1e3:.3f} ms launched, beside"
+        f" (b)-(d) on the same card, against {inproc['step_s'] * 1e3:.3f} "
+        f"ms in process alone (medians of steps 1-{LAUNCH_STEPS - 1}); "
+        f"from the launcher's start: worker up "
+        f"{start['worker_start_s']:.3f} s, init done "
+        f"{start['init_done_s']:.3f} s, first step "
+        f"{start['first_step_s']:.3f} s; launcher wall "
+        f"{static['wall_s']:.3f} s; on {card}")
+    assert w["device"] == "cuda:0" and w["controller"], w
+    assert diff <= spread, (w["losses"], inproc["losses"])
+    for n in KERNELS:
+        assert w["launches"][n] == cfg.n_layers * LAUNCH_STEPS, w["launches"]
+    report["static"] = dict(
+        device=w["device"], cuda_visible=w["cuda_visible"],
+        losses=w["losses"], inproc_losses=inproc["losses"], max_diff=diff,
+        spread=spread, bit_equal=bit_equal, launches=w["launches"],
+        step_s=w["step_s"], step_times_s=w["step_times_s"],
+        inproc_step_s=inproc["step_s"], wall_s=static["wall_s"], **start)
+    log(f"[launch] (b) run(fn, np=1): {runs['spawn']}; run(fn, np=1, "
+        f"hosts='localhost:1'): {runs['hosts']}; (a)'s step-0 loss "
+        f"{w['losses'][0]}")
+    for r in runs.values():
+        assert r["device"] == "cuda", r
+        assert abs(r["loss"] - w["losses"][0]) <= spread, (r, w["losses"])
+        assert all(v == cfg.n_layers for v in r["launches"].values()), r
+    report["run"] = runs
+    ranks = cpu.get("ranks", [])
+    log(f"[launch] (c) --worker-platform cpu -np 2: exit {cpu.get('rc')}, "
+        f"{[(r['device'], r['backend'], r['sum'][0], r['gathered_rows'], r['broadcast']) for r in ranks]}, "
+        f"{cpu.get('wall_s', 0):.1f} s")
+    assert cpu.get("rc") == 0, cpu.get("text", "")[-4000:]
+    assert "rank(s) [0, 1] pinned to the CPU" in cpu["text"], cpu["text"]
+    for r in ranks:
+        assert (r["device"], r["backend"], r["cuda_visible"]) == \
+            ("cpu", "gloo", ""), r
+        assert r["sum"] == [3.0] * 8 and r["gathered_rows"] == 3, r
+        assert r["broadcast"] == [0.0] * 3, r
+    assert len(ranks) == 2, ranks
+    before = build_listing()
+    rc, text, _, _ = launcher(["--check-build"])
+    after = build_listing()
+    lines = text.splitlines()
+    log("[launch] (c) --check-build: " + "; ".join(
+        ln.strip() for ln in lines if ln.strip().startswith("[")))
+    assert rc == 0 and before == after, (before, after)
+    assert any(ln.strip().startswith("[X] CUDA") for ln in lines), text
+    assert any(ln.strip().startswith("[X] flash-attention kernels built")
+               for ln in lines), text
+    report["cpu_slots"] = dict(ranks=ranks, seconds=cpu["wall_s"])
+    report["check_build"] = [ln.strip() for ln in lines
+                             if ln.strip().startswith("[")]
+    report["wall_s"] = time.perf_counter() - phase_t0
+    log(f"[launch] (a)-(d) and --check-build took {report['wall_s']:.1f} s "
+        f"after the in-process run")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4712,6 +5040,10 @@ def main() -> int:
     # the fp32 wire, send/receive through the recovery mailbox
     report["disagg"] = phase_disagg(torch, hvd, tfm, fa, cfg, par, model,
                                     card)
+    # 21. the launcher: a static launch of the flagship, run(fn), CPU
+    # slots, --check-build, and phase 17 (a) through the CLI
+    report["launch"] = phase_launch(torch, hvd, tfm, fa, cfg, par,
+                                    report["elastic"], card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -4751,6 +5083,9 @@ def main() -> int:
             report["elastic"]["reset"]["launches"][name]
         by_path["debug"] = report["debug"]["endpoint"]["launches"][name]
         by_path["observe"] = report["observe"]["tree"]["launches"][name]
+        by_path["launched"] = report["launch"]["static"]["launches"][name]
+        by_path["launched_elastic_cli"] = \
+            report["launch"]["elastic_cli"]["launches"][name]
         # The serving prefills are forwards: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \
@@ -4779,4 +5114,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--elastic-worker"]:
         sys.exit(elastic_worker(**json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--launched-worker"]:
+        sys.exit(launched_worker(**json.loads(sys.argv[2])))
     sys.exit(main())

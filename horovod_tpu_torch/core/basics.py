@@ -3,9 +3,15 @@
 ``init()`` resolves the process topology from the launcher's environment
 contract (``HOROVOD_RANK``/``SIZE``/``LOCAL_RANK``/..., reference
 gloo_run.py:64-75) and brings up ``torch.distributed``: NCCL on
-``cuda:local_rank`` by default, gloo when the caller asks for
-``device="cpu"``.  The data-parallel group is the world, and when the
-launcher places the same number of processes (more than one) on each of
+``cuda:local_rank`` by default (``cuda:0`` of a slot the launcher gave
+its own cards, ``device_index``), gloo when the caller asks for
+``device="cpu"`` or the launcher pinned the slot to the CPU
+(``HVD_TPU_WORKER_PLATFORM=cpu``).  A launched world of more than one
+process rendezvouses at the launcher's ``MASTER_ADDR``/``MASTER_PORT``
+(the launcher runs a python command through runner/bootstrap.py, which
+resolves the port that a remote rank 0 publishes).
+The data-parallel group is the world, and when the launcher places the
+same number of processes (more than one) on each of
 more than one host, ``init()`` also makes the groups of the two-level
 topology (the reference's ``("local", "cross")`` mesh axes).  A launch
 whose hosts hold different numbers of processes trains over the world as
@@ -52,6 +58,21 @@ def _cuda_or_raise(what: str) -> None:
         raise RuntimeError(
             f"{what} runs on a CUDA device unless device='cpu' is passed, "
             "and no CUDA device is available")
+
+
+def launcher_pinned_cpu() -> bool:
+    """Whether the launcher pinned this slot to the CPU
+    (runner/chips.py): then ``init()`` runs gloo on the CPU."""
+    return os.environ.get("HVD_TPU_WORKER_PLATFORM") == "cpu"
+
+
+def device_index(local_rank: int) -> int:
+    """The card this worker computes on.  Under the launcher's partition
+    (``HVD_TPU_DEVICE_PARTITION``) the slot sees only its own cards
+    through ``CUDA_VISIBLE_DEVICES`` and takes the first of them;
+    otherwise it takes ``cuda:local_rank`` of the host's cards."""
+    from ..runner.chips import PARTITION_ENV
+    return 0 if os.environ.get(PARTITION_ENV) else local_rank
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -120,8 +141,10 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     """Initialize the runtime and the ``torch.distributed`` world.
 
     Args:
-      device: ``None`` or ``"cuda"`` computes on ``cuda:local_rank`` over
-        NCCL; ``"cpu"`` computes on the CPU over gloo.
+      device: ``None`` or ``"cuda"`` computes on
+        ``cuda:device_index(local_rank)`` over NCCL; ``"cpu"`` computes
+        on the CPU over gloo, as ``None`` does on a slot the launcher
+        pinned to the CPU.  Without a card and without either, it raises.
       init_method: rendezvous URL for a world of more than one process
         (``tcp://host:port``, ``file:///path``); default ``env://``, which
         reads ``MASTER_ADDR``/``MASTER_PORT``.  A world of one needs none:
@@ -136,7 +159,8 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     if global_state.initialized:
         return
     from . import failure
-    cpu = device is not None and torch.device(device).type == "cpu"
+    cpu = (torch.device(device).type == "cpu" if device is not None
+           else launcher_pinned_cpu())
     if not cpu:
         _cuda_or_raise("horovod_tpu_torch.init()")
 
@@ -172,7 +196,8 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
     if cpu:
         dev, backend = torch.device("cpu"), "gloo"
     else:
-        dev, backend = torch.device("cuda", local_rank), "nccl"
+        dev, backend = torch.device("cuda", device_index(local_rank)), \
+            "nccl"
         torch.cuda.set_device(dev)
 
     owns = False
@@ -190,6 +215,14 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
             dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                     world_size=1, **kwargs)
         else:
+            if init_method is None and \
+                    os.environ.get("MASTER_PORT") == "auto":
+                raise RuntimeError(
+                    "MASTER_PORT=auto: the launcher's bootstrap resolves "
+                    "a remote rank 0's store port before a python command "
+                    "runs (runner/bootstrap.py); a command it does not "
+                    "wrap, such as a shell script, cannot form this "
+                    "world: launch the python interpreter directly")
             dist.init_process_group(backend,
                                     init_method=init_method or "env://",
                                     rank=rank, world_size=size, **kwargs)

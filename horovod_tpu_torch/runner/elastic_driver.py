@@ -18,10 +18,15 @@ trains (``core/failure.py``): a round published after a failure or a
 shrink aborts its collectives, so a survivor blocked on a dead peer's
 NCCL collective returns and raises ``HorovodInternalError``.
 
-The ``horovodrun`` entry (``run_elastic``) comes with the CLI, ROADMAP
-item 10, and so does the NIC probe that advertises the rendezvous
-address to remote hosts: with a remote host in the set, ``run()``
-raises.
+``run_elastic`` is the ``hvdrun`` entry (runner/launch.py).  With a
+remote host in the set, the driver advertises the NIC-probed address
+(``probe.advertised_driver_host``) for its rendezvous; an all-local set
+advertises ``rendezvous.advertised_host()``.  The platform policy
+reaches every respawn: each round plans its slots with
+``chips.elastic_slot_env`` (slot ``host:i`` on the host's card *i*,
+fixed for the life of its worker), and a round whose slots would not
+all run one backend (a slot beyond its host's cards, or CPU-pinned slots
+beside slots on cards) is refused and ends the job.
 """
 
 from __future__ import annotations
@@ -29,13 +34,13 @@ from __future__ import annotations
 import json
 import os
 import subprocess
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Set
 
 from . import exec as exec_mod
 from .hosts import HostInfo, SlotInfo, get_host_assignments, parse_hosts
-from .rendezvous import RendezvousServer
 from ..debug import flight as _flight
 
 # Exit status a preempted job reports from run(): distinct from worker
@@ -106,7 +111,8 @@ class ElasticDriver:
                  output_dir: Optional[str] = None,
                  prefix_timestamp: bool = False,
                  health_hook=None,
-                 rendezvous_port: Optional[int] = None):
+                 rendezvous_port: Optional[int] = None,
+                 ssh_port: Optional[int] = None):
         self._discovery = discovery
         # Optional straggler-health hint (hvd.metrics): a callable
         # returning hostnames to keep out of new rounds — a SOFT
@@ -117,6 +123,10 @@ class ElasticDriver:
         self._health_hook = health_hook
         self._command = command
         self._platform_policy = platform_policy
+        # Card inventory by host (chips.host_cards), and the current
+        # round's platform env by slot id (_plan_round).
+        self._cards: Dict[str, tuple] = {}
+        self._platform: Dict[str, Dict[str, str]] = {}
         self._min_np = min_np
         self._max_np = max_np
         self._base_port = controller_base_port
@@ -127,16 +137,16 @@ class ElasticDriver:
         self._verbose = verbose
         self._iface = iface
         self._ssh_identity_file = ssh_identity_file
+        self._ssh_port = ssh_port
         self._output_dir = output_dir
         self._prefix_timestamp = prefix_timestamp
 
         from .rendezvous import generate_secret
         self._rdv_secret = generate_secret()
-        # A fixed port (hvdrun --rendezvous-port) binds there; the
-        # reference's pointed "fleet mode is active" error for a port a
-        # gateway owns comes with fleet/ (ROADMAP item 10).
-        self._rendezvous = RendezvousServer(port=rendezvous_port or 0,
-                                            secret=self._rdv_secret)
+        # A fixed port (hvdrun --rendezvous-port) binds there.
+        from .launch import bind_rendezvous
+        self._rendezvous = bind_rendezvous(rendezvous_port,
+                                           secret=self._rdv_secret)
         self._lock = threading.RLock()
         self._round = -1
         self._resets = 0
@@ -230,13 +240,12 @@ class ElasticDriver:
             remote = [h.hostname for h in hosts
                       if not exec_mod._is_local(h.hostname)]
             if remote:
-                raise RuntimeError(
-                    f"elastic hosts {remote} are remote: advertising the "
-                    "rendezvous address to them needs the NIC probe "
-                    "(runner/probe.py), ROADMAP item 10; the port's "
-                    "driver runs all-local host sets")
-            from .rendezvous import advertised_host
-            rdv_host = advertised_host()
+                from .probe import advertised_driver_host
+                rdv_host = advertised_driver_host(
+                    remote, ssh_port=self._ssh_port, iface=self._iface)
+            else:
+                from .rendezvous import advertised_host
+                rdv_host = advertised_host()
             self._extra_env["HVD_TPU_RENDEZVOUS_ADDR"] = f"{rdv_host}:{port}"
             self._extra_env["HVD_TPU_RENDEZVOUS_SECRET"] = self._rdv_secret
             self._extra_env["HVD_TPU_ELASTIC"] = "1"
@@ -462,8 +471,50 @@ class ElasticDriver:
             return _free_port()
         return None
 
+    def _plan_round(self, slots: List[SlotInfo]) -> Dict[str, Dict[str, str]]:
+        """Each slot's platform env (``chips.elastic_slot_env``: slot
+        ``host:i`` on the host's card *i*).  Raises when the round cannot
+        run one backend: a slot beyond its host's cards, or slots pinned
+        to the CPU beside slots on cards."""
+        from . import chips
+        envs, on_cpu, on_cards, short = {}, {}, [], []
+        for s in slots:
+            if s.hostname not in self._cards:
+                self._cards[s.hostname] = chips.host_cards(s.hostname)
+            n, devices = self._cards[s.hostname]
+            env = chips.elastic_slot_env(s.local_rank,
+                                         self._platform_policy, n, devices)
+            if env is None:
+                short.append(f"{s.hostname} ({n} card(s), slot "
+                             f"{s.local_rank})")
+            elif env.get("HVD_TPU_WORKER_PLATFORM") == "cpu":
+                on_cpu[s.hostname] = (
+                    "--worker-platform cpu" if self._platform_policy
+                    == "cpu" else "the host has no card")
+            else:
+                on_cards.append(s.hostname)
+            envs[self._slot_id(s)] = env
+        if short:
+            raise ValueError(
+                f"host(s) {', '.join(short)} offer an elastic slot beyond "
+                "their cards (each slot takes the card of its index); cap "
+                "the slots at the cards, or pass --worker-platform cpu|gpu")
+        chips.check_one_platform(on_cpu, on_cards)
+        for host, why in on_cpu.items():
+            exec_mod.report_pinned(
+                host, [s.rank for s in slots if s.hostname == host], why)
+        return envs
+
     def _start_round(self, hosts: List[HostInfo]):
         with self._lock:
+            np_ = sum(h.slots for h in hosts)
+            slots = get_host_assignments(hosts, np_)
+            try:
+                self._platform = self._plan_round(slots)
+            except ValueError as e:
+                print(f"[elastic] round refused: {e}", file=sys.stderr)
+                self._set_result(1)
+                return
             # Any published round fulfills an outstanding announce: its
             # number is the _round+1 the announce's host event promised
             # (or later), so parked workers' min_round is satisfied.
@@ -478,8 +529,6 @@ class ElasticDriver:
                         "Hosts on the hard blacklist").set(
                 len(self._blacklist))
             self._current_hosts = hosts
-            np_ = sum(h.slots for h in hosts)
-            slots = get_host_assignments(hosts, np_)
             host0 = ("127.0.0.1" if hosts[0].hostname in ("localhost",)
                      else hosts[0].hostname)
 
@@ -539,6 +588,7 @@ class ElasticDriver:
     def _spawn(self, s: SlotInfo, _retry: bool = True):
         sid = self._slot_id(s)
         env = dict(self._extra_env)
+        env.update(self._platform[sid])
         env["HVD_TPU_ELASTIC_SLOT"] = sid
         env["HVD_TPU_HOSTNAME"] = s.hostname
         env["HOROVOD_HOSTNAME"] = s.hostname
@@ -553,10 +603,12 @@ class ElasticDriver:
                 extra_env=env,
                 on_exit=lambda slot, code, sid=sid, gen=gen:
                     self._on_worker_exit(sid, gen, slot, code),
-                platform_policy=self._platform_policy,
+                platform_policy=None,
+                ssh_port=self._ssh_port,
                 ssh_identity_file=self._ssh_identity_file,
                 output_dir=self._output_dir,
-                prefix_timestamp=self._prefix_timestamp)
+                prefix_timestamp=self._prefix_timestamp,
+                torch_world=False)
 
         try:
             ws = _launch()
@@ -816,3 +868,29 @@ class ElasticDriver:
                 if self._result is not None:
                     return
                 self._start_round(hosts)
+
+
+def run_elastic(args) -> int:
+    """Entry from hvdrun (launch.py) for elastic mode."""
+    from .launch import knob_env
+    if not args.host_discovery_script:
+        raise SystemExit("--host-discovery-script is required for elastic "
+                         "mode (with --min-np/--max-np)")
+    slots = args.slots or 1
+    if getattr(args, "elastic_timeout", None) is not None:
+        os.environ["HVD_TPU_ELASTIC_TIMEOUT"] = str(args.elastic_timeout)
+    discovery = HostDiscoveryScript(args.host_discovery_script, slots)
+    min_np = args.min_np or args.num_proc or 1
+    driver = ElasticDriver(
+        discovery, args.command, min_np=min_np, max_np=args.max_np,
+        reset_limit=args.reset_limit, extra_env=knob_env(args),
+        verbose=args.verbose,
+        platform_policy=getattr(args, "worker_platform", "auto"),
+        iface=getattr(args, "network_interface", None),
+        ssh_identity_file=getattr(args, "ssh_identity_file", None),
+        output_dir=getattr(args, "output_filename", None),
+        prefix_timestamp=getattr(args, "prefix_output_with_timestamp",
+                                 False),
+        rendezvous_port=getattr(args, "rendezvous_port", None),
+        ssh_port=getattr(args, "ssh_port", None))
+    return driver.run()

@@ -7,11 +7,14 @@ Capability parity with the upstream threaded exec
 runs the user command with the slot env; the first non-zero exit
 terminates the job; output lines are prefixed "[rank]<stream>".
 
-The reference plans how each host's workers share its TPU chips before
-it launches them (``chips.plan_host_platform``, the bootstrap wrapper).
-The port launches the command as it is: a worker computes on
-``cuda:local_rank``, as ``init()`` places it.  The per-slot GPU plan is
-ROADMAP item 10.
+Before it launches them, the launcher plans how each host's workers
+share its cards (``chips.plan_host_platform``): inherit, a per-slot
+``CUDA_VISIBLE_DEVICES`` partition, or CPU-pinned workers, and says
+which slots it pinned and why; it refuses a launch that would pin some
+hosts' slots to the CPU while others compute on cards.  A static launch
+also names its torch world (``chips.torch_world_env``:
+``MASTER_ADDR``/``MASTER_PORT``), and a python command whose world
+needs resolving in the worker runs through ``runner/bootstrap.py``.
 """
 
 from __future__ import annotations
@@ -75,36 +78,48 @@ def launch_workers(slots: List[SlotInfo], command: List[str],
                    extra_env: Optional[Dict[str, str]] = None,
                    on_exit: Optional[Callable[[SlotInfo, int], None]] = None,
                    prefix_output: bool = True,
-                   platform_policy: str = "auto",
+                   platform_policy: Optional[str] = "auto",
                    ssh_port: Optional[int] = None,
                    ssh_identity_file: Optional[str] = None,
                    output_dir: Optional[str] = None,
                    prefix_timestamp: bool = False,
-                   cpu_jax_world: Optional[bool] = None
+                   cpu_jax_world: Optional[bool] = None,
+                   torch_world: bool = True,
+                   plans: Optional[Dict[str, object]] = None
                    ) -> List[WorkerProcess]:
     """Start one process per slot; returns immediately with handles.
 
-    ``platform_policy`` must be ``"auto"``: each worker takes
-    ``cuda:local_rank`` (or the CPU when its command asks for it).  The
-    reference's other policies plan TPU chip partitions; their GPU
-    counterpart is ROADMAP item 10.  ``cpu_jax_world`` is the reference's
-    CPU JAX world, which the port has no counterpart of."""
-    if platform_policy != "auto":
-        raise ValueError(
-            f"platform_policy {platform_policy!r}: the port launches "
-            "every worker on cuda:local_rank ('auto'); a per-slot GPU "
-            "plan is ROADMAP item 10 (runner/chips.py)")
+    ``platform_policy`` ("auto", "cpu" or "gpu") decides how each host's
+    workers share its cards (``plan_hosts``), unless the caller planned
+    already (``plans``, by hostname); None leaves it to the caller's
+    ``extra_env`` (the elastic driver plans each slot itself,
+    chips.elastic_slot_env).  ``torch_world``
+    exports the launch's ``MASTER_ADDR``/``MASTER_PORT``; the elastic
+    driver turns it off, since each of its rounds names its own store.
+    ``cpu_jax_world`` is the reference's CPU JAX world, which the port has
+    no counterpart of."""
+    from . import chips as chips_mod
     if cpu_jax_world:
         raise ValueError("cpu_jax_world: the port forms no JAX world")
+    if plans is None and platform_policy is not None:
+        plans = plan_hosts(slots, platform_policy)
+    world = {}
+    if torch_world and slots:
+        world = chips_mod.torch_world_env(
+            slots, (extra_env or {}).get("HVD_TPU_RENDEZVOUS_ADDR"))
     workers = []
     for slot in slots:
+        declared = {**slot_env(slot, controller_addr),
+                    **(plans[slot.hostname].slot_env(slot.local_rank,
+                                                     slot.local_size)
+                       if plans else {}),
+                    **world, **(extra_env or {})}
         env = dict(os.environ)
-        env.update(slot_env(slot, controller_addr))
-        if extra_env:
-            env.update(extra_env)
+        env.update(declared)
+        slot_command = chips_mod.wrap_python_command(command) \
+            if chips_mod.needs_bootstrap(declared) else command
         cmd, stdin_payload = build_command(
-            slot, command, {**slot_env(slot, controller_addr),
-                            **(extra_env or {})},
+            slot, slot_command, declared,
             ssh_port=ssh_port, ssh_identity_file=ssh_identity_file)
         proc = subprocess.Popen(
             cmd, env=env,
@@ -128,6 +143,35 @@ def launch_workers(slots: List[SlotInfo], command: List[str],
             threading.Thread(target=_watch_exit, args=(w, on_exit),
                              daemon=True).start()
     return workers
+
+
+def plan_hosts(slots: List[SlotInfo], policy: str) -> Dict[str, object]:
+    """Each host's ``chips.HostPlatformPlan``.  Says which slots a plan
+    pinned to the CPU, and why: a worker never falls back to the CPU
+    unannounced.  Raises when some hosts' slots would be pinned to the
+    CPU and others' compute on cards (chips.check_one_platform)."""
+    from . import chips as chips_mod
+    plans, on_cpu = {}, {}
+    for slot in slots:
+        if slot.hostname in plans:
+            continue
+        chips, devices = chips_mod.host_cards(slot.hostname)
+        plan = plans[slot.hostname] = chips_mod.plan_host_platform(
+            slot.local_size, policy, chips=chips, partitionable=chips > 0,
+            devices=devices)
+        if plan.mode == "cpu":
+            on_cpu[slot.hostname] = plan.reason
+    chips_mod.check_one_platform(
+        on_cpu, [h for h in plans if h not in on_cpu])
+    for host, why in on_cpu.items():
+        report_pinned(host, [s.rank for s in slots if s.hostname == host],
+                      why)
+    return plans
+
+
+def report_pinned(hostname: str, ranks: List[int], reason: str) -> None:
+    print(f"[hvdrun] host {hostname}: rank(s) {ranks} pinned to the "
+          f"CPU ({reason})", file=sys.stderr)
 
 
 def _forward_output(w: WorkerProcess, output_dir: Optional[str] = None,

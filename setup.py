@@ -36,6 +36,9 @@ setup(
     entry_points={
         "console_scripts": [
             "hvdrun = horovod_tpu.runner.launch:main",
+            # The PyTorch/CUDA port's launcher (per-slot
+            # CUDA_VISIBLE_DEVICES plan, torch world bootstrap).
+            "hvdrun-torch = horovod_tpu_torch.runner.launch:main",
         ],
     },
     cmdclass={"build_py": BuildWithNative},

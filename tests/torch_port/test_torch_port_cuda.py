@@ -952,3 +952,35 @@ def test_cuda_elastic_watch_fails_a_stream_past_the_deadline(cuda_device,
     finally:
         hvd.shutdown()
         kv.stop()
+
+
+@pytest.mark.cuda
+def test_cuda_partitioned_slot_takes_its_first_card(cuda_device, tmp_path):
+    """A launched slot whose plan gave it one card (local rank 1 of 2, so
+    ``cuda:local_rank`` names no card it sees) computes on ``cuda:0``,
+    with NCCL.  Its env is what a two-card host's plan gives slot 1,
+    with this machine's card standing in for that host's card 1."""
+    from horovod_tpu_torch.runner import chips
+    env = chips.plan_host_platform(2, chips=2,
+                                   partitionable=True).slot_env(1, 2)
+    assert env["CUDA_VISIBLE_DEVICES"] == "1"
+    env["CUDA_VISIBLE_DEVICES"] = "0"
+    code = textwrap.dedent("""
+        import torch, torch.distributed as dist
+        import horovod_tpu_torch as hvd
+        hvd.init()
+        assert torch.cuda.device_count() == 1
+        assert hvd.device() == torch.device("cuda", 0), hvd.device()
+        assert dist.get_backend() == "nccl"
+        x = hvd.allreduce(torch.ones(4, device="cuda"), op=hvd.Sum)
+        assert x.device == torch.device("cuda", 0) and x.sum().item() == 4
+        hvd.shutdown()
+        print("ok")
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))),
+        env=dict(os.environ, HVD_TPU_RANK="0", HVD_TPU_SIZE="1",
+                 HVD_TPU_LOCAL_RANK="1", HVD_TPU_LOCAL_SIZE="2", **env))
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

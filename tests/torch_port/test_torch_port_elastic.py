@@ -217,13 +217,29 @@ def test_elastic_driver_health_hook_soft_excludes_hosts():
         driver._rendezvous.stop()
 
 
-def test_driver_refuses_remote_hosts_naming_the_nic_probe():
+def test_driver_refuses_remote_hosts_naming_the_nic_probe(monkeypatch):
+    """The NIC probe is ported, so a remote host is no longer refused:
+    the driver asks the probe for the address it advertises to the
+    remote hosts, with the launch's ssh port and interface (the probe
+    stands in here and stops the run; test_torch_port_launch_ssh.py
+    drives the real one)."""
+    from horovod_tpu_torch.runner import probe
     from horovod_tpu_torch.runner.elastic_driver import (ElasticDriver,
                                                          FixedHosts)
+    seen = {}
+
+    def advertised_driver_host(hosts, ssh_port=None, iface=None):
+        seen.update(hosts=hosts, ssh_port=ssh_port, iface=iface)
+        raise RuntimeError("NIC probe stand-in")
+
+    monkeypatch.setattr(probe, "advertised_driver_host",
+                        advertised_driver_host)
     driver = ElasticDriver(FixedHosts([H("remote-node", 1)]), ["true"],
-                           min_np=1, max_np=1)
+                           min_np=1, max_np=1, ssh_port=2299, iface="lo")
     with pytest.raises(RuntimeError, match="NIC probe"):
         driver.run()
+    assert seen == {"hosts": ["remote-node"], "ssh_port": 2299,
+                    "iface": "lo"}
 
 
 # ---------------------------------------------------------------------------

@@ -110,7 +110,12 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.runner.hosts", "horovod_tpu_torch.runner.chips",
     "horovod_tpu_torch.runner.exec", "horovod_tpu_torch.runner.worker",
     "horovod_tpu_torch.runner.elastic_driver",
-    "horovod_tpu_torch.core.failure"])
+    "horovod_tpu_torch.core.failure", "horovod_tpu_torch.runner",
+    "horovod_tpu_torch.runner.launch", "horovod_tpu_torch.runner.bootstrap",
+    "horovod_tpu_torch.runner.probe",
+    "horovod_tpu_torch.runner.gpu_discovery",
+    "horovod_tpu_torch.runner.fnpickle",
+    "horovod_tpu_torch.runner.fn_exec"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     """Each module of the mesh, the GSPMD plane, sequence parallelism,
     the models, the serving plane, the telemetry plane, the wire fabric,

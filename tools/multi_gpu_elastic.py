@@ -276,8 +276,10 @@ def _drill(kind, device, small, hosts, slots):
                json.dumps({"device": device, "small": small, "log": log,
                            "ckpt_dir": os.path.join(tmp, "ckpt"),
                            "drill": kind})]
+        # The worker takes its fake host's cards itself (CARDS): the
+        # driver's plan leaves the card view as it is ("gpu").
         driver = ElasticDriver(FixedHosts(hosts), cmd, min_np=3, max_np=4,
-                               verbose=True)
+                               verbose=True, platform_policy="gpu")
         result = {}
         t0 = time.time()
         th = threading.Thread(
@@ -347,7 +349,7 @@ def _autoscale(device, small, hosts, slots):
                            "ckpt_dir": os.path.join(tmp, "ckpt"),
                            "drill": "autoscale"})]
         driver = ElasticDriver(FixedHosts(hosts), cmd, min_np=2, max_np=3,
-                               verbose=True)
+                               verbose=True, platform_policy="gpu")
         status = {}
         scaler = Autoscaler(driver, lambda: dict(status), min_np=2,
                             max_np=3, target_queue=4.0, slo_ttft_s=0.0,
