@@ -334,6 +334,38 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              127.0.0.1, its sync reports "disk", the 8 steps' losses
              equal phase 17 (a)'s within its spread, 64 launches of each
              kernel.  (b) and (c) run beside (d).
+22. autotune, fleet — (a) the flagship's step under the native
+             controller (world 1, NCCL) with HVD_TPU_AUTOTUNE=1 and
+             HVD_TPU_COMPRESSION=none pinned: one warm-up window, 2
+             steps a window, 6 scored windows.  The tuner applies at
+             least two distinct (fusion, cycle) proposals and freezes;
+             its log has the warm-up, the samples and one final line;
+             GET /debug/autotune serves its loop status; the losses
+             equal, bit for bit, the same steps under the controller
+             without the tuner; each closed window's host seconds are
+             at least the CUDA-event span of its responses, and every
+             response it counted has completed at its close (recorded
+             from outside the controller, ``record_windows``).  The
+             model announced, the frozen config goes to a
+             LocalTuningStore under the run's temp directory, and a
+             second run warm starts from it with no exploration.  The
+             untuned step, then with the frozen threshold or the frozen
+             cycle pinned alone, then untuned again, each over the
+             steps after the freeze, all with equal losses.  (b) The
+             fleet on one
+             card: a child process (torch.cuda never initialised there)
+             runs a FleetGateway over one local slot; job A, priority 0,
+             phase 17's worker for 12 steps committing each, is
+             submitted through the signed client with its host observer
+             pushing to the gateway; job B, priority 10, 4 steps,
+             through ``hvdrun-torch --submit``.  B stops A through a
+             commit-gated preemption (A shows PREEMPTED), runs to DONE
+             on cuda:0; A is reseated, restores its committed step from
+             the disk and ends DONE with losses bit-equal to an
+             uninterrupted in-process run; GET /fleet/observe/<A>
+             returns A's pushed digests.  Queue waits, decision to the
+             victim stopped, resume to the first resumed step, and each
+             job's kernel launches.
 
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
@@ -3515,19 +3547,22 @@ ELASTIC_DEADLINE_S = 300.0
 ELASTIC_ANSWER_S = 15.0
 
 
-def elastic_batches(tfm, cfg, batch):
+def elastic_batches(tfm, cfg, batch, n_steps=ELASTIC_STEPS):
     return [tfm.synthetic_batch(cfg, batch, seed=ELASTIC_BATCH_SEED + i)
-            for i in range(ELASTIC_STEPS)]
+            for i in range(n_steps)]
 
 
-def elastic_worker(log_prefix, ckpt_dir):
-    """One elastic worker of phase 17: the flagship's ZeRO-2 AdamW under
-    @elastic.run, its TpuState committing {"model", "opt", "step"} after
-    every step; one JSON line an event to <log_prefix>.<slot>."""
+def elastic_worker(log_prefix, ckpt_dir, steps=ELASTIC_STEPS, observe=False):
+    """One elastic worker of phase 17 (and a fleet job of phase 22): the
+    flagship's ZeRO-2 AdamW under @elastic.run, its TpuState committing
+    {"model", "opt", "step"} after every step, ``steps`` steps; one JSON
+    line an event to <log_prefix>.<slot>.  ``observe`` closes each step
+    with the metrics plane's step_end (its tree sync and host observer
+    run on their knobs)."""
     sys.path.insert(0, ROOT)
     import torch
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import elastic, recovery
+    from horovod_tpu_torch import elastic, metrics, recovery
     from horovod_tpu_torch.core.state import global_state
     from horovod_tpu_torch.metrics.registry import registry
     from horovod_tpu_torch.models import transformer as tfm
@@ -3553,7 +3588,7 @@ def elastic_worker(log_prefix, ckpt_dir):
                    "step": counter}, checkpoint_dir=ckpt_dir)
     state.register_reset_callbacks([lambda: note(event="reset_done")])
     step = tfm.make_train_step(cfg, par, model, opt)
-    batches = elastic_batches(tfm, cfg, 8)
+    batches = elastic_batches(tfm, cfg, 8, steps)
     sync_s = registry().gauge("hvd_elastic_sync_seconds",
                               "Duration of the last elastic state sync")
 
@@ -3563,9 +3598,11 @@ def elastic_worker(log_prefix, ckpt_dir):
         note(event="sync", round=global_state.elastic_round,
              path=rep.path if rep else None, step=int(counter),
              sync_s=sync_s.value, device=str(hvd.device()))
-        while int(counter) < ELASTIC_STEPS:
+        while int(counter) < steps:
             i = int(counter)
             loss = step(*batches[i]).item()
+            if observe:
+                metrics.step_end()
             counter.add_(1)
             try:
                 state.commit()
@@ -3614,7 +3651,7 @@ def drive_elastic(hosts, extra_env, log_prefix, ckpt_dir, during=None):
     return result.get("rc"), sorted(driver._blacklist), events
 
 
-def elastic_losses(events):
+def elastic_losses(events, n_steps=ELASTIC_STEPS):
     """{step: loss} of the committed steps (a step logged twice, by a
     worker and its successor, must agree)."""
     out = {}
@@ -3622,7 +3659,7 @@ def elastic_losses(events):
         if e["event"] in ("step", "interrupt"):
             assert out.get(e["step"], e["loss"]) == e["loss"], e
             out[e["step"]] = e["loss"]
-    return [out[i] for i in range(1, ELASTIC_STEPS + 1)]
+    return [out[i] for i in range(1, n_steps + 1)]
 
 
 def elastic_launches(events):
@@ -4011,6 +4048,8 @@ TOL_MFU_PARITY = 1e-9      # min and mean of the MFU: exact up to sum order
 def phase_observe(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
     """Phase 19: the fleet-level observer on the card; returns the
     report."""
+    import shutil
+    import tempfile
     import urllib.error
     import urllib.request
     import numpy as np
@@ -4028,11 +4067,14 @@ def phase_observe(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
            for _ in range(2)]
     for kv in kvs:
         kv.start()
+    # The straggler window's drift report goes to a temporary directory,
+    # not the checkout.
+    work = tempfile.mkdtemp(prefix="hvd_observe_")
     env = {"HVD_TPU_RENDEZVOUS_ADDR": f"{host}:{kvs[0].port}",
            "HVD_TPU_RENDEZVOUS_SECRET": OBSERVE_SECRET,
            "HVD_TPU_METRICS_TREE": "1",
            "HVD_TPU_METRICS_SYNC_STEPS": str(OBSERVE_SYNC),
-           "HVD_TPU_FLIGHT_HOST": host}
+           "HVD_TPU_FLIGHT_HOST": host, "HVD_TPU_FLIGHT_DIR": work}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
 
@@ -4256,6 +4298,7 @@ def phase_observe(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
         metrics.stop_serving()
         for kv in kvs:
             kv.stop()
+        shutil.rmtree(work, ignore_errors=True)
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -4814,6 +4857,475 @@ def phase_launch(torch, hvd, tfm, fa, cfg, par, elastic_report, card):
     return report
 
 
+# Phase 22 (a): the tuner under the flagship's step.  2 steps a window
+# (the step's gradient allreduces each tick it once), 1 warm-up window,
+# 6 scored; 20 steps, so the tuner freezes at step 14 and 6 steps run
+# at the frozen config.
+TUNE_STEPS = 30
+TUNE_STEPS_PER_WINDOW = 2
+TUNE_SAMPLES = 6
+TUNE_WARMUP = 1
+# (b): the fleet's two jobs (phase 17's worker), their priorities, the
+# scheduler's cadence and the commit wait before a stop is forced (a
+# step with its commit takes 1.4-1.8 s; a worker's start-up ~35 s is
+# paid before its first commit, never inside the wait).
+FLEET_A_STEPS, FLEET_B_STEPS = 12, 4
+FLEET_SECRET = "chip-smoke-fleet"
+FLEET_TICK_S = 0.25
+FLEET_GRACE_S = 60.0
+FLEET_DEADLINE_S = 240.0
+
+
+def record_windows(torch, hvd, ctl):
+    """Record the tuner's closed windows from outside the controller: a
+    CUDA-event pair on the executor's stream around each response (a start
+    before it, an end after its completion event) with the host clock of
+    its enqueue, and at each close the responses completed since the last
+    one and whether all of them had completed once the close's wait ended.
+    A paused probe first shows the executor's stream.  Returns a function
+    that gives, per closed window, its host seconds, the CUDA-event span
+    of the responses enqueued after it opened (first start to last end),
+    their count, and that completeness."""
+    pm = ctl._autotune
+    real_exec, real_note = ctl._device_exec_impl, ctl.note_done
+    real_sync = pm._window_sync
+    stream, cur, noted, closes = [], [None, None], [], []
+
+    def execute(*args):
+        start = None
+        if stream:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream[0])
+        cur[:] = [time.perf_counter(), start]
+        return real_exec(*args)
+
+    def note_done(done):
+        real_note(done)
+        if not stream:
+            stream.append(torch.cuda.current_stream())
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        noted.append((cur[0], cur[1], end))
+
+    def window_sync():
+        closing = noted[:]
+        del noted[:len(closing)]
+        real_sync()
+        closes.append((pm._window_start, closing,
+                       all(e.query() for _, _, e in closing)))
+
+    execute.validate = real_exec.validate
+    ctl._device_exec_impl, ctl.note_done = execute, note_done
+    pm._window_sync = window_sync
+    with ctl.autotune_paused():
+        hvd.allreduce(torch.zeros(1, device="cuda"), name="windows.probe")
+    assert stream, "the probe ran no response on the card"
+    del noted[:]
+
+    def windows():
+        ends = [c[0] for c in closes[1:]] + [pm._window_start]
+        out = []
+        for (opened, closing, complete), closed in zip(closes, ends):
+            ev = [(s, e) for t, s, e in closing if t >= opened]
+            span = ev[0][0].elapsed_time(ev[-1][1]) / 1e3 if ev else 0.0
+            out.append((closed - opened, span, len(ev), complete))
+        return out
+    return windows
+
+
+def tuned_run(torch, hvd, tfm, fa, cfg, par, tokens, labels, tune,
+              tmp, tag, store=None, n_steps=TUNE_STEPS, pin=None):
+    """``n_steps`` of the flagship's step under the native controller
+    (``pin``: knobs to set, such as a fixed fusion threshold or cycle),
+    the tuner on when ``tune``: losses, host seconds a step, launches,
+    and (tuned) the tuner's applied configs by step, its closed windows
+    (host seconds, CUDA-event span), /debug/autotune's body, the log's
+    lines and the journal.  ``store`` is announced the model's memory."""
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.core.state import global_state
+    from horovod_tpu_torch.debug import http as dh
+    env = {"HVD_TPU_CONTROLLER_ADDR": f"127.0.0.1:{free_port()}",
+           "HVD_TPU_COMPRESSION": "none", **(pin or {})}
+    log_file = os.path.join(tmp, f"autotune_{tag}.csv")
+    if tune:
+        # Each step's gradient allreduces tick the tuner once each.
+        n_params = len(list(tfm.Transformer(cfg, par, seed=0, device="cpu")
+                            .parameters()))
+        env.update({"HVD_TPU_AUTOTUNE": "1",
+                    "HVD_TPU_AUTOTUNE_LOG": log_file,
+                    "HVD_TPU_AUTOTUNE_WARMUP_SAMPLES": str(TUNE_WARMUP),
+                    "HVD_TPU_AUTOTUNE_STEPS_PER_SAMPLE":
+                        str(TUNE_STEPS_PER_WINDOW * n_params),
+                    "HVD_TPU_AUTOTUNE_BAYES_OPT_MAX_SAMPLES":
+                        str(TUNE_SAMPLES)})
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        hvd.init(use_controller=True)
+        ctl = global_state.controller
+        pm = ctl._autotune
+        assert (pm is not None) == tune, pm
+        model = tfm.Transformer(cfg, par, seed=0)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=3e-4, weight_decay=1e-4))
+        step = tfm.make_train_step(cfg, par, model, opt)
+        if tune:
+            windows = record_windows(torch, hvd, ctl)
+            if store is not None:
+                from horovod_tpu_torch.fleet.tuning import LocalTuningStore
+                out["key"] = autotune.announce_model(
+                    {"params": model}, store=LocalTuningStore(store))
+                out["warm_started"] = pm.loop_status()["warm_started"]
+        fa.reset_launches()
+        losses, times, configs = [], [], []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(tokens, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            if tune:
+                configs.append((pm.current[0], round(pm.current[1], 4),
+                                pm.frozen))
+        out.update(losses=losses, step_times_s=times,
+                   launches=dict(fa.launches))
+        if tune:
+            srv = dh.DebugServer(host="127.0.0.1", port=0)
+            srv.start()
+            try:
+                import urllib.request
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{srv.port}/debug/autotune",
+                        timeout=10) as r:
+                    out["debug_autotune"] = json.loads(r.read())
+            finally:
+                srv.stop()
+            out["windows"] = windows()
+            out.update(configs=configs, journal=pm.journal(),
+                       status=autotune.loop_status(),
+                       final=pm.config_dict())
+    finally:
+        hvd.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if tune:
+        with open(log_file) as f:
+            out["log"] = [ln.split(",") for ln in f.read().splitlines()]
+        assert autotune.active_manager() is None
+    return out
+
+
+def phase_autotune(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
+    """Phase 22 (a): the tuner on cuda:0; returns the report."""
+    import tempfile
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "memory")
+        plain = tuned_run(torch, hvd, tfm, fa, cfg, par, tokens, labels,
+                          False, tmp, "plain")
+        tuned = tuned_run(torch, hvd, tfm, fa, cfg, par, tokens, labels,
+                          True, tmp, "tuned", store=store)
+        warm = tuned_run(torch, hvd, tfm, fa, cfg, par, tokens, labels,
+                         True, tmp, "warm", store=store,
+                         n_steps=TUNE_STEPS_PER_WINDOW * 3)
+        # The untuned controller with one of the frozen numerics pinned:
+        # which of them moves the step.
+        final = tuned["final"]
+        pinned = {name: tuned_run(torch, hvd, tfm, fa, cfg, par, tokens,
+                                  labels, False, tmp, name, pin={knob: val})
+                  for name, knob, val in (
+                      ("fusion", "HVD_TPU_FUSION_THRESHOLD",
+                       str(final["fusion_bytes"])),
+                      ("cycle", "HVD_TPU_CYCLE_TIME",
+                       str(final["cycle_ms"])))}
+        # The untuned run again, last: the drift over the phase's runs.
+        again = tuned_run(torch, hvd, tfm, fa, cfg, par, tokens, labels,
+                          False, tmp, "again")
+        from horovod_tpu_torch.fleet.tuning import LocalTuningStore
+        stored = LocalTuningStore(store).get(tuned["key"])
+    proposals = {(c[0], c[1]) for c in tuned["configs"]}
+    frozen_at = next(i for i, c in enumerate(tuned["configs"]) if c[2])
+    tags = [ln[0] for ln in tuned["log"]]
+    # Every run's step time over the same steps: those after the freeze.
+    after = tuned["step_times_s"][frozen_at + 1:]
+    med = statistics.median
+    tuned_step_s = med(after)
+    plain_step_s = med(plain["step_times_s"][frozen_at + 1:])
+    pinned_step_s = {name: med(r["step_times_s"][frozen_at + 1:])
+                     for name, r in pinned.items()}
+    again_step_s = med(again["step_times_s"][frozen_at + 1:])
+    # A window counts the responses that completed before its tick; its
+    # span runs from the first of them enqueued after it opened to its
+    # last, and every one of them has completed when it closes.
+    short = [w for w in tuned["windows"] if not (w[0] >= w[1] > 0 and w[3])]
+    log(f"[autotune] (a) {len(proposals)} distinct (fusion, cycle) "
+        f"proposals applied, frozen after step {frozen_at + 1} at "
+        f"{tuned['final']}; log tags {tags}; losses bit-equal to the "
+        f"untuned run {tuned['losses'] == plain['losses']}; windows (host "
+        f"s, CUDA-event span s of the responses enqueued in the window, "
+        f"those responses, all counted responses complete at the close): "
+        + ", ".join(f"({a:.4f}, {b:.4f}, {n}, {d})"
+                    for a, b, n, d in tuned["windows"])
+        + f"; step {tuned_step_s * 1e3:.3f} ms at the frozen config "
+        f"against {plain_step_s * 1e3:.3f} ms untuned, "
+        + ", ".join(f"{v * 1e3:.3f} ms untuned with only the {k} pinned"
+                    for k, v in pinned_step_s.items())
+        + f", {again_step_s * 1e3:.3f} ms untuned again, run last"
+        + f" (medians of steps {frozen_at + 2}-{TUNE_STEPS}, those after "
+        f"the freeze, in each run); kernel launches {tuned['launches']}; "
+        f"on {card}")
+    assert len(proposals) >= 2, proposals
+    assert tuned["status"]["frozen"] and frozen_at < TUNE_STEPS - 1
+    assert tags.count("warmup") == TUNE_WARMUP, tags
+    assert tags.count("sample") == TUNE_SAMPLES and tags[-1] == "final", tags
+    assert tags.count("final") == 1, tags
+    assert tuned["debug_autotune"]["frozen"] is True, tuned["debug_autotune"]
+    assert tuned["debug_autotune"]["current"] == tuned["final"]
+    assert tuned["losses"] == plain["losses"], (tuned["losses"],
+                                                plain["losses"])
+    assert len(tuned["windows"]) == TUNE_WARMUP + TUNE_SAMPLES, \
+        tuned["windows"]
+    assert not short, short
+    for r in (plain, tuned, *pinned.values(), again):
+        assert r["losses"] == plain["losses"], r["losses"]
+        for n in KERNELS:
+            assert r["launches"][n] == cfg.n_layers * TUNE_STEPS, r
+    # The warm start: the stored config applied before any window, its
+    # first windows scored on it (no bootstrap sweep).
+    journal = warm["journal"]
+    log(f"[autotune] (a) warm start from the LocalTuningStore record "
+        f"{stored['config']} (score {stored['score']:.1f}): warm_started "
+        f"{warm['warm_started']}, first windows "
+        f"{[(e['tag'], e['reason'], e['config']) for e in journal[:2]]}")
+    assert warm["warm_started"] and warm["key"] == tuned["key"]
+    assert stored["config"] == tuned["final"], (stored, tuned["final"])
+    assert [e["config"] for e in journal[:2]] == [stored["config"]] * 2, \
+        journal
+    assert [e["reason"] for e in journal[:2]] == ["warm_start"] * 2, journal
+    assert warm["losses"] == plain["losses"][:len(warm["losses"])]
+    report.update(
+        proposals=sorted(proposals), frozen_after_step=frozen_at + 1,
+        final=tuned["final"], log_tags=tags, losses=tuned["losses"],
+        bit_equal=True, windows=tuned["windows"],
+        debug_autotune=tuned["debug_autotune"],
+        tuned_step_s=tuned_step_s, plain_step_s=plain_step_s,
+        pinned_step_s=pinned_step_s, again_step_s=again_step_s,
+        pinned_step_times_s={k: r["step_times_s"]
+                             for k, r in pinned.items()},
+        again_step_times_s=again["step_times_s"],
+        plain_step_times_s=plain["step_times_s"],
+        tuned_step_times_s=tuned["step_times_s"],
+        launches=tuned["launches"], stored=stored,
+        warm_start=dict(first_windows=journal[:2],
+                        launches=warm["launches"]))
+    return report
+
+
+def fleet_phase(out, a_cmd, b_cmd, a_log_prefix):
+    """Phase 22 (b), in a process of its own whose torch.cuda is never
+    initialised: a FleetGateway over one local slot, job A through the
+    signed client, job B through ``hvdrun-torch --submit`` once A logged
+    2 steps to ``<a_log_prefix>.<slot>``; the gateway's records, flight
+    events and A's observations to ``out``."""
+    import glob
+    import urllib.request
+    sys.path.insert(0, ROOT)
+    import torch
+    from horovod_tpu_torch import fleet
+    from horovod_tpu_torch.debug import flight
+    from horovod_tpu_torch.runner.hosts import HostInfo
+    t0 = time.time()
+    state_dir = os.path.dirname(out)
+    gw = fleet.FleetGateway(
+        [HostInfo("localhost", 1)], port=0, host="127.0.0.1",
+        fleet_dir=os.path.join(state_dir, "fleet_state"),
+        secret=FLEET_SECRET, tick_s=FLEET_TICK_S,
+        preempt_grace_s=FLEET_GRACE_S)
+    gw.serve()
+    addr = f"127.0.0.1:{gw.port}"
+    rep = {"gateway_up_s": time.time() - t0}
+    try:
+        a_env = {"HVD_TPU_METRICS_TREE": "1",
+                 "HVD_TPU_METRICS_SYNC_STEPS": "1",
+                 "HVD_TPU_FLEET_ADDR": addr,
+                 "HVD_TPU_FLEET_SECRET": FLEET_SECRET,
+                 "HVD_TPU_FLEET_OBSERVE_PUSH_S": "1"}
+        a = fleet.submit_job(fleet.JobSpec(
+            command=a_cmd, min_np=1, max_np=1, priority=0, tenant="train",
+            name="A", env=a_env), addr=addr, secret=FLEET_SECRET)
+        deadline = time.time() + FLEET_DEADLINE_S
+
+        def a_steps():
+            n = 0
+            for path in glob.glob(a_log_prefix + ".*"):
+                with open(path) as f:
+                    n += sum('"event": "step"' in ln for ln in f)
+            return n
+
+        while a_steps() < 2:
+            assert time.time() < deadline, "job A never committed 2 steps"
+            time.sleep(0.2)
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+             "--submit", "--gateway", addr, "--priority", "10",
+             "--tenant", "serve", "-np", "1", *b_cmd],
+            cwd=ROOT, capture_output=True, text=True, timeout=120,
+            env=dict(os.environ, HVD_TPU_FLEET_SECRET=FLEET_SECRET))
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        b_id = re.search(r"job (\w+): queued", proc.stdout).group(1)
+        states = {}
+        while True:
+            recs = {r.id: r for r in fleet.list_jobs(
+                addr=addr, secret=FLEET_SECRET)}
+            for jid, r in recs.items():
+                seen = states.setdefault(jid, [])
+                if not seen or seen[-1][0] != r.state:
+                    seen.append((r.state, time.time()))
+            if all(r.state in fleet.TERMINAL_STATES
+                   for r in recs.values()) and len(recs) == 2:
+                break
+            assert time.time() < deadline, states
+            time.sleep(0.2)
+        rep["records"] = {k: r.to_dict() for k, r in recs.items()}
+        rep["a_id"], rep["b_id"] = a.id, b_id
+        rep["states"] = states
+        obs = fleet.get_observation(a.id, addr=addr, secret=FLEET_SECRET)
+        rep["observation"] = obs
+        with urllib.request.urlopen(f"http://{addr}/fleet/metrics",
+                                    timeout=10) as r:
+            rep["fleet_metrics"] = r.read().decode()
+        rep["events"] = [e for e in flight.snapshot()
+                         if str(e["kind"]).startswith("fleet.")]
+    finally:
+        gw.close(cancel_jobs=True)
+    rep["cuda_initialized"] = torch.cuda.is_initialized()
+    with open(out, "w") as f:
+        json.dump(rep, f)
+
+
+def phase_fleet(torch, hvd, tfm, fa, cfg, par, card):
+    """Phase 22 (b): the fleet on one card; returns the report."""
+    import glob
+    import tempfile
+    # The uninterrupted run of job A's steps, in this process.
+    hvd.init()
+    try:
+        model = tfm.Transformer(cfg, par, seed=0)
+        opt = hvd.ZeroShardedOptimizer(model, lambda ps: torch.optim.AdamW(
+            ps, lr=3e-4, weight_decay=1e-4), stage=2)
+        step = tfm.make_train_step(cfg, par, model, opt)
+        clean = [step(*b).item()
+                 for b in elastic_batches(tfm, cfg, 8, FLEET_A_STEPS)]
+        del model, opt, step
+    finally:
+        hvd.shutdown()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        def cmd(tag, steps, observe):
+            return [sys.executable, os.path.abspath(__file__),
+                    "--elastic-worker", json.dumps({
+                        "log_prefix": os.path.join(tmp, f"log_{tag}"),
+                        "ckpt_dir": os.path.join(tmp, f"ckpt_{tag}"),
+                        "steps": steps, "observe": observe})]
+
+        out = os.path.join(tmp, "fleet.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--fleet-phase",
+             json.dumps({"out": out, "a_cmd": cmd("a", FLEET_A_STEPS, True),
+                         "b_cmd": cmd("b", FLEET_B_STEPS, False),
+                         "a_log_prefix": os.path.join(tmp, "log_a")})],
+            cwd=ROOT, capture_output=True, text=True,
+            timeout=FLEET_DEADLINE_S + 60)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log((proc.stdout + proc.stderr)[-8000:])
+        assert proc.returncode == 0, proc.returncode
+        with open(out) as f:
+            rep = json.load(f)
+        ev = {}
+        for tag in ("a", "b"):
+            ev[tag] = []
+            for path in glob.glob(os.path.join(tmp, f"log_{tag}.*")):
+                with open(path) as f:
+                    ev[tag] += [json.loads(line) for line in f]
+            ev[tag].sort(key=lambda e: e["t"])
+        left = sorted(os.listdir(tmp))
+    a, b = rep["records"][rep["a_id"]], rep["records"][rep["b_id"]]
+    losses = elastic_losses(ev["a"], FLEET_A_STEPS)
+    b_losses = elastic_losses(ev["b"], FLEET_B_STEPS)
+    launches = {t: elastic_launches(ev[t]) for t in ("a", "b")}
+    a_syncs = [e for e in ev["a"] if e["event"] == "sync"]
+    a_pids = sorted({e["pid"] for e in a_syncs}, key=lambda p: [
+        e["t"] for e in a_syncs if e["pid"] == p][0])
+    fe = rep["events"]
+
+    def first(kind, name, **kw):
+        return next(e for e in fe if e["kind"] == kind and e["name"] == name
+                    and all(e.get(k) == v for k, v in kw.items()))
+
+    decision = first("fleet.preempt", rep["a_id"], phase="commit_wait")
+    stopped = first("fleet.job_end", rep["a_id"], state="preempted")
+    resumed = first("fleet.resume", rep["a_id"])
+    a_after = [e for e in ev["a"] if e["event"] in ("step", "interrupt")
+               and e["pid"] == a_pids[-1]]
+    b_steps = [e for e in ev["b"] if e["event"] == "step"]
+    timing = {
+        "queue_wait_a_s": a["queue_wait_s"],
+        "queue_wait_b_s": b["queue_wait_s"],
+        "decision_to_victim_stopped_s": stopped["t_wall"]
+        - decision["t_wall"],
+        "victim_stopped_to_b_first_step_s": b_steps[0]["t"]
+        - stopped["t_wall"],
+        "resume_to_first_resumed_step_s": a_after[0]["t"]
+        - resumed["t_wall"],
+        "phase_wall_s": wall}
+    series = (rep["observation"] or {}).get("series") or []
+    a_states = [s for s, _ in rep["states"][rep["a_id"]]]
+    log(f"[fleet] (b) gateway in a child process (CUDA initialised there "
+        f"{rep['cuda_initialized']}); A states {a_states}, B states "
+        f"{[s for s, _ in rep['states'][rep['b_id']]]}; A preemptions "
+        f"{a['preemptions']} at commit generation "
+        f"{a['preempt_generation']}, resumes {a['resumes']}, its processes "
+        f"synced at steps {[(e['step'], e['path']) for e in a_syncs]}; A "
+        f"losses {losses} against the uninterrupted {clean} (bit-equal "
+        f"{losses == clean}); B losses {b_losses}; launches A "
+        f"{launches['a']}, B {launches['b']}; /fleet/observe/A "
+        f"{len(series)} samples (rounds "
+        f"{[x['round'] for x in series]}); timing "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timing.items())
+        + f"; on {card}")
+    assert rep["cuda_initialized"] is False
+    assert (a["state"], b["state"]) == ("done", "done"), (a, b)
+    assert "preempted" in a_states, a_states
+    assert a["preemptions"] == 1 and a["resumes"] == 1, a
+    assert len(a_pids) == 2, a_syncs
+    assert a_syncs[-1]["path"] == "disk" and \
+        a_syncs[-1]["step"] >= a["preempt_generation"] >= 2, a_syncs
+    assert all(e["device"] == "cuda:0" for e in a_syncs
+               + [e for e in ev["b"] if e["event"] == "sync"])
+    assert b_steps[0]["t"] > stopped["t_wall"] and \
+        b_steps[-1]["t"] < a_after[0]["t"]
+    assert losses == clean, (losses, clean)
+    for n in KERNELS:
+        assert launches["b"][n] == cfg.n_layers * FLEET_B_STEPS, launches
+        assert launches["a"][n] >= cfg.n_layers * FLEET_A_STEPS, launches
+    assert series and all(x["ranks"] == 1 for x in series), series
+    assert f'hvd_fleet_job_ranks{{job="{rep["a_id"]}"}}' in \
+        rep["fleet_metrics"]
+    assert "fleet_state" in left
+    return dict(records=rep["records"], states=rep["states"],
+                losses=losses, clean_losses=clean, b_losses=b_losses,
+                launches=launches, observe_samples=len(series),
+                timing=timing, syncs=[(e["step"], e["path"])
+                                      for e in a_syncs])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4829,6 +5341,8 @@ def main() -> int:
     from horovod_tpu_torch.ops import quantization as Q
 
     report = {}
+    # Nothing the phases write may land in the checkout's root.
+    in_root = set(os.listdir(ROOT))
     # 1. card
     card = card_line()
     log(f"[card] {card}  ({torch.cuda.get_device_name(0)}, torch "
@@ -5044,6 +5558,10 @@ def main() -> int:
     # slots, --check-build, and phase 17 (a) through the CLI
     report["launch"] = phase_launch(torch, hvd, tfm, fa, cfg, par,
                                     report["elastic"], card)
+    # 22. the tuner under the flagship's step, and the fleet on one card
+    report["autotune"] = phase_autotune(torch, hvd, tfm, fa, cfg, par,
+                                        tokens, labels, card)
+    report["fleet"] = phase_fleet(torch, hvd, tfm, fa, cfg, par, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -5086,6 +5604,9 @@ def main() -> int:
         by_path["launched"] = report["launch"]["static"]["launches"][name]
         by_path["launched_elastic_cli"] = \
             report["launch"]["elastic_cli"]["launches"][name]
+        by_path["autotune"] = report["autotune"]["launches"][name]
+        by_path.update({f"fleet_job_{t}": n[name] for t, n in
+                        report["fleet"]["launches"].items()})
         # The serving prefills are forwards: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \
@@ -5099,6 +5620,8 @@ def main() -> int:
                             max_abs_err=main_errs[name][0],
                             rel_err=main_errs[name][1], **flag[name],
                             **extra))
+    left = set(os.listdir(ROOT)) - in_root - {"chiprun_out", "__pycache__"}
+    assert not left, f"left in the checkout's root: {sorted(left)}"
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     report.update(card=card, device=device, kernels=kernels)
@@ -5116,4 +5639,6 @@ if __name__ == "__main__":
         sys.exit(elastic_worker(**json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--launched-worker"]:
         sys.exit(launched_worker(**json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--fleet-phase"]:
+        sys.exit(fleet_phase(**json.loads(sys.argv[2])))
     sys.exit(main())

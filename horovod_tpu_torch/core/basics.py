@@ -293,16 +293,12 @@ def _start_observer() -> None:
     snapshots and runs the O(hosts) digest exchange (reference
     core/basics.py:284-296).  A failure to start degrades to a warning,
     as every telemetry server's does: the sync then reports itself as a
-    local-only digest, named.  A gateway push the port cannot make (item
-    10b) is no such failure: it refuses the init, world torn down."""
+    local-only digest, named."""
     if not (global_state.metrics_tree and global_state.local_rank == 0):
         return
     from ..metrics.observer import start_host_observer
     try:
         start_host_observer()
-    except NotImplementedError:
-        shutdown()
-        raise
     except Exception as e:  # noqa: BLE001 — telemetry never kills
         from ..utils import logging as log
         log.warning("metrics tree: cannot start host observer (%r); "

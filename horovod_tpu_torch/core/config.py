@@ -14,7 +14,7 @@ and the stall warning ``STALL_CHECK_TIME_SECONDS``), the default mesh's
 (``ControllerConfig``) and the serving plane's (``SERVING_*``, ``SPEC_K``,
 ``TRACE_*``, ``SLO_*``), and the telemetry plane's (``LOG_*``,
 ``METRICS_*``, ``ATTRIBUTION*``, ``PEAK_TFLOPS``, ``PERF_DRIFT*``,
-``FLIGHT_*``, and the host observer's ``FLEET_*``), the recovery
+``FLIGHT_*``), the fleet service's (``FLEET_*``), the recovery
 tier's and the wire fabric's (``RECOVERY``, ``RECOVERY_STRIDE``,
 ``CHAOS_*``, ``NET_*``, ``CHAOS_NET_*``), and elastic training's (``ELASTIC``,
 ``ASYNC_COMMIT``), with the reference's defaults and clamps
@@ -86,7 +86,12 @@ HIERARCHICAL_ALLGATHER = "HIERARCHICAL_ALLGATHER"
 # response cache's capacity (1024), the timeline file and its cycle marks,
 # the stall inspector (the warning window is STALL_CHECK_TIME_SECONDS
 # above), the init-time schedule probe of ops/dispatch.py, and the
-# autotuner's switch, which the port refuses until it has the tuner.
+# autotuner's (autotune.py): its switch, CSV log, discarded warm-up
+# windows, step-counted windows (0 = timed), sample budget and GP noise,
+# then the closed loop's tuning memory (on/off and the gateway-less
+# store's directory) and drift-triggered re-tune (on/off, windows an
+# episode, the rollback gate in percent), as reference config.py:21-36
+# names them.
 CONTROLLER_ADDR = "CONTROLLER_ADDR"
 CONTROLLER_RANK = "CONTROLLER_RANK"
 CONTROLLER_SIZE = "CONTROLLER_SIZE"
@@ -101,6 +106,16 @@ SCHEDULE_PROBE = "SCHEDULE_PROBE"
 SCHEDULE_PROBE_SEED = "SCHEDULE_PROBE_SEED"
 SCHEDULE_PROBE_REPS = "SCHEDULE_PROBE_REPS"
 AUTOTUNE = "AUTOTUNE"
+AUTOTUNE_LOG = "AUTOTUNE_LOG"
+AUTOTUNE_WARMUP_SAMPLES = "AUTOTUNE_WARMUP_SAMPLES"
+AUTOTUNE_STEPS_PER_SAMPLE = "AUTOTUNE_STEPS_PER_SAMPLE"
+AUTOTUNE_BAYES_OPT_MAX_SAMPLES = "AUTOTUNE_BAYES_OPT_MAX_SAMPLES"
+AUTOTUNE_GAUSSIAN_PROCESS_NOISE = "AUTOTUNE_GAUSSIAN_PROCESS_NOISE"
+AUTOTUNE_MEMORY = "AUTOTUNE_MEMORY"
+AUTOTUNE_MEMORY_DIR = "AUTOTUNE_MEMORY_DIR"
+AUTOTUNE_RETUNE = "AUTOTUNE_RETUNE"
+AUTOTUNE_RETUNE_WINDOWS = "AUTOTUNE_RETUNE_WINDOWS"
+AUTOTUNE_ROLLBACK_PCT = "AUTOTUNE_ROLLBACK_PCT"
 
 # The serving plane (serving/), with the reference's names, defaults and
 # clamps (config.py:152-178, :397-424, :578-610): the request plane's
@@ -108,9 +123,10 @@ AUTOTUNE = "AUTOTUNE"
 # (max_len 0 = the model's seq_len), the default output cap, the bounded
 # admission queue, the checkpoint watch cadence, the radix prefix cache,
 # chunked prefill (0 = the whole prompt), page-reservation aging, the
-# replica-wide TTFT target, the autoscaler's queued requests a replica
-# and cooldown between resizes (its on/off switch is the fleet's
-# ``kind: service``, item 10b), the KV-migration wire (0 = fp32,
+# replica-wide TTFT target, the autoscaler's switch, queued requests a
+# replica and cooldown between resizes (the switch is parsed as the
+# reference parses it, config.py:405, :591, and read nowhere, as there),
+# the KV-migration wire (0 = fp32,
 # 8 or 4; anything else reads as 8), speculative draft tokens a round (0 =
 # off), and request tracing's sample rate and trace-id seed; the SLO tracker's
 # attainment target, window and burn threshold.
@@ -178,13 +194,24 @@ FLIGHT_DIR = "FLIGHT_DIR"
 FLIGHT_PORT = "FLIGHT_PORT"
 FLIGHT_LAST_EVENTS = "FLIGHT_LAST_EVENTS"
 FLIGHT_ESCALATE = "FLIGHT_ESCALATE"
-# The fleet gateway a host observer pushes its digests to, the job they
-# are filed under and the push cadence (0 = off), with the reference's
-# names (config.py:140, :152-153): the push needs ``fleet/``, ROADMAP
-# queue 1 item 10b, and ``metrics/observer.py`` refuses it until then.
+# The fleet service (fleet/), with the reference's names (config.py:
+# 139-153): the gateway's port, the address clients and host observers
+# reach it at, its HMAC secret, its durable queue's directory, the
+# scheduler's cadence, a tenant's slot quota (0 = unlimited), priority
+# preemption and the commit wait before a preemption is forced; the job
+# a worker belongs to, the host observer's push cadence (0 = off) and
+# the samples the gateway keeps a job.
+FLEET_PORT = "FLEET_PORT"
 FLEET_ADDR = "FLEET_ADDR"
+FLEET_SECRET = "FLEET_SECRET"
+FLEET_DIR = "FLEET_DIR"
+FLEET_TICK_S = "FLEET_TICK_S"
+FLEET_QUOTA_SLOTS = "FLEET_QUOTA_SLOTS"
+FLEET_PREEMPTION = "FLEET_PREEMPTION"
+FLEET_PREEMPT_GRACE_S = "FLEET_PREEMPT_GRACE_S"
 FLEET_JOB_ID = "FLEET_JOB_ID"
 FLEET_OBSERVE_PUSH_S = "FLEET_OBSERVE_PUSH_S"
+FLEET_OBSERVE_RETAIN = "FLEET_OBSERVE_RETAIN"
 
 # Peer-to-peer hot recovery (recovery/) and its seeded fault injection
 # (recovery/chaos.py), with the reference's names and defaults
@@ -405,7 +432,14 @@ class ControllerConfig:
     hierarchical_allreduce_pin: Optional[bool] = None
     hierarchical_allgather_pin: Optional[bool] = None
     compression: str = "none"
+    overlap: bool = False
+    overlap_bucket_bytes: int = DEFAULT_OVERLAP_BUCKET_BYTES
     autotune: bool = False
+    autotune_log: str = ""
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 0
+    autotune_bayes_opt_max_samples: int = 20
+    autotune_gaussian_process_noise: float = 0.8
 
     @classmethod
     def from_env(cls) -> "ControllerConfig":
@@ -415,9 +449,14 @@ class ControllerConfig:
             val = get_int(name)
             return default if val is None else val
 
+        tune = get_bool(AUTOTUNE)
+        # A tuned job starts from a 128 MiB threshold unless one is set
+        # (reference config.py:640-641).
+        fusion = integer(FUSION_THRESHOLD, d.fusion_threshold_bytes)
+        if tune and get_env(FUSION_THRESHOLD) is None:
+            fusion = 128 * 1024 * 1024
         return cls(
-            fusion_threshold_bytes=integer(FUSION_THRESHOLD,
-                                           d.fusion_threshold_bytes),
+            fusion_threshold_bytes=fusion,
             cycle_time_ms=get_float(CYCLE_TIME, d.cycle_time_ms),
             cache_capacity=integer(CACHE_CAPACITY, d.cache_capacity),
             timeline_filename=get_env(TIMELINE, "") or "",
@@ -436,7 +475,56 @@ class ControllerConfig:
             hierarchical_allreduce_pin=hierarchical_pin("allreduce"),
             hierarchical_allgather_pin=hierarchical_pin("allgather"),
             compression=compression(),
-            autotune=get_bool(AUTOTUNE))
+            overlap=overlap(),
+            overlap_bucket_bytes=overlap_bucket_bytes(),
+            autotune=tune,
+            autotune_log=get_env(AUTOTUNE_LOG, "") or "",
+            autotune_warmup_samples=integer(AUTOTUNE_WARMUP_SAMPLES,
+                                            d.autotune_warmup_samples),
+            autotune_steps_per_sample=integer(AUTOTUNE_STEPS_PER_SAMPLE,
+                                              d.autotune_steps_per_sample),
+            autotune_bayes_opt_max_samples=integer(
+                AUTOTUNE_BAYES_OPT_MAX_SAMPLES,
+                d.autotune_bayes_opt_max_samples),
+            autotune_gaussian_process_noise=get_float(
+                AUTOTUNE_GAUSSIAN_PROCESS_NOISE,
+                d.autotune_gaussian_process_noise))
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopDefaults:
+    """The tuner's closed-loop defaults (reference ``Config``,
+    config.py:270-274), read where the loop reads them (autotune.py,
+    fleet/tuning.py), unclamped as there."""
+    autotune_memory: bool = True
+    autotune_memory_dir: str = "./autotune_memory"
+    autotune_retune: bool = True
+    autotune_retune_windows: int = 6
+    autotune_rollback_pct: float = 5.0
+
+
+LOOP = LoopDefaults()
+
+
+def autotune_memory() -> bool:
+    return get_bool(AUTOTUNE_MEMORY, LOOP.autotune_memory)
+
+
+def autotune_memory_dir() -> str:
+    return get_env(AUTOTUNE_MEMORY_DIR, LOOP.autotune_memory_dir) \
+        or LOOP.autotune_memory_dir
+
+
+def autotune_retune() -> bool:
+    return get_bool(AUTOTUNE_RETUNE, LOOP.autotune_retune)
+
+
+def autotune_retune_windows() -> int:
+    return get_int_or(AUTOTUNE_RETUNE_WINDOWS, LOOP.autotune_retune_windows)
+
+
+def autotune_rollback_pct() -> float:
+    return get_float(AUTOTUNE_ROLLBACK_PCT, LOOP.autotune_rollback_pct)
 
 
 def get_int_or(name: str, default: int) -> int:
@@ -572,6 +660,56 @@ def metrics_tree_grace_s() -> float:
     seals a round partial (at least 0.1 s)."""
     return max(get_float(METRICS_TREE_GRACE_S,
                          TELEMETRY.metrics_tree_grace_s), 0.1)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetDefaults:
+    """The fleet service's defaults (reference ``Config``,
+    config.py:385-392)."""
+    fleet_port: int = 28642
+    fleet_dir: str = "./fleet_state"
+    fleet_tick_s: float = 0.5
+    fleet_quota_slots: int = 0
+    fleet_preemption: bool = True
+    fleet_preempt_grace_s: float = 30.0
+    fleet_observe_retain: int = 512
+
+
+FLEET = FleetDefaults()
+
+
+def fleet_port() -> int:
+    return get_int_or(FLEET_PORT, FLEET.fleet_port)
+
+
+def fleet_dir() -> str:
+    return get_env(FLEET_DIR, FLEET.fleet_dir) or FLEET.fleet_dir
+
+
+def fleet_secret() -> Optional[str]:
+    return get_env(FLEET_SECRET)
+
+
+def fleet_tick_s() -> float:
+    """The scheduler's cadence as the gateway reads it (unclamped, as the
+    reference's scheduler reads it)."""
+    return get_float(FLEET_TICK_S, FLEET.fleet_tick_s)
+
+
+def fleet_quota_slots() -> int:
+    return get_int_or(FLEET_QUOTA_SLOTS, FLEET.fleet_quota_slots)
+
+
+def fleet_preemption() -> bool:
+    return get_bool(FLEET_PREEMPTION, FLEET.fleet_preemption)
+
+
+def fleet_preempt_grace_s() -> float:
+    return get_float(FLEET_PREEMPT_GRACE_S, FLEET.fleet_preempt_grace_s)
+
+
+def fleet_observe_retain() -> int:
+    return get_int_or(FLEET_OBSERVE_RETAIN, FLEET.fleet_observe_retain)
 
 
 def fleet_addr() -> Optional[str]:

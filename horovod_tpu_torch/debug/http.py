@@ -12,9 +12,8 @@ surfaces):
   (the output a wedged rank would print on SIGUSR1, fetchable remotely
   while the main thread is stuck inside a collective: the handler runs
   on the server's daemon thread).
-* ``GET /debug/autotune`` — the tuner's closed-loop status; 404 here, as
-  in a reference process that owns no tuner (the port has none yet,
-  ROADMAP queue 1 item 10).
+* ``GET /debug/autotune`` — the tuner's closed-loop status
+  (``autotune.loop_status()``); 404 in a process that owns no tuner.
 * ``GET /debug/fleet_scalars`` — the aggregator's per-rank scalars.
 * ``GET /healthz`` — liveness.
 
@@ -54,10 +53,15 @@ def render_regression_json() -> Optional[bytes]:
 
 
 def render_autotune_json() -> Optional[bytes]:
-    """The tuner's closed-loop status, serialized for the wire; None when
-    this process owns no tuner, which in the port is always (the tuner
-    is ROADMAP queue 1 item 10)."""
-    return None
+    """The active tuner's closed-loop status (``autotune.loop_status``:
+    frozen, retuning, rollbacks, warm-started, current config)
+    serialized for the wire; None when this process owns no tuner
+    (only rank 0 of an ``HVD_TPU_AUTOTUNE`` job does)."""
+    from .. import autotune as _autotune
+    status = _autotune.loop_status()
+    if status is None:
+        return None
+    return json.dumps(status, default=str).encode("utf-8")
 
 
 def render_fleet_scalars_json() -> bytes:

@@ -253,10 +253,11 @@ def build_regression_report(event, write: bool = True,
             key=lambda ev: ev.get("t_mono") or 0.0),
         "ranks": ranks,
         "slowest_rank": slowest,
-        # What the feedback loop did about this drift: filled in by the
-        # tuner's drift hand-off (autotune, ROADMAP queue 1 item 10, not
-        # ported yet) through record_tuning, which rewrites the JSON on
-        # disk too.  None while no tuner runs.
+        # What the feedback loop did about this drift: filled in by
+        # autotune.notify_drift right after this build (retune started /
+        # refused / not tunable) and again when the episode resolves
+        # (rolled back / accepted / confirmed), through record_tuning,
+        # which rewrites the JSON on disk too.
         "tuning": None,
     }
     path = None

@@ -441,15 +441,20 @@ class TpuState(ObjectState):
         super().__init__(**kwargs)
         for k, v in {**trees, **data_objs}.items():
             setattr(self, k, v)
-        # Closed-loop tuning memory (the reference's autotune hook): the
-        # tuner is ROADMAP item 10; until then nothing is announced.
+        # Closed-loop tuning memory (autotune.announce_model): the
+        # state's trees ARE the model identity — announce their leaf-spec
+        # fingerprint so an autotuned job warm-starts from (and freezes
+        # back into) the tuned-config store.  Best-effort, and a no-op on
+        # every process without an active tuner (everyone but rank 0 of
+        # an --autotune job).
         try:
-            from .. import autotune as _autotune  # noqa: F401
-        except ImportError:
-            _autotune = None
-        if _autotune is not None and _autotune.active_manager() is not None:
-            _autotune.announce_model(
-                {k: getattr(self, k) for k in self._tree_keys})
+            from .. import autotune as _autotune
+            if _autotune.active_manager() is not None:
+                trees = {k: getattr(self, k) for k in self._tree_keys}
+                if trees:
+                    _autotune.announce_model(trees)
+        except Exception:  # noqa: BLE001 — memory never blocks training
+            pass
 
     def _zero_dir(self, key: str):
         import os

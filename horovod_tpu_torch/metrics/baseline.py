@@ -26,11 +26,10 @@ onset against the flight-recorded causal event stream — autotune
 decisions, elastic rounds, fleet preemptions, net recovery, checkpoint
 activity — so the report *names the suspect subsystem*.  The detector
 then re-baselines at the new level (a persistent regression is
-reported once, not every step) and mutes for the cooldown.
-
-The port has no ``autotune.py`` yet (ROADMAP queue 1 item 10): the
-re-tune hand-off stays inside its ``try`` block, as in the reference, and
-does nothing until that module lands.
+reported once, not every step) and mutes for the cooldown.  A confirmed
+drift is then handed to the tuner (``autotune.notify_drift``), which
+decides on a bounded re-tune episode and records its decision in the
+report's ``tuning`` section.
 """
 
 from __future__ import annotations

@@ -24,12 +24,12 @@ one serving slot is).  Per sync round it:
    ``GET /observe/dumps`` — every local rank's flight dump in ONE
    response, the fan-in the hang watchdog and ``debug/merge`` use
    instead of per-rank fetches);
-5. does not yet **push** each round's host digest to the fleet
-   gateway's timeline store, as the reference does on the
-   ``HVD_TPU_FLEET_OBSERVE_PUSH_S`` cadence: the push and its client
-   (``fleet/``) are ROADMAP queue 1 item 10b.  Until the port has them,
-   an observer configured to push refuses to start, rather than run
-   without the push it was asked for.
+5. optionally **pushes** each round's host digest to the fleet
+   gateway's timeline store (``fleet/observe.py``) on the
+   ``HVD_TPU_FLEET_OBSERVE_PUSH_S`` cadence, filed under
+   ``HVD_TPU_FLEET_JOB_ID`` (which the fleet scheduler gives its jobs'
+   workers) at ``HVD_TPU_FLEET_ADDR`` — each push counted in
+   ``hvd_observe_pushes_total``.
 
 No collective runs on this path: a rank whose observer is unreachable
 degrades to a local-only digest (``Aggregator.sync_tree``), never to the
@@ -69,17 +69,6 @@ def top_k() -> int:
     return _config.metrics_topk()
 
 
-def refuse_push() -> None:
-    """Raise when a gateway push is configured: the push and its client
-    (``fleet/``) are ROADMAP queue 1 item 10b."""
-    if (_config.fleet_observe_push_s() > 0 and _config.fleet_addr()
-            and _config.fleet_job_id()):
-        raise NotImplementedError(
-            "the host observer's fleet-gateway push (HVD_TPU_FLEET_ADDR, "
-            "HVD_TPU_FLEET_JOB_ID, HVD_TPU_FLEET_OBSERVE_PUSH_S > 0) needs "
-            "fleet/, which the port gets with ROADMAP queue 1 item 10b")
-
-
 class HostObserver:
     """Local merge + inter-host exchange for one host.
 
@@ -91,12 +80,18 @@ class HostObserver:
 
     def __init__(self, host: str, local_ranks: List[int],
                  cross_rank: int = 0, cross_size: int = 1,
-                 rdv_addr: Optional[str] = None, port: int = 0):
+                 rdv_addr: Optional[str] = None, port: int = 0,
+                 job_id: Optional[str] = None,
+                 gateway_addr: Optional[str] = None,
+                 push_interval_s: float = 0.0):
         self.host = host
         self.local_ranks = sorted(int(r) for r in local_ranks)
         self.cross_rank = int(cross_rank)
         self.cross_size = int(cross_size)
         self.rdv_addr = rdv_addr
+        self.job_id = job_id
+        self.gateway_addr = gateway_addr
+        self.push_interval_s = float(push_interval_s)
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._snaps: Dict[int, Dict[int, dict]] = {}   # round -> rank -> snap
@@ -130,6 +125,11 @@ class HostObserver:
                              name="hvd-tpu-observer", daemon=True)
         t.start()
         self._threads.append(t)
+        if self.push_interval_s > 0 and self.gateway_addr and self.job_id:
+            p = threading.Thread(target=self._push_loop,
+                                 name="hvd-tpu-observer-push", daemon=True)
+            p.start()
+            self._threads.append(p)
         return self
 
     def stop(self) -> None:
@@ -407,6 +407,28 @@ class HostObserver:
         return dict(zip(self.local_ranks, results))
 
 
+    # -- gateway push ------------------------------------------------------
+
+    def _push_loop(self) -> None:
+        """Push the newest host digest to the fleet gateway each cadence,
+        once a round (reference observer.py:419-434); best-effort."""
+        from ..fleet.client import push_observation
+        last_pushed = -1
+        while not self._stop.wait(self.push_interval_s):
+            with self._lock:
+                d = self._latest_host
+            if d is None or int(d.get("round", -1)) == last_pushed:
+                continue
+            try:
+                push_observation(self.job_id, d, addr=self.gateway_addr)
+                last_pushed = int(d.get("round", -1))
+                _registry().counter(
+                    "hvd_observe_pushes_total",
+                    "Host digests pushed to the fleet gateway").inc()
+            except Exception as e:  # noqa: BLE001 — push is best-effort
+                log.debug("observer: gateway push failed: %r", e)
+
+
 # ---------------------------------------------------------------------------
 # HTTP plane
 # ---------------------------------------------------------------------------
@@ -529,11 +551,8 @@ def current_observer() -> Optional[HostObserver]:
 def start_host_observer(**overrides) -> Optional[HostObserver]:
     """Start (or return) this host's observer — called by ``init()`` on
     local rank 0 when ``HVD_TPU_METRICS_TREE`` is on.  Identity
-    defaults come from ``global_state``; tests override explicitly.
-    Raises ``NotImplementedError`` when a gateway push is configured
-    (item 10b)."""
+    defaults come from ``global_state``; tests override explicitly."""
     global _observer
-    refuse_push()
     with _observer_lock:
         if _observer is not None:
             return _observer
@@ -554,6 +573,11 @@ def start_host_observer(**overrides) -> Optional[HostObserver]:
                                      global_state.cross_size),
             rdv_addr=overrides.pop(
                 "rdv_addr", os.environ.get("HVD_TPU_RENDEZVOUS_ADDR")),
+            job_id=overrides.pop("job_id", _config.fleet_job_id()),
+            gateway_addr=overrides.pop("gateway_addr",
+                                       _config.fleet_addr()),
+            push_interval_s=overrides.pop(
+                "push_interval_s", _config.fleet_observe_push_s()),
             **overrides)
         _observer = ob.start()
         return _observer

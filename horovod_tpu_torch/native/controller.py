@@ -16,8 +16,14 @@ responses:
   runs each (possibly fused) response on the background thread — NCCL
   over CUDA tensors, or gloo over CPU tensors with ``init(device="cpu")``.
 
-The reference's autotuner (its tick and tuned apply) is not ported:
-``HVD_TPU_AUTOTUNE`` raises.  The controller records into the metrics
+With ``HVD_TPU_AUTOTUNE`` rank 0 owns the reference's tuner
+(``autotune.ParameterManager``): each completed op feeds it the runtime's
+byte counter, and its proposals apply through ``SetParams``,
+``SetTunedToggles`` (or shifted dispatch tables), the coordinator-stamped
+wire format and the overlap engine's session bucket size.  On the card a
+sample window closes only after the device work it counts: rank 0 waits
+on the executor's last completion event as the window closes (once a
+window).  The controller records into the metrics
 registry and the flight recorder as the reference's does: the
 ``hvd_native_*`` families, and from the executor ``hvd_fusion_batch_names``,
 ``hvd_device_plane_bytes_total``, ``hvd_wire_bytes_{raw,sent}_total
@@ -30,6 +36,7 @@ only mirror.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import threading
@@ -132,6 +139,10 @@ def load_library():
             "hvd_native_set_schedule_table": (
                 None, [cint, p64, ctypes.POINTER(ctypes.c_int32), cint]),
             "hvd_native_set_cache_enabled": (None, [cint]),
+            "hvd_native_set_params": (None, [i64, dbl]),
+            "hvd_native_set_tuned_toggles": (None, [cint, cint, cint]),
+            "hvd_native_counters": (None, [p64,
+                                           ctypes.POINTER(ctypes.c_double)]),
             "hvd_native_set_wire_compression": (None, [cint]),
             "hvd_native_wire_compression": (cint, []),
             "hvd_native_set_topology": (None, [cint, cint, cint]),
@@ -180,10 +191,6 @@ class NativeController:
     def __init__(self, rank: int, size: int, coord_addr: str,
                  local_size: int = 1):
         cfg = _cfg.ControllerConfig.from_env()
-        if cfg.autotune:
-            raise NotImplementedError(
-                "HVD_TPU_AUTOTUNE: the autotuner is ROADMAP queue 1 item 10 "
-                "and not ported yet; unset the knob")
         self._lib = load_library()
         # The wall clock of the native timeline's start (rank 0 starts it
         # inside init): debug/merge.py's anchor, to the init's precision.
@@ -266,10 +273,122 @@ class NativeController:
         self._device_cb = None
         self._device_exec_impl = None
         self._device_plan = None
+        # The executor's last completion event on the card (None on the
+        # CPU): what a tuner window waits on as it closes.
+        self._last_done = None
         # Registered now: every rank must take part in a device response
         # (joined ranks with zero proxies) even if it submitted nothing.
         from ..ops.eager import _negotiated_executor
         self.set_device_executor(_negotiated_executor(self))
+        self._build_tuner(cfg, rank, size, local_size)
+
+    # -- autotune -------------------------------------------------------------
+
+    def _build_tuner(self, cfg, rank: int, size: int,
+                     local_size: int) -> None:
+        """Rank 0 owns fusion and algorithm decisions, so the tuner runs
+        there, gated per dimension as the reference gates it
+        (controller.py:258-330): the hierarchical toggles only with more
+        than one rank a host, the cache only at a capacity above 0,
+        compression only when not pinned and the device plane is on,
+        overlap bucket sizes only (never off) at world > 1."""
+        self._autotune = None
+        self._autotune_pause = False
+        self._autotune_kwargs = None
+        if not (cfg.autotune and rank == 0):
+            return
+        from .. import autotune as _autotune_mod
+        from ..ops.eager import device_plane_enabled
+        PM = _autotune_mod.ParameterManager
+        self._autotune_kwargs = dict(
+            apply_fn=self._apply_tuned,
+            log_file=cfg.autotune_log or None,
+            max_samples=cfg.autotune_bayes_opt_max_samples,
+            warmup_samples=cfg.autotune_warmup_samples,
+            steps_per_sample=cfg.autotune_steps_per_sample,
+            gp_noise=cfg.autotune_gaussian_process_noise,
+            initial_toggles=(cfg.hierarchical_allreduce,
+                             cfg.hierarchical_allgather,
+                             cfg.cache_capacity > 0),
+            tune_toggles=(local_size > 1, local_size > 1,
+                          cfg.cache_capacity > 0),
+            initial_compression=cfg.compression,
+            tune_compression=(_cfg.get_env(_cfg.COMPRESSION) is None
+                              and device_plane_enabled()),
+            initial_overlap=(cfg.overlap_bucket_bytes if cfg.overlap
+                             else 0),
+            tune_overlap=(cfg.overlap and
+                          _cfg.get_env(_cfg.OVERLAP_BUCKET_BYTES) is None),
+            # A live on<->off flip is rank-0-local and changes the eager
+            # name sequence; bucket-size flips are name-invariant.
+            overlap_choices=(None if size == 1 else tuple(
+                c for c in PM.OVERLAP_CHOICES if c)),
+            window_sync=self._window_sync)
+        self._autotune = PM(**self._autotune_kwargs)
+        _autotune_mod.set_active_manager(self._autotune)
+
+    @contextlib.contextmanager
+    def autotune_paused(self):
+        """Suppress autotune ticks for ops inside the scope — the
+        dispatch probe's traffic is pinned-arm measurement, not a workload
+        the tuner should score or warm up on."""
+        prev = self._autotune_pause
+        self._autotune_pause = True
+        try:
+            yield
+        finally:
+            self._autotune_pause = prev
+
+    def _apply_tuned(self, fusion, cycle, hier_allreduce, hier_allgather,
+                     cache_enabled, compression="none", overlap=None):
+        """Apply one proposal (reference controller.py:386-430): the
+        numerics through SetParams, the toggles through SetTunedToggles —
+        or, with a probed dispatch table, the hierarchical dims as
+        crossover shifts installed as fresh per-bucket tables — the wire
+        format stamped on the response stream, and the overlap bucket
+        size as the session's."""
+        from ..ops.compression import WIRE_CODES
+        self._lib.hvd_native_set_params(int(fusion), float(cycle))
+        if self._dispatch_table is not None:
+            from ..ops import dispatch as _dispatch
+            shifted = self._dispatch_table.shifted(
+                {"allreduce": int(hier_allreduce),
+                 "allgather": int(hier_allgather)})
+            for kind in _dispatch.KINDS:
+                self.set_schedule_table(kind, *shifted.to_native(kind))
+            _dispatch.set_active(shifted, reason="autotune")
+            self._lib.hvd_native_set_cache_enabled(
+                1 if cache_enabled else 0)
+        else:
+            self._lib.hvd_native_set_tuned_toggles(
+                1 if hier_allreduce else 0, 1 if hier_allgather else 0,
+                1 if cache_enabled else 0)
+        self._lib.hvd_native_set_wire_compression(
+            WIRE_CODES.get(compression, 0))
+        if overlap is not None:
+            from ..ops import overlap as _overlap_mod
+            _overlap_mod.set_session_bucket_bytes(int(overlap))
+
+    def note_done(self, done) -> None:
+        """The executor's completion event of its latest response."""
+        self._last_done = done
+
+    def _window_sync(self) -> None:
+        """Close a tuner window on completed work: wait for the device
+        plane's last response (a no-op on the CPU)."""
+        done = self._last_done
+        if done is not None:
+            done.synchronize()
+
+    def _autotune_tick(self) -> None:
+        pm = self._autotune
+        if pm is None or self._autotune_pause:
+            return
+        nbytes = ctypes.c_int64()
+        secs = ctypes.c_double()
+        self._lib.hvd_native_counters(ctypes.byref(nbytes),
+                                      ctypes.byref(secs))
+        pm.record_bytes(nbytes.value)
 
     @classmethod
     def from_env(cls, rank: Optional[int] = None, size: Optional[int] = None,
@@ -336,6 +455,7 @@ class NativeController:
         self._buffers.pop(handle, None)
         self._m_ops.inc()
         self._m_fused.set(self._lib.hvd_native_last_fused_names())
+        self._autotune_tick()
 
     def interrupt_waits(self, reason: str) -> None:
         """End every wait of this world, now and until shutdown, with
@@ -751,13 +871,38 @@ class NativeController:
         self._lib.hvd_native_set_schedule_table(kind, mb, ch, n)
 
     def adopt_dispatch_table(self, table) -> None:
-        """Install a probe-built ``DispatchTable`` on the coordinator."""
+        """Install a probe-built ``DispatchTable`` on the coordinator, and
+        rebase the tuner's two hierarchical booleans into crossover shifts
+        over it (reference controller.py:344-385): the probe result is the
+        warm start, and a kind the operator pinned stays at shift 0."""
         self._dispatch_table = table
         if self.rank() != 0:
             return
         from ..ops import dispatch as _dispatch
         for kind in _dispatch.KINDS:
             self.set_schedule_table(kind, *table.to_native(kind))
+        if self._autotune_kwargs is None:
+            return
+        if self._autotune is not None and (
+                self._autotune.frozen or self._autotune._samples > 0):
+            # A live mid-run tuner (elastic re-probe) keeps its state.
+            return
+        tunable = tuple(
+            _cfg.get_env(knob) is None and self._local_size > 1
+            for knob in (_cfg.HIERARCHICAL_ALLREDUCE,
+                         _cfg.HIERARCHICAL_ALLGATHER))
+        old_tune = self._autotune_kwargs.get("tune_toggles", True)
+        cache_tunable = old_tune[2] if isinstance(old_tune, (tuple, list)) \
+            else bool(old_tune)
+        self._autotune_kwargs.update(
+            dispatch_shifts=True,
+            initial_toggles=(0, 0,
+                             self._autotune_kwargs["initial_toggles"][2]),
+            tune_toggles=tunable + (cache_tunable,))
+        from .. import autotune as _autotune_mod
+        self._autotune = _autotune_mod.ParameterManager(
+            **self._autotune_kwargs)
+        _autotune_mod.set_active_manager(self._autotune)
 
     def set_cache_enabled(self, enabled: bool) -> None:
         """The response cache on or off (coordinator-distributed)."""
@@ -829,6 +974,11 @@ class NativeController:
     def shutdown(self):
         """Leave the runtime; blocks until every rank has asked to (or
         the runtime gives up on a dead one)."""
+        pm = getattr(self, "_autotune", None)
+        if pm is not None:
+            from .. import autotune as _autotune_mod
+            if _autotune_mod.active_manager() is pm:
+                _autotune_mod.set_active_manager(None)
         self._lib.hvd_native_shutdown()
         self._buffers.clear()
         self._abandoned.clear()

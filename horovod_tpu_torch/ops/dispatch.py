@@ -19,12 +19,13 @@ a per-(op kind, payload bucket) :class:`DispatchTable`:
 Explicit ``HVD_TPU_HIERARCHICAL_ALLREDUCE``/``_ALLGATHER`` stay pins: the
 op kind skips its probe and the whole payload range uses the pinned
 schedule.  The reference's autotuner refines the table by whole buckets
-(``DispatchTable.shifted``); the port keeps the method and gets the tuner
-with ROADMAP queue 1 item 10.
+(``DispatchTable.shifted``), and so does the port's (``autotune.py``
+through ``NativeController._apply_tuned``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -430,10 +431,14 @@ def bootstrap(controller, cfg, local_size: int,
         return _active
     t0 = time.perf_counter()
     probe_kinds = tuple(k for k in KINDS if pins[k] is None)
-    ms = run_probe(controller, probe_kinds,
-                   seed=getattr(cfg, "schedule_probe_seed", 0),
-                   reps=getattr(cfg, "schedule_probe_reps", 2),
-                   payloads=payloads)
+    # Probe traffic is pinned-arm measurement: the autotuner must not
+    # score it or burn warmup windows on it.
+    pause = getattr(controller, "autotune_paused", None)
+    with (pause() if pause is not None else contextlib.nullcontext()):
+        ms = run_probe(controller, probe_kinds,
+                       seed=getattr(cfg, "schedule_probe_seed", 0),
+                       reps=getattr(cfg, "schedule_probe_reps", 2),
+                       payloads=payloads)
     if controller.rank() == 0:
         enc = build_table(ms, pins=pins).encode()
     else:

@@ -301,6 +301,7 @@ def _negotiated_executor(ctl):
             if stream is not None:
                 done = torch.cuda.Event()
                 done.record(stream)
+                ctl.note_done(done)
         return {nm: (r, done) for nm, r in out.items()}
 
     def validate(rtype, names, sizes, dtype, op, root, inputs):

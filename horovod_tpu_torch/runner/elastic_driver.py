@@ -127,6 +127,9 @@ class ElasticDriver:
         # round's platform env by slot id (_plan_round).
         self._cards: Dict[str, tuple] = {}
         self._platform: Dict[str, Dict[str, str]] = {}
+        # The cards a fleet scheduler gave this job, by host (seed_cards):
+        # indices into the host's cards, slot host:i on the i-th.
+        self._card_sets: Dict[str, List[int]] = {}
         self._min_np = min_np
         self._max_np = max_np
         self._base_port = controller_base_port
@@ -335,6 +338,18 @@ class ElasticDriver:
             self._start_round(hosts)
             return True
 
+    def seed_cards(self, card_sets: Dict[str, List[int]]) -> None:
+        """Name the cards this job may use on each host: slot ``host:i``
+        takes the host's card ``card_sets[host][i]`` (an index into the
+        host's cards) instead of card *i*.  The fleet scheduler seeds them
+        before each start and resize, so two jobs seated on one host never
+        share a card: a shrink frees the tail of the set (the survivors
+        keep theirs) and a grow appends free cards.  A host pinned to the
+        CPU ignores its set."""
+        with self._lock:
+            self._card_sets = {h: [int(i) for i in v]
+                               for h, v in card_sets.items()}
+
     def announce_resize(self) -> float:
         """Phase one of a graceful (checkpoint-mediated) resize: publish
         a host event so every worker parks at its next ``commit()`` —
@@ -473,7 +488,8 @@ class ElasticDriver:
 
     def _plan_round(self, slots: List[SlotInfo]) -> Dict[str, Dict[str, str]]:
         """Each slot's platform env (``chips.elastic_slot_env``: slot
-        ``host:i`` on the host's card *i*).  Raises when the round cannot
+        ``host:i`` on the host's card *i*, or on the *i*-th card of the set
+        ``seed_cards`` gave the host).  Raises when the round cannot
         run one backend: a slot beyond its host's cards, or slots pinned
         to the CPU beside slots on cards."""
         from . import chips
@@ -482,8 +498,14 @@ class ElasticDriver:
             if s.hostname not in self._cards:
                 self._cards[s.hostname] = chips.host_cards(s.hostname)
             n, devices = self._cards[s.hostname]
-            env = chips.elastic_slot_env(s.local_rank,
-                                         self._platform_policy, n, devices)
+            policy = self._platform_policy
+            seeded = self._card_sets.get(s.hostname)
+            if seeded is not None and n != 0 and policy != "cpu":
+                names = devices if devices is not None else [
+                    str(i) for i in range(max(n, max(seeded, default=-1) + 1))]
+                n, devices, policy = (len(seeded),
+                                      [names[i] for i in seeded], "auto")
+            env = chips.elastic_slot_env(s.local_rank, policy, n, devices)
             if env is None:
                 short.append(f"{s.hostname} ({n} card(s), slot "
                              f"{s.local_rank})")

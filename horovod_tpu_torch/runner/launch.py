@@ -16,9 +16,9 @@ workers locally or over ssh with fail-fast, and (with --min-np/--max-np +
 Config file (--config-file, JSON or YAML) keys mirror CLI flags
 (reference runner/common/util/config_parser.py).
 
-``--submit`` and the fleet gateway's message on a taken
-``--rendezvous-port`` belong to ``fleet/``, ROADMAP item 10b: the first
-raises, the second names the port without asking who holds it.
+``--submit`` (with ``--gateway``, ``--priority``, ``--tenant``) hands the
+command to a fleet gateway (``fleet/``) instead of launching it, and a
+taken ``--rendezvous-port`` that a fleet gateway holds says so.
 """
 
 from __future__ import annotations
@@ -82,11 +82,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         "to cpu, cpu = CPU workers on gloo, gpu = inherit "
                         "the card view (externally partitioned)")
     p.add_argument("--config-file", default=None)
-    # Fleet service mode: ROADMAP item 10b, which also brings the
-    # reference's --gateway/--priority/--tenant that only --submit reads.
+    # Fleet service mode (fleet/): submit through a running job gateway
+    # instead of owning the cards for the process lifetime.
     p.add_argument("--submit", action="store_true",
                    help="submit this command to the fleet gateway "
-                        "(item 10b: not ported, raises)")
+                        "instead of launching directly (multi-tenant "
+                        "fleet mode)")
+    p.add_argument("--gateway", default=None,
+                   help="fleet gateway address host:port for --submit "
+                        "(default: HVD_TPU_FLEET_ADDR, then "
+                        "127.0.0.1:<HVD_TPU_FLEET_PORT>)")
+    p.add_argument("--priority", type=int, default=0,
+                   help="job priority for --submit (higher preempts "
+                        "lower)")
+    p.add_argument("--tenant", default="default",
+                   help="tenant name for --submit (quota/fair-share "
+                        "accounting)")
     p.add_argument("--rendezvous-port", type=int, default=None,
                    help="bind the rendezvous KV server to this fixed "
                         "port (default: ephemeral)")
@@ -189,7 +200,6 @@ def knob_env(args: argparse.Namespace) -> Dict[str, str]:
     if args.timeline_mark_cycles:
         env["HVD_TPU_TIMELINE_MARK_CYCLES"] = "1"
     if args.autotune:
-        # The controller refuses it (item 10b) when a worker attaches.
         env["HVD_TPU_AUTOTUNE"] = "1"
     if args.autotune_log_file:
         env["HVD_TPU_AUTOTUNE_LOG"] = args.autotune_log_file
@@ -247,17 +257,27 @@ def bind_rendezvous(port: Optional[int],
                     secret: Optional[str] = None) -> RendezvousServer:
     """Construct the KV server on ``port`` (None/0 = ephemeral).  A bind
     failure on a fixed port says which port, instead of an opaque
-    ``Address already in use`` traceback.  Whether a fleet gateway holds
-    it (the reference's pointed message) is asked by fleet/, item 10b."""
+    ``Address already in use`` traceback; when the listener there is a
+    fleet gateway — the one service that parks on a well-known port — it
+    says to submit the job instead."""
     try:
         return RendezvousServer(port=port or 0, secret=secret)
     except OSError as e:
         if port:
+            from ..fleet.client import detect_gateway
+            if detect_gateway(f"127.0.0.1:{port}") is not None:
+                raise SystemExit(
+                    f"port {port} is serving a fleet gateway: fleet mode "
+                    "is active on this machine — the cards are managed "
+                    "by the gateway, so submit the job instead of "
+                    "launching it directly:\n"
+                    f"    hvdrun-torch --submit --gateway 127.0.0.1:{port} "
+                    "... <command>\n"
+                    "(or python -m horovod_tpu_torch.fleet.submit)"
+                ) from None
             raise SystemExit(
                 f"rendezvous port {port} is already bound ({e}); pick "
-                "another --rendezvous-port or free the port (whether a "
-                "fleet gateway holds it is checked with fleet/, ROADMAP "
-                "item 10b)") from None
+                "another --rendezvous-port or free the port") from None
         raise
 
 
@@ -332,11 +352,27 @@ def run_elastic(args: argparse.Namespace) -> int:
 
 
 def run_submit(args: argparse.Namespace) -> int:
-    """``hvdrun --submit``: hand the command to the fleet gateway, which
-    is ``fleet/``, ROADMAP item 10b."""
-    raise NotImplementedError(
-        "--submit hands the job to the fleet gateway (fleet/), ROADMAP "
-        "item 10b, which is not ported yet; launch the job directly")
+    """``hvdrun-torch --submit``: hand the command to the fleet gateway
+    (multi-tenant fleet mode) instead of owning the cards.  The launch
+    knobs ride the job spec as worker env, so a submitted job tunes
+    exactly like a directly-launched one."""
+    from ..fleet import JobSpec, client
+    min_np = args.min_np if args.min_np is not None else \
+        (args.num_proc or 1)
+    max_np = args.max_np if args.max_np is not None else args.num_proc
+    spec = JobSpec(command=list(args.command), min_np=min_np,
+                   max_np=max_np, priority=args.priority,
+                   tenant=args.tenant, env=knob_env(args))
+    addr = client.default_addr(args.gateway)
+    if client.detect_gateway(addr) is None:
+        raise SystemExit(
+            f"no fleet gateway answering at {addr} — start one "
+            "(horovod_tpu_torch.fleet.FleetGateway.serve()) or drop "
+            "--submit to launch directly")
+    rec = client.submit_job(spec, addr=addr)
+    print(f"job {rec.id}: {rec.state}"
+          + (f" ({rec.reason})" if rec.reason else ""))
+    return 0 if rec.state == "queued" else 1
 
 
 def check_build() -> int:

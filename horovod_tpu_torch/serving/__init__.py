@@ -34,10 +34,8 @@ One replica is
   depth, TTFT and SLO burn, and ``Autoscaler`` driving the elastic
   driver's ``request_resize``.
 
-Load client: ``python -m horovod_tpu_torch.serving.submit``.
-
-Not ported yet: the fleet's ``kind: service`` job (ROADMAP queue 1 item
-10b).
+Load client: ``python -m horovod_tpu_torch.serving.submit``.  On a fleet
+gateway a replica is submitted as a ``kind: service`` job (``fleet/``).
 """
 
 from .autoscale import Autoscaler, desired_np

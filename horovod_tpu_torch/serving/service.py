@@ -17,8 +17,8 @@ step.
 
 :class:`ServingService` composes engine + request plane + watcher into
 one long-lived replica.  Its resizes are ``autoscale.Autoscaler``'s over
-the elastic driver; the reference's fleet job kind (``kind: service``)
-comes with ``fleet/``, ROADMAP queue 1 item 10b.
+the elastic driver; on a fleet gateway a replica is a ``kind: service``
+job (``fleet/job.py``), seated like any running job and never done.
 """
 
 from __future__ import annotations

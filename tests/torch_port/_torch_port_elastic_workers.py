@@ -15,6 +15,9 @@ per epoch to ``<log>.<slot>``.
   the driver time to change the host set between epochs.
 * ``cascade`` — the reference's CASCADE_WORKER: two slots fail once
   each, at epochs 1 and 2.
+* ``fleet`` — the fleet drill's job (test_torch_port_fleet.py): the
+  narrow ZeRO-2 transformer committing every step to its checkpoint
+  directory, so a job stopped by a preemption resumes from the disk.
 * ``detect`` — a rank dies inside a collective: every rank enters
   ``op`` (a negotiated allreduce, or the ZeRO step's raw reduce-scatter
   and all-gather of a small transformer) while ``victim`` sleeps and
@@ -397,8 +400,56 @@ def _as_tensors(torch, obj):
     return obj
 
 
+def fleet_steps(torch, hvd, ckpt=None, steps=0, log=None, pace=0.0):
+    """The fleet drill's job (test_torch_port_fleet.py): the narrow ZeRO-2
+    transformer of ``_small_zero`` on seeded batches, its TpuState
+    committing {"model", "opt", "step"} to ``ckpt`` after every step.
+    Returns the losses of the steps this process took, by step."""
+    from horovod_tpu_torch import elastic
+    tfm, cfg, par, model, opt = _small_zero(torch, hvd, seed=0)
+    step_t = torch.zeros((), dtype=torch.int64)
+    state = elastic.TpuState(
+        opt_state={"model": model.state_dict(), "opt": opt,
+                   "step": step_t}, checkpoint_dir=ckpt)
+    step = tfm.make_train_step(cfg, par, model, opt)
+    losses = {}
+
+    @elastic.run
+    def train(state):
+        if log:
+            _log(log, event="sync", step=int(step_t), pid=os.getpid(),
+                 t=time.time())
+        while int(step_t) < steps:
+            i = int(step_t)
+            tokens, labels = tfm.synthetic_batch(cfg, 2, seed=500 + i,
+                                                 device="cpu")
+            losses[i] = float(step(tokens, labels))
+            step_t.add_(1)
+            try:
+                state.commit()
+            finally:
+                # A commit that answers a host event raises after it
+                # saved: the step is taken either way.
+                if log:
+                    _log(log, event="step", step=i, loss=losses[i],
+                         pid=os.getpid(), t=time.time())
+            time.sleep(pace)
+
+    train(state)
+    return losses
+
+
+def fleet_worker(log, ckpt, steps, pace):
+    import torch
+    import horovod_tpu_torch as hvd
+    torch.set_num_threads(1)   # the workers share the host's cores
+    hvd.init(device="cpu")
+    fleet_steps(torch, hvd, ckpt=ckpt, steps=steps, log=log, pace=pace)
+    hvd.shutdown()
+
+
 KINDS = {"allreduce": allreduce_worker, "cascade": cascade_worker,
-         "detect": detect_worker}
+         "detect": detect_worker, "fleet": fleet_worker}
 
 if __name__ == "__main__":
     KINDS[sys.argv[1]](**json.loads(sys.argv[2]))

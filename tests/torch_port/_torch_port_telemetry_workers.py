@@ -101,11 +101,13 @@ def telemetry_part(rank, world, rendezvous, out_dir):
     reg = metrics.registry()
     inp = {k: torch.from_numpy(v) for k, v in op_inputs(rank).items()}
     before = reg.snapshot()
-    n0 = len(debug.snapshot())
+    # New events by sequence number, not position: a full ring stops
+    # growing.
+    seq0 = max((e["seq"] for e in debug.snapshot()), default=-1)
     run_ops(hvd, inp)
     res["families"] = family_delta(before, reg.snapshot())
     res["events"] = [(e["kind"], e["name"], e.get("op"))
-                     for e in debug.snapshot()[n0:]]
+                     for e in debug.snapshot() if e["seq"] > seq0]
     metrics.set_step_flops(STEP_FLOPS)
     for i, t in enumerate(step_times(rank)):
         metrics.step_end(step_time_s=t, step=i)

@@ -984,3 +984,50 @@ def test_cuda_partitioned_slot_takes_its_first_card(cuda_device, tmp_path):
         env=dict(os.environ, HVD_TPU_RANK="0", HVD_TPU_SIZE="1",
                  HVD_TPU_LOCAL_RANK="1", HVD_TPU_LOCAL_SIZE="2", **env))
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+@pytest.mark.cuda
+def test_cuda_tuner_window_closes_on_device_complete_work(cuda_device,
+                                                          monkeypatch):
+    """The negotiated plane's collectives return once they are queued on
+    the card; a tuner window closes only after the executor's last
+    completion event: every response it counted has completed at its
+    close, and its host seconds are at least the CUDA-event span of its
+    responses (first start to last completion).  Each allreduce's input
+    waits on ~10 ms of device sleep, far longer than an op's host round
+    trip, so a window closed on the host's clock alone fails both."""
+    import importlib.util
+    import socket
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.state import global_state
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in {"HVD_TPU_AUTOTUNE": "1",
+                 "HVD_TPU_AUTOTUNE_WARMUP_SAMPLES": "0",
+                 "HVD_TPU_AUTOTUNE_STEPS_PER_SAMPLE": "4",
+                 "HVD_TPU_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "50",
+                 "HVD_TPU_COMPRESSION": "none",
+                 "HVD_TPU_CONTROLLER_ADDR": f"127.0.0.1:{port}"}.items():
+        monkeypatch.setenv(k, v)
+    hvd.init(use_controller=True)
+    try:
+        windows = smoke.record_windows(torch, hvd, global_state.controller)
+        x = torch.randn(1 << 20, device=cuda_device)
+        for i in range(12):
+            torch.cuda._sleep(20_000_000)
+            hvd.allreduce(x, op=hvd.Sum, name=f"w.{i % 2}")
+        torch.cuda.synchronize()
+        windows = windows()
+    finally:
+        hvd.shutdown()
+    assert len(windows) == 3
+    for seconds, span, n, complete in windows:
+        assert n == 4 and complete, windows
+        assert seconds >= span > 0.03, windows

@@ -334,19 +334,25 @@ def test_parse_args_rejections_and_config(tmp_path):
 
 
 def test_submit_raises_naming_item_10b():
-    with pytest.raises(NotImplementedError, match="10b"):
-        launch.main(["--submit", "-np", "1", "python", "x.py"])
+    """``--submit`` now hands the job to a fleet gateway; with none
+    answering at ``--gateway`` it exits naming the address, as the
+    reference's does (the submission itself: test_torch_port_fleet.py)."""
+    addr = f"127.0.0.1:{chips._free_port()}"
+    with pytest.raises(SystemExit, match=f"no fleet gateway answering "
+                                         f"at {addr}"):
+        launch.main(["--submit", "--gateway", addr, "-np", "1", "python",
+                     "x.py"])
 
 
 @pytest.mark.parametrize("argv", [["--gateway", "h:1"], ["--priority", "2"],
                                   ["--tenant", "t"]])
-def test_fleet_flags_wait_for_item_10b(argv, capsys):
-    """Only ``--submit`` reads the reference's fleet flags; until fleet/
-    is ported, argparse refuses them instead of ignoring them."""
-    assert ref_launch.parse_args(argv + ["-np", "1", "python", "x.py"])
-    with pytest.raises(SystemExit):
-        launch.parse_args(argv + ["-np", "1", "python", "x.py"])
-    assert "unrecognized arguments" in capsys.readouterr().err
+def test_fleet_flags_wait_for_item_10b(argv):
+    """``--submit``'s fleet flags parse as the reference's do."""
+    tail = ["-np", "1", "python", "x.py"]
+    got, ref = launch.parse_args(argv + tail), ref_launch.parse_args(
+        argv + tail)
+    assert (got.gateway, got.priority, got.tenant) == \
+        (ref.gateway, ref.priority, ref.tenant)
 
 
 @pytest.mark.parametrize("kw", [{"use_mpi": True}, {"use_gloo": False}])

@@ -268,13 +268,21 @@ def test_controller_off_the_torch_world_raises(monkeypatch):
 
 
 def test_autotune_is_refused(monkeypatch):
+    """The knob is no longer refused: init builds rank 0's tuner and
+    registers it with the closed loop; shutdown deregisters it."""
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.core.state import global_state
     monkeypatch.setenv("HVD_TPU_AUTOTUNE", "1")
     monkeypatch.setenv("HVD_TPU_CONTROLLER_ADDR",
                        f"127.0.0.1:{pool.free_ports(1)[0]}")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        hvd.init(device="cpu", use_controller=True)
-    assert not hvd.is_initialized()
+    hvd.init(device="cpu", use_controller=True)
+    try:
+        pm = global_state.controller._autotune
+        assert pm is not None and autotune.active_manager() is pm
+    finally:
+        hvd.shutdown()
+    assert not hvd.is_initialized() and autotune.active_manager() is None
 
 
 def test_world_one_controller_on_the_cpu(monkeypatch, tmp_path):

@@ -406,27 +406,30 @@ def test_metrics_port_serves_observer_when_running(kvs, monkeypatch):
 
 
 def test_gateway_push_is_refused_naming_item_10b(monkeypatch):
-    """A push configuration refuses the observer, and ``init()`` through
-    it, instead of running without the push it was asked for."""
+    """A push configuration is no longer refused: the observer starts
+    with its push thread, filed under the job at the gateway, and
+    ``init()`` through it (the pushes reaching a gateway:
+    test_torch_port_fleet.py)."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.metrics import observer as OB
     monkeypatch.setenv("HVD_TPU_METRICS_TREE", "1")
     monkeypatch.setenv("HVD_TPU_FLEET_ADDR", "127.0.0.1:1")
     monkeypatch.setenv("HVD_TPU_FLEET_JOB_ID", "j")
     monkeypatch.setenv("HVD_TPU_FLEET_OBSERVE_PUSH_S", "1")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        OB.start_host_observer(host="hP", local_ranks=[0])
-    assert OB.current_observer() is None
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        hvd.init(device="cpu")
-    assert not hvd.is_initialized()
-    assert not dist.is_initialized()
-    monkeypatch.setenv("HVD_TPU_FLEET_OBSERVE_PUSH_S", "0")   # push off
+    ob = OB.start_host_observer(host="hP", local_ranks=[0])
+    try:
+        assert (ob.job_id, ob.gateway_addr, ob.push_interval_s) == \
+            ("j", "127.0.0.1:1", 1.0)
+        assert "hvd-tpu-observer-push" in [t.name for t in ob._threads]
+    finally:
+        OB.stop_host_observer()
     hvd.init(device="cpu")
     try:
         assert OB.current_observer() is not None
+        assert OB.current_observer().job_id == "j"
     finally:
         hvd.shutdown()
+    assert not dist.is_initialized()
 
 
 def test_elastic_reset_refuses_the_old_worlds_rounds(kvs, monkeypatch):

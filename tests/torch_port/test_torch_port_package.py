@@ -115,11 +115,17 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.runner.probe",
     "horovod_tpu_torch.runner.gpu_discovery",
     "horovod_tpu_torch.runner.fnpickle",
-    "horovod_tpu_torch.runner.fn_exec"])
+    "horovod_tpu_torch.runner.fn_exec", "horovod_tpu_torch.autotune",
+    "horovod_tpu_torch.fleet", "horovod_tpu_torch.fleet.tuning",
+    "horovod_tpu_torch.fleet.job", "horovod_tpu_torch.fleet.queue",
+    "horovod_tpu_torch.fleet.policy", "horovod_tpu_torch.fleet.scheduler",
+    "horovod_tpu_torch.fleet.gateway", "horovod_tpu_torch.fleet.client",
+    "horovod_tpu_torch.fleet.observe", "horovod_tpu_torch.fleet.submit"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     """Each module of the mesh, the GSPMD plane, sequence parallelism,
     the models, the serving plane, the telemetry plane, the wire fabric,
-    the recovery tier and elastic training, imported first in a fresh
+    the recovery tier, elastic training, the tuner and the fleet service,
+    imported first in a fresh
     interpreter where ``import jax`` fails."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

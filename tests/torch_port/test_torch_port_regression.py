@@ -189,7 +189,10 @@ def test_prefetch_producer_pays_the_input_delay(monkeypatch):
     from horovod_tpu_torch.data.prefetch import PrefetchIterator
     from horovod_tpu_torch.debug import flight
     monkeypatch.setenv("HVD_TPU_CHAOS_INPUT_DELAY_MS", "20")
-    n0 = len(flight.snapshot())
+    # New events by sequence number: once the 4096-event ring is full (a
+    # long run of earlier tests in this process), its length stops
+    # growing and a slice by position would be empty.
+    seq0 = max((e["seq"] for e in flight.snapshot()), default=-1)
     it = PrefetchIterator(iter(range(5)), depth=1, name="drill")
     try:
         t0 = time.perf_counter()
@@ -198,7 +201,8 @@ def test_prefetch_producer_pays_the_input_delay(monkeypatch):
     finally:
         it.close()
     assert ("data.chaos_delay", "drill") in [
-        (e["kind"], e["name"]) for e in flight.snapshot()[n0:]]
+        (e["kind"], e["name"]) for e in flight.snapshot()
+        if e["seq"] > seq0]
 
 
 def test_comm_delay_is_paid_inside_the_collective(monkeypatch):
@@ -210,12 +214,12 @@ def test_comm_delay_is_paid_inside_the_collective(monkeypatch):
     collective.reset_comm_chaos()
     hvd.init(device="cpu")
     try:
-        n0 = len(flight.snapshot())
+        seq0 = max((e["seq"] for e in flight.snapshot()), default=-1)
         t0 = time.perf_counter()
         out = hvd.allreduce(torch.ones(3), name="drill")
         assert time.perf_counter() - t0 >= 0.025
         assert out.tolist() == [1.0, 1.0, 1.0]
-        events = flight.snapshot()[n0:]
+        events = [e for e in flight.snapshot() if e["seq"] > seq0]
         assert ("net.chaos_delay", "eager") in [
             (e["kind"], e["name"]) for e in events]
         (done,) = [e for e in events if e["kind"] == "collective.done"]

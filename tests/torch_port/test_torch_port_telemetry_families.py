@@ -79,15 +79,19 @@ class _Watch:
     def __enter__(self):
         self.before = (reg_j.registry().snapshot(),
                        reg_t.registry().snapshot())
-        self.n = (len(fl_j.snapshot()), len(fl_t.snapshot()))
+        # Sequence numbers, not lengths: a full ring stops growing.
+        self.n = tuple(max((e["seq"] for e in fl.snapshot()), default=-1)
+                       for fl in (fl_j, fl_t))
         return self
 
     def __exit__(self, *exc):
         self.ref = W.family_delta(self.before[0], reg_j.registry().snapshot())
         self.port = W.family_delta(self.before[1],
                                    reg_t.registry().snapshot())
-        self.ref_events = [e["kind"] for e in fl_j.snapshot()[self.n[0]:]]
-        self.port_events = [e["kind"] for e in fl_t.snapshot()[self.n[1]:]]
+        self.ref_events = [e["kind"] for e in fl_j.snapshot()
+                           if e["seq"] > self.n[0]]
+        self.port_events = [e["kind"] for e in fl_t.snapshot()
+                            if e["seq"] > self.n[1]]
 
     def assert_equal(self):
         assert _signature(self.port) == _signature(self.ref)
@@ -112,11 +116,13 @@ def reference_ops():
         for c in reg_j.registry().children_of("hvd_wire_compression_ratio"):
             c.reset()
         before = reg_j.registry().snapshot()
-        n0 = len(fl_j.snapshot())
+        # New events by sequence number, not position: a full ring
+        # stops growing.
+        seq0 = max((e["seq"] for e in fl_j.snapshot()), default=-1)
         W.run_ops(hvd_j, W.op_inputs(r))
         out.append((W.family_delta(before, reg_j.registry().snapshot()),
                     [(e["kind"], e["name"], e.get("op"))
-                     for e in fl_j.snapshot()[n0:]]))
+                     for e in fl_j.snapshot() if e["seq"] > seq0]))
     return out
 
 
