@@ -367,6 +367,23 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              victim stopped, resume to the first resumed step, and each
              job's kernel launches.
 
+23. frontends — the horovod.torch API of the port
+             (horovod_tpu_torch.torch): (a) the flagship trained 10 steps
+             through its DistributedOptimizer(AdamW, named_parameters=)
+             after broadcast_parameters and broadcast_optimizer_state,
+             beside the port's DistributedOptimizer in the same process
+             (in turns: port, front end, front end, port), without and
+             with the native controller: losses bit-equal,
+             80 launches a kernel, no more device-to-host copies in a
+             profiled step than the port's path makes, both host steps;
+             (b) sparse_allreduce of an nn.Embedding(sparse=True)
+             gradient against the dense allreduce, SyncBatchNorm against
+             nn.BatchNorm2d (and its cross-rank function at world 1),
+             the fp16/bf16 compressions' round trips on CUDA gradients;
+             (c) hvdrun-torch -np 1 of
+             examples/torch_port/pytorch_synthetic_benchmark.py on
+             cuda:0, its img/sec.
+
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
 path, each counted from 0 just before it ran; every entry also holds
@@ -5326,6 +5343,291 @@ def phase_fleet(torch, hvd, tfm, fa, cfg, par, card):
                                       for e in a_syncs])
 
 
+# Phase 23: the framework front ends.  The sparse gradient's sum order
+# differs from the dense embedding backward's (coalesce against an
+# index-add), so it is held within fp32 rounding of the largest row.
+FRONTEND_STEPS = 10
+TOL_SPARSE = dict(rtol=1e-6, atol=1e-6)
+TOL_SBN = dict(rtol=1e-5, atol=1e-5)
+FRONTEND_BENCH_ARGS = ("--num-iters", "3", "--num-batches-per-iter", "10",
+                       "--batch-size", "64", "--image-size", "64")
+
+
+def dtoh_copies(torch, step):
+    """Device-to-host copies in one profiled call of ``step()``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if "DtoH" in e.name
+               and e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def frontend_run(torch, hvd, fe, tfm, fa, cfg, par, tokens, labels,
+                 n_steps, through_frontend, op=None):
+    """``n_steps`` flagship steps from seed 0 through the front end's
+    DistributedOptimizer (after its two broadcasts; ``op`` its reduction,
+    Average by default) or the port's: losses, host step, launches, the
+    hooks' gradient allreduces and the NCCL ``all_reduce`` calls on card
+    tensors in those steps, device-to-host copies of a profiled step
+    after them."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import collective as C
+    torch.cuda.synchronize()
+    model = tfm.Transformer(cfg, par, seed=0)
+    adamw = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              weight_decay=1e-4)
+    if through_frontend:
+        fe.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = fe.DistributedOptimizer(
+            adamw, named_parameters=model.named_parameters(),
+            op=fe.Average if op is None else op)
+        fe.broadcast_optimizer_state(opt, root_rank=0)
+    else:
+        hvd.broadcast_parameters(model.state_dict())
+        opt = hvd.DistributedOptimizer(adamw)
+    step = tfm.make_train_step(cfg, par, model, opt)
+    fa.reset_launches()
+    grad_calls, nccl_calls = [], []
+    real_submit, real_all_reduce = C.allreduce_async, dist.all_reduce
+
+    def submit(tensor, *a, name=None, **k):
+        if name is not None and name.startswith("grad."):
+            grad_calls.append(tensor.is_cuda)
+        return real_submit(tensor, *a, name=name, **k)
+
+    def all_reduce(tensor, *a, **k):
+        nccl_calls.append(tensor.is_cuda)
+        return real_all_reduce(tensor, *a, **k)
+
+    C.allreduce_async, dist.all_reduce = submit, all_reduce
+    losses, times = [], []
+    try:
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            loss = step(tokens, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+    finally:
+        C.allreduce_async, dist.all_reduce = real_submit, real_all_reduce
+    launches = dict(fa.launches)
+    dtoh = dtoh_copies(torch, lambda: step(tokens, labels))
+    n_grads = sum(1 for p in model.parameters() if p.requires_grad)
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_times_s": times,
+            "step_s": statistics.median(times[1:]), "launches": launches,
+            "dtoh_copies": dtoh, "grads": n_grads,
+            "grad_allreduces": len(grad_calls),
+            "grad_allreduces_on_card": sum(grad_calls),
+            "nccl_all_reduces_on_card": sum(nccl_calls)}
+
+
+def phase_frontends(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
+    """Phase 23: the horovod.torch API of the port on the card; returns
+    the report."""
+    import horovod_tpu_torch.torch as fe
+    from horovod_tpu_torch.torch.sync_batch_norm import _SyncBatchNormFn
+    t_phase = time.perf_counter()
+    report = {}
+    # (a) the flagship through the front end, without and with the
+    # native controller, beside the port's optimizer in the same world.
+    for label, controller in (("flat", False), ("controller", True)):
+        if controller:
+            os.environ["HVD_TPU_CONTROLLER_ADDR"] = \
+                f"127.0.0.1:{free_port()}"
+        try:
+            fe.init(use_controller=controller)
+            # In turns (port, front end, front end, port): the host's
+            # noise moves a run by tens of percent from one to the next.
+            port, front, front2, port2 = (
+                frontend_run(torch, hvd, fe, tfm, fa, cfg, par, tokens,
+                             labels, FRONTEND_STEPS, through)
+                for through in (False, True, True, False))
+            # Without a controller a world-1 average is the identity and
+            # the hooks skip it, as the reference's do; a sum is not
+            # skipped, so this run takes every hook's NCCL allreduce.
+            summed = None if controller else frontend_run(
+                torch, hvd, fe, tfm, fa, cfg, par, tokens, labels,
+                FRONTEND_STEPS, True, op=fe.Sum)
+        finally:
+            fe.shutdown()
+            os.environ.pop("HVD_TPU_CONTROLLER_ADDR", None)
+        # World 1: the sums over one rank are identities, so the hooks'
+        # allreduces (or, without a controller, their skip) change no bit.
+        runs = [r for r in (front, front2, summed) if r is not None]
+        for run in runs + [port2]:
+            assert run["losses"] == port["losses"], (run["losses"],
+                                                     port["losses"])
+        assert all(math.isfinite(x) for x in front["losses"])
+        assert front["losses"][-1] < front["losses"][0]
+        for run in runs + [port, port2]:
+            assert run["dtoh_copies"] == 0, run
+        for run in runs:
+            for n in KERNELS:
+                assert run["launches"][n] == cfg.n_layers * FRONTEND_STEPS, \
+                    run["launches"]
+        fired = [r for r in runs if controller or r is summed]
+        for run in fired:
+            assert run["grad_allreduces"] == run["grad_allreduces_on_card"] \
+                == run["grads"] * FRONTEND_STEPS, run
+        if summed is not None:
+            assert summed["nccl_all_reduces_on_card"] >= \
+                summed["grad_allreduces"], summed
+            assert front["grad_allreduces"] == 0, front
+        report[label] = {"frontend": front, "port": port,
+                         "frontend_again": front2, "port_again": port2}
+        if summed is not None:
+            report[label]["frontend_sum"] = summed
+        log(f"[frontends] (a) {label}: losses bit-equal to the port's "
+            f"optimizer ({front['losses'][0]:.6f} -> "
+            f"{front['losses'][-1]:.6f}); launches {front['launches']}; "
+            f"device-to-host copies in a profiled step "
+            f"{front['dtoh_copies']} (port {port['dtoh_copies']}); host "
+            f"step, in turns, port {port['step_s'] * 1e3:.3f} / front end "
+            f"{front['step_s'] * 1e3:.3f} / front end "
+            f"{front2['step_s'] * 1e3:.3f} / port "
+            f"{port2['step_s'] * 1e3:.3f} ms (medians of steps "
+            f"1-{FRONTEND_STEPS - 1}); gradient allreduces from the hooks "
+            f"{[r['grad_allreduces'] for r in runs]} (of "
+            f"{front['grads']} gradients x {FRONTEND_STEPS} steps), NCCL "
+            f"all_reduce calls on card tensors "
+            f"{[r['nccl_all_reduces_on_card'] for r in runs]}"
+            + (f"; op=Sum run host step {summed['step_s'] * 1e3:.3f} ms"
+               if summed else "") + f"; on {card}")
+
+    # (b) the card-side pieces at world 1 on NCCL.
+    fe.init()
+    try:
+        dev = fe.device()
+        gen = torch.Generator(device="cpu").manual_seed(23)
+        emb = torch.nn.Embedding(cfg.vocab_size, cfg.d_model,
+                                 sparse=True).to(dev)
+        idx = torch.randint(0, cfg.vocab_size, (8, 512),
+                            generator=gen).to(dev)
+        (emb(idx).float() ** 2).sum().backward()
+        sparse = emb.weight.grad
+        assert sparse.is_sparse and sparse.device == dev
+        got = fe.sparse_allreduce(sparse, name="emb.sparse").to_dense()
+        want = fe.allreduce(sparse.to_dense(), name="emb.dense")
+        assert got.device == dev
+        torch.testing.assert_close(got, want, **TOL_SPARSE)
+        sparse_err = (got - want).abs().max().item()
+        # ... and through the optimizer, sparse against sparse_as_dense.
+        params = []
+        for dense in (False, True):
+            e = torch.nn.Embedding(cfg.vocab_size, cfg.d_model,
+                                   sparse=True).to(dev)
+            with torch.no_grad():
+                e.weight.copy_(emb.weight)
+            opt = fe.DistributedOptimizer(
+                torch.optim.SGD(e.parameters(), lr=0.1),
+                named_parameters=e.named_parameters(),
+                sparse_as_dense=dense)
+            (e(idx).float() ** 2).sum().backward()
+            opt.step()
+            params.append(e.weight.detach())
+        torch.testing.assert_close(params[0], params[1], **TOL_SPARSE)
+        report["sparse"] = {"rows": int(sparse.coalesce().indices()
+                                        .shape[1]),
+                            "max_abs_err": sparse_err}
+
+        x = torch.randn(8, 64, 32, 32, generator=gen).to(dev)
+        ct = torch.randn(8, 64, 32, 32, generator=gen).to(dev)
+        outs = {}
+        for name, make in (("bn", torch.nn.BatchNorm2d),
+                           ("sync", fe.SyncBatchNorm)):
+            torch.manual_seed(5)
+            bn = make(64).to(dev)
+            with torch.no_grad():
+                bn.weight.uniform_(0.5, 1.5)
+                bn.bias.uniform_(-0.5, 0.5)
+            xi = x.clone().requires_grad_()
+            y = bn(xi)
+            (y * ct).sum().backward()
+            outs[name] = (y.detach(), xi.grad, bn.weight.grad,
+                          bn.bias.grad, bn.running_mean.clone(),
+                          bn.running_var.clone())
+        for a, b in zip(outs["sync"], outs["bn"]):
+            assert torch.equal(a, b)
+        # The cross-rank function itself (fp64 statistics through NCCL).
+        bn = torch.nn.BatchNorm2d(64).to(dev)
+        xi = x.clone().requires_grad_()
+        w = torch.ones(64, device=dev, requires_grad=True)
+        b = torch.zeros(64, device=dev, requires_grad=True)
+        y = _SyncBatchNormFn.apply(xi, w, b, bn.running_mean.clone(),
+                                   bn.running_var.clone(), bn.eps, 0.1,
+                                   True, "syncbn.card")
+        (y * ct).sum().backward()
+        ref_x = x.clone().requires_grad_()
+        ref = torch.nn.functional.batch_norm(
+            ref_x, None, None, torch.ones(64, device=dev, requires_grad=True),
+            torch.zeros(64, device=dev), training=True, eps=bn.eps)
+        (ref * ct).sum().backward()
+        torch.testing.assert_close(y, ref, **TOL_SBN)
+        torch.testing.assert_close(xi.grad, ref_x.grad, **TOL_SBN)
+        report["sync_batch_norm"] = {
+            "module_bit_equal": True,
+            "fn_out_max_abs_err": (y - ref).abs().max().item(),
+            "fn_grad_max_abs_err": (xi.grad - ref_x.grad).abs().max()
+            .item()}
+
+        trips = {}
+        for wire, dtype in (("fp16", torch.float16),
+                            ("bf16", torch.bfloat16)):
+            torch.manual_seed(7)
+            lin = torch.nn.Linear(512, 512).to(dev)
+            opt = fe.DistributedOptimizer(
+                torch.optim.SGD(lin.parameters(), lr=0.1),
+                named_parameters=lin.named_parameters(),
+                compression=getattr(fe.Compression, wire))
+            (lin(torch.randn(64, 512, generator=gen).to(dev)) ** 2) \
+                .sum().backward()
+            local = [p.grad.clone() for p in lin.parameters()]
+            opt.synchronize()
+            for p, g in zip(lin.parameters(), local):
+                assert p.grad.device == dev and \
+                    p.grad.dtype == torch.float32
+                assert torch.equal(p.grad, g.to(dtype).float()), wire
+            trips[wire] = "bit-equal"
+            with opt.skip_synchronize():
+                opt.step()
+        report["compression"] = trips
+    finally:
+        fe.shutdown()
+    log(f"[frontends] (b) sparse_allreduce of a {cfg.vocab_size} x "
+        f"{cfg.d_model} embedding gradient ({report['sparse']['rows']} "
+        f"rows) against the dense allreduce: max |diff| "
+        f"{report['sparse']['max_abs_err']:.3g}; SyncBatchNorm = "
+        f"BatchNorm2d bit for bit, its cross-rank function within "
+        f"{report['sync_batch_norm']['fn_out_max_abs_err']:.3g} (out) / "
+        f"{report['sync_batch_norm']['fn_grad_max_abs_err']:.3g} (grad); "
+        f"fp16/bf16 round trips {trips}")
+
+    # (c) a launched example on the card.
+    torch.cuda.empty_cache()
+    rc, out, wall, _ = launcher(
+        ["-np", "1", sys.executable,
+         os.path.join("examples", "torch_port",
+                      "pytorch_synthetic_benchmark.py"),
+         *FRONTEND_BENCH_ARGS])
+    assert rc == 0, out[-3000:]
+    m = re.search(r"img/sec per worker: ([0-9.]+) on (\S+)", out)
+    assert m and m.group(2) == "cuda:0", out[-2000:]
+    report["launched"] = {"img_per_s": float(m.group(1)), "wall_s": wall}
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[frontends] (c) hvdrun-torch -np 1 "
+        f"examples/torch_port/pytorch_synthetic_benchmark.py "
+        f"{' '.join(FRONTEND_BENCH_ARGS)}: {float(m.group(1)):.1f} img/sec "
+        f"on {m.group(2)} ({wall:.1f} s of launch); phase 23 "
+        f"{report['phase_s']:.1f} s; on {card}")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5562,6 +5864,11 @@ def main() -> int:
     report["autotune"] = phase_autotune(torch, hvd, tfm, fa, cfg, par,
                                         tokens, labels, card)
     report["fleet"] = phase_fleet(torch, hvd, tfm, fa, cfg, par, card)
+    # 23. the framework front ends: the flagship through the horovod.torch
+    # API without and with the controller, its card-side pieces, a
+    # launched example
+    report["frontends"] = phase_frontends(torch, hvd, tfm, fa, cfg, par,
+                                          tokens, labels, card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -5607,6 +5914,12 @@ def main() -> int:
         by_path["autotune"] = report["autotune"]["launches"][name]
         by_path.update({f"fleet_job_{t}": n[name] for t, n in
                         report["fleet"]["launches"].items()})
+        by_path["frontend_torch"] = \
+            report["frontends"]["flat"]["frontend"]["launches"][name]
+        by_path["frontend_torch_controller"] = \
+            report["frontends"]["controller"]["frontend"]["launches"][name]
+        by_path["frontend_torch_sum"] = \
+            report["frontends"]["flat"]["frontend_sum"]["launches"][name]
         # The serving prefills are forwards: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \

@@ -28,9 +28,11 @@ setup(
                                     "horovod_tpu_torch",
                                     "horovod_tpu_torch.*"]),
     # horovod_tpu_torch (the PyTorch/CUDA port) builds its kernels from
-    # csrc/*.cu with nvcc at first use, so the sources ship as data.
+    # csrc/*.cu with nvcc, and its TF custom op with g++, at first use,
+    # so the sources ship as data.
     package_data={"horovod_tpu.native": ["libhvdtpu_core.so"],
-                  "horovod_tpu_torch": ["csrc/*.cu"]},
+                  "horovod_tpu_torch": ["csrc/*.cu",
+                                        "tensorflow/ops/*.cc"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "optax", "cloudpickle"],
     entry_points={

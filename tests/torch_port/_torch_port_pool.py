@@ -12,8 +12,9 @@ zero, sbn), of ``_torch_port_checkpoint_workers`` (ckpt), of
 by the test file's ``prepare`` hook) and of
 ``_torch_port_telemetry_workers`` (telemetry and hang, two ranks;
 observe, four) and of
-``_torch_port_recovery_workers`` (recovery) for the test file of that
-part.  The ranks fork from a server that imported torch once
+``_torch_port_recovery_workers`` (recovery) and of
+``_torch_port_frontend_workers`` (frontend, two ranks) for the test
+file of that part.  The ranks fork from a server that imported torch once
 for all four."""
 
 import functools
@@ -94,7 +95,7 @@ def part_inputs(part: str) -> dict:
     rng = np.random.default_rng({"overlap": 11, "adasum": 12, "zero": 13,
                                  "sbn": 14, "ckpt": 15, "gspmd": 16,
                                  "ring": 17, "units": 21, "modes": 22,
-                                 "moe": 23}[part])
+                                 "moe": 23, "frontend": 31}[part])
 
     def normal(*shape, scale=1.0):
         return (rng.standard_normal(shape) * scale).astype(np.float32)
@@ -134,6 +135,15 @@ def part_inputs(part: str) -> dict:
         # (B, S, H, D) over the whole sequence; 4 heads split over 4
         # members, 64 rows a member (one tile of the reference's kernel).
         return {n: normal(1, 256, 4, 32) for n in ("q", "k", "v", "ct")}
+    if part == "frontend":
+        # Embedding rows: rank 0 looks up rows 0-4, rank 1 rows 5-9.
+        idx = np.stack([rng.choice(5, (3, 3), replace=True) + 5 * r
+                        for r in range(2)], axis=1)
+        return {"w": normal(3, 5), "b": normal(3), "x": normal(3, 2, 4, 5),
+                "emb": normal(10, 4), "idx": idx.astype(np.int64),
+                "bn_x": normal(2, 4, 3, 2, scale=2.0) + 1.0,
+                "bn_ct": normal(2, 4, 3, 2), "bn_w": normal(3) + 1.0,
+                "bn_b": normal(3)}
     if part in ("modes", "moe"):
         tokens = rng.integers(0, 61, (8, 16))
         return {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
@@ -183,7 +193,8 @@ def _spawn(body, out, world: int = WORLD):
          "_torch_port_checkpoint_workers", "_torch_port_parallel_workers",
          "_torch_port_eager_workers", "_torch_port_modes_workers",
          "_torch_port_models_workers", "_torch_port_telemetry_workers",
-         "_torch_port_recovery_workers", "_torch_port_elastic_workers"])
+         "_torch_port_recovery_workers", "_torch_port_elastic_workers",
+         "_torch_port_frontend_workers"])
     mp.start_processes(body, args=(world, f"{out}/rendezvous", str(out)),
                        nprocs=world, join=True, start_method="forkserver")
 
@@ -204,7 +215,8 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
     ``_torch_port_modes_workers`` for "units", "modes" and "moe",
     ``_torch_port_models_workers`` for "resnet", "bert" and "moet",
     ``_torch_port_recovery_workers`` for "recovery",
-    ``_torch_port_elastic_workers`` for "elastic"),
+    ``_torch_port_elastic_workers`` for "elastic",
+    ``_torch_port_frontend_workers`` for "frontend"),
     from one start of the ranks per part and test process.
     ``prepare(out_dir)`` writes what the ranks read beyond the part's
     inputs, before they start; ``part_dir(part)`` is that directory."""
@@ -212,6 +224,7 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
         import _torch_port_checkpoint_workers as ckpt_workers
         import _torch_port_eager_workers as eager_workers
         import _torch_port_elastic_workers as el_workers
+        import _torch_port_frontend_workers as fe_workers
         import _torch_port_models_workers as model_workers
         import _torch_port_modes_workers as modes_workers
         import _torch_port_parallel_workers as par_workers
@@ -226,7 +239,7 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
             prepare(str(out))
         _DIRS[part] = str(out)
         world = tel_workers.WORLD if part in ("telemetry", "hang") \
-            else WORLD
+            else fe_workers.WORLD if part == "frontend" else WORLD
         _spawn({"overlap": workers.overlap_part,
                 "adasum": workers.adasum_part,
                 "zero": workers.zero_part,
@@ -248,7 +261,8 @@ def part_results(tmp_path_factory, part: str, prepare=None) -> list:
                 "hang": tel_workers.hang_part,
                 "observe": tel_workers.observe_part,
                 "recovery": rec_workers.recovery_part,
-                "elastic": el_workers.elastic_part}[part], out, world)
+                "elastic": el_workers.elastic_part,
+                "frontend": fe_workers.frontend_part}[part], out, world)
         _PARTS[part] = [torch.load(os.path.join(out, f"{part}{r}.pt"))
                         for r in range(world)]
     return _PARTS[part]

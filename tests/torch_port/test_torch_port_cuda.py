@@ -1031,3 +1031,106 @@ def test_cuda_tuner_window_closes_on_device_complete_work(cuda_device,
     for seconds, span, n, complete in windows:
         assert n == 4 and complete, windows
         assert seconds >= span > 0.03, windows
+
+
+class _LateGrad(torch.autograd.Function):
+    """Identity forward; the backward queues ~25 ms of device sleep
+    before it writes 3 x the upstream gradient, so a collective that does
+    not wait on the producing stream reads the gradient before it is
+    written."""
+
+    @staticmethod
+    def forward(ctx, p):
+        return p.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        torch.cuda._sleep(50_000_000)
+        return g * 3.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("controller", [False, True])
+def test_cuda_frontend_hooks_wait_for_the_last_gradient(cuda_device,
+                                                       monkeypatch,
+                                                       controller):
+    """horovod_tpu_torch.torch's DistributedOptimizer on the card, on a
+    side stream: each hook fires its allreduce (op=Sum, so world 1 still
+    runs a collective: NCCL, or the device plane under the controller)
+    while the last gradient's producer still sleeps; the reduced
+    gradients equal the local ones."""
+    import horovod_tpu_torch.torch as fe
+    if controller:
+        monkeypatch.setenv("HVD_TPU_CONTROLLER_ADDR",
+                           f"127.0.0.1:{_free_port()}")
+    fe.init(use_controller=controller)
+    try:
+        torch.manual_seed(0)
+        w = torch.nn.Parameter(torch.randn(1024, 1024, device=cuda_device))
+        b = torch.nn.Parameter(torch.randn(1024, device=cuda_device))
+        opt = fe.DistributedOptimizer(
+            torch.optim.SGD([w, b], lr=0.0), op=fe.Sum,
+            named_parameters=[("w", w), ("b", b)])
+        x = torch.randn(64, 1024, device=cuda_device)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            y = x @ w + _LateGrad.apply(b)
+            ct = torch.randn_like(y)
+            (y * ct).sum().backward()
+            opt.synchronize()
+            got = [w.grad.clone(), b.grad.clone()]
+        torch.cuda.synchronize()
+        want = [x.t() @ ct, 3.0 * ct.sum(0)]
+        for g, e in zip(got, want):
+            torch.testing.assert_close(g, e, rtol=1e-5, atol=1e-3)
+    finally:
+        fe.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_frontend_sparse_and_sync_batch_norm(cuda_device):
+    """On the card: sparse_allreduce of an nn.Embedding(sparse=True)
+    gradient against the dense allreduce, the optimizer's sparse path
+    against sparse_as_dense, SyncBatchNorm against nn.BatchNorm2d bit
+    for bit, and a CPU tensor refused by the NCCL world."""
+    import horovod_tpu_torch.torch as fe
+    fe.init()
+    try:
+        torch.manual_seed(1)
+        emb = torch.nn.Embedding(1000, 64, sparse=True).to(cuda_device)
+        idx = torch.randint(0, 1000, (16, 32), device=cuda_device)
+        (emb(idx) ** 2).sum().backward()
+        got = fe.sparse_allreduce(emb.weight.grad).to_dense()
+        want = fe.allreduce(emb.weight.grad.to_dense())
+        assert got.is_cuda
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+        params = []
+        for dense in (False, True):
+            e = torch.nn.Embedding(1000, 64, sparse=True).to(cuda_device)
+            with torch.no_grad():
+                e.weight.copy_(emb.weight)
+            opt = fe.DistributedOptimizer(
+                torch.optim.SGD(e.parameters(), lr=0.1),
+                named_parameters=e.named_parameters(),
+                sparse_as_dense=dense)
+            (e(idx) ** 2).sum().backward()
+            opt.step()
+            params.append(e.weight.detach())
+        torch.testing.assert_close(params[0], params[1], rtol=1e-6,
+                                   atol=1e-6)
+        x = torch.randn(4, 16, 8, 8, device=cuda_device)
+        outs = []
+        for make in (torch.nn.BatchNorm2d, fe.SyncBatchNorm):
+            torch.manual_seed(2)
+            bn = make(16).to(cuda_device)
+            xi = x.clone().requires_grad_()
+            y = bn(xi)
+            y.square().sum().backward()
+            outs.append((y, xi.grad, bn.weight.grad, bn.running_var))
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        with pytest.raises(ValueError, match="move it there first"):
+            fe.allreduce(torch.ones(3))
+    finally:
+        fe.shutdown()

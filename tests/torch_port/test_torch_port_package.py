@@ -120,15 +120,19 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.fleet.job", "horovod_tpu_torch.fleet.queue",
     "horovod_tpu_torch.fleet.policy", "horovod_tpu_torch.fleet.scheduler",
     "horovod_tpu_torch.fleet.gateway", "horovod_tpu_torch.fleet.client",
-    "horovod_tpu_torch.fleet.observe", "horovod_tpu_torch.fleet.submit"])
+    "horovod_tpu_torch.fleet.observe", "horovod_tpu_torch.fleet.submit",
+    "horovod_tpu_torch.torch", "horovod_tpu_torch.torch.elastic",
+    "horovod_tpu_torch.torch.sync_batch_norm", "horovod_tpu_torch.mxnet"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     """Each module of the mesh, the GSPMD plane, sequence parallelism,
     the models, the serving plane, the telemetry plane, the wire fabric,
-    the recovery tier, elastic training, the tuner and the fleet service,
-    imported first in a fresh
-    interpreter where ``import jax`` fails."""
+    the recovery tier, elastic training, the tuner, the fleet service and
+    the torch and mxnet front ends, imported first in a fresh
+    interpreter where ``import jax`` fails (and, for the front ends,
+    ``import tensorflow`` too)."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['tensorflow'] = None\n"
             f"importlib.import_module({module!r})\n"
             "bad = [m for m in sys.modules if m == 'horovod_tpu' or "
             "m.startswith('horovod_tpu.') or m == 'jax']\n"
@@ -137,6 +141,51 @@ def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_tensorflow_and_keras_front_ends_import_without_jax():
+    """The TensorFlow and Keras front ends (and the Keras alias) import
+    with TensorFlow where ``import jax`` fails, and bring in nothing of
+    horovod_tpu."""
+    pytest.importorskip("tensorflow")
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import horovod_tpu_torch.tensorflow as t\n"
+            "import horovod_tpu_torch.keras as k\n"
+            "import horovod_tpu_torch.tensorflow.keras as tk\n"
+            "from horovod_tpu_torch.keras import callbacks, elastic\n"
+            "from horovod_tpu_torch.tensorflow import elastic as te\n"
+            "assert tk.DistributedOptimizer is k.DistributedOptimizer\n"
+            "bad = [m for m in sys.modules if m == 'horovod_tpu' or "
+            "m.startswith('horovod_tpu.') or m == 'jax']\n"
+            "assert not [m for m in bad if sys.modules[m] is not None], bad\n"
+            "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+TF_OPS_MARKS = ("// port: op names of its own",)
+
+
+def test_tf_custom_op_source_is_the_reference_copy():
+    """The port's TF custom op is the reference's source line for line,
+    but for the lines marked ``// port:``, which only rename the ops (so
+    both libraries can load into one process)."""
+    with open(os.path.join(ROOT, "horovod_tpu", "tensorflow", "ops",
+                           "hvd_tf_ops.cc")) as f:
+        ref = f.read().splitlines()
+    with open(os.path.join(PKG, "tensorflow", "ops", "hvd_tf_ops.cc")) as f:
+        port = f.read().splitlines()
+    assert len(port) == len(ref)
+    changed = [(p, r) for p, r in zip(port, ref) if p != r]
+    assert changed
+    for p, r in changed:
+        assert any(p.endswith("  " + m) for m in TF_OPS_MARKS), p
+        assert p.split("  // port:")[0].replace(
+            '"HvdTpuTorch', '"HvdTpu') == r
+    assert os.listdir(os.path.join(PKG, "tensorflow", "ops")) == \
+        ["hvd_tf_ops.cc"]
 
 
 def test_native_builds_and_imports_without_jax():
