@@ -384,6 +384,24 @@ Phases, each of which ends the run with a non-zero exit if it fails:
              examples/torch_port/pytorch_synthetic_benchmark.py on
              cuda:0, its img/sec.
 
+24. integrations — the cluster integrations on the card (the line
+             ``[integrations] form: ...`` says which data form ran):
+             (a) horovod_tpu_torch.spark.TorchEstimator with no device
+             fits the flagship (next-token cross entropy on its fp32
+             logits, AdamW) from a pandas DataFrame materialized to a
+             LocalStore under a temporary directory: 10 steps at batch 8
+             and one validation batch on cuda:0, 8 launches a step of
+             each kernel (and 8 forward launches for the validation),
+             a falling loss, a finite validation loss, the checkpoint
+             reloaded into a fresh model bit for bit, each step's host
+             time; (b) examples/torch_port/spark_estimator.py's
+             Linear(4, 1) fitted and transformed on the card and on the
+             CPU, within 1e-5; (c) horovod_tpu_torch.ray.RayExecutor
+             (num_workers=1, use_gpu=True) over an in-process fake ray
+             (the actor's CUDA_VISIBLE_DEVICES set as Ray sets it) runs 3
+             flagship steps in its actor on cuda:0, the process's env
+             restored after.
+
 The last lines are the card line, a JSON line with one entry per kernel
 (``launches`` on the main path of phase 4, ``launches_by_path`` on every
 path, each counted from 0 just before it ran; every entry also holds
@@ -5628,6 +5646,234 @@ def phase_frontends(torch, hvd, tfm, fa, cfg, par, tokens, labels, card):
     return report
 
 
+# Phase 24: the estimator's flagship fit (steps at batch 8, one
+# validation batch) and the Ray actor's steps.
+ESTIMATOR_STEPS, ESTIMATOR_BATCH, RAY_STEPS = 10, 8, 3
+
+
+def fake_ray():
+    """The fake ``ray`` the port's Ray tests use
+    (tests/torch_port/_torch_port_fake_ray.py), whose actors run in this
+    process; an actor that asked for ``num_gpus`` gets the card as Ray
+    gives it one, through ``CUDA_VISIBLE_DEVICES`` (here the card is
+    already this process's).  Returns (modules, record)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_torch_port_fake_ray",
+        os.path.join(ROOT, "tests", "torch_port", "_torch_port_fake_ray.py"))
+    helper = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helper)
+    record = {}
+    return helper.fake_ray_modules(record), record
+
+
+def ray_actor_steps(cfg, n_steps):
+    """A RayExecutor actor's function: the flagship's steps on the device
+    ``init()`` gives the actor, through the port's optimizer."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core.basics import device_index
+    from horovod_tpu_torch.models import transformer as tfm
+    hvd.init()
+    try:
+        par = tfm.ParallelConfig()
+        model = tfm.Transformer(cfg, par, seed=0)
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(
+            model.parameters(), lr=3e-4, weight_decay=1e-4))
+        step = tfm.make_train_step(cfg, par, model, opt)
+        tokens, labels = tfm.synthetic_batch(cfg, ESTIMATOR_BATCH, seed=1)
+        losses = [step(tokens, labels).item() for _ in range(n_steps)]
+        return {"device": str(hvd.device()),
+                "device_index": device_index(hvd.local_rank()),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "partition": os.environ.get("HVD_TPU_DEVICE_PARTITION"),
+                "world": [os.environ.get("MASTER_ADDR"),
+                          os.environ.get("MASTER_PORT")],
+                "losses": losses}
+    finally:
+        hvd.shutdown()
+
+
+def phase_integrations(torch, tfm, fa, cfg, par, card):
+    """Phase 24: the estimators and the Ray executor on the card; returns
+    the report."""
+    import importlib.util
+    import io
+    import tempfile
+    import numpy as np
+    import horovod_tpu_torch.spark as spark
+    from horovod_tpu_torch.core import basics
+    # The fit reads in this process: choose arrow's pool before pyarrow
+    # loads, as the estimator's workers do, so the feed prefetches.
+    spark.store.prefer_system_arrow_pool()
+    import pandas as pd
+    import pyarrow
+    t_phase = time.perf_counter()
+    report = {"form": f"pandas {pd.__version__} DataFrame through a "
+              f"LocalStore (pyarrow {pyarrow.__version__})"}
+    log(f"[integrations] form: {report['form']}")
+
+    class LM(torch.nn.Module):
+        """The flagship as an estimator's model: float token columns in,
+        fp32 logits out."""
+
+        def __init__(self, seed):
+            super().__init__()
+            self.lm = tfm.Transformer(cfg, par, seed=seed, device="cpu")
+
+        def forward(self, x):
+            return tfm.serial_forward_logits(cfg, self.lm, x.long())
+
+    calls = []
+
+    def lm_loss(logits, y):
+        """Next-token cross entropy; each call's loss and host time."""
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), y.long().reshape(-1))
+        calls.append((time.perf_counter(), loss.item()))
+        return loss
+
+    def adamw(params):
+        return torch.optim.AdamW(params, lr=3e-4, weight_decay=1e-4)
+
+    # (a) the flagship through TorchEstimator on cuda:0, its rows phase
+    # 4's 8 sequences over and over (a loss that falls within 10 steps).
+    n_train = ESTIMATOR_STEPS * ESTIMATOR_BATCH
+    tokens, labels = tfm.synthetic_batch(cfg, ESTIMATOR_BATCH, seed=1,
+                                         device="cpu")
+    df = pd.DataFrame({
+        "tokens": [tokens[i % ESTIMATOR_BATCH].float().tolist()
+                   for i in range(n_train + ESTIMATOR_BATCH)],
+        "next": [labels[i % ESTIMATOR_BATCH].float().tolist()
+                 for i in range(n_train + ESTIMATOR_BATCH)]})
+    with tempfile.TemporaryDirectory(prefix="hvd_estimator_") as root:
+        store = spark.LocalStore(root)
+        model = LM(seed=0)
+        est = spark.TorchEstimator(
+            model=model, optimizer=adamw, loss=lm_loss, epochs=1,
+            batch_size=ESTIMATOR_BATCH,
+            validation=ESTIMATOR_BATCH / (n_train + ESTIMATOR_BATCH),
+            store=store, feature_cols=["tokens"], label_cols=["next"],
+            verbose=0)
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            fitted = est.fit(df)
+            fit_s = time.perf_counter() - t0
+            launches = dict(fa.launches)
+            dev = basics.device()
+        finally:
+            basics.shutdown()
+        assert dev == torch.device("cuda", 0), dev
+        assert all(p.device == dev for p in model.parameters())
+        losses = [loss for _, loss in calls[:-1]]
+        assert len(losses) == ESTIMATOR_STEPS, len(calls)
+        assert all(math.isfinite(x) for x in losses), losses
+        assert losses[-1] < losses[0], losses
+        val_loss = fitted.validation_loss
+        assert math.isfinite(val_loss) and val_loss == calls[-1][1]
+        for n in KERNELS:
+            want = cfg.n_layers * (ESTIMATOR_STEPS
+                                   + (n == "flash_fwd"))
+            assert launches[n] == want, launches
+        step_times = [b[0] - a[0] for a, b in zip(calls[:-2], calls[1:-1])]
+        state = torch.load(io.BytesIO(store.load_checkpoint(est.run_id)),
+                           weights_only=True)
+        fresh = LM(seed=1)
+        fresh.load_state_dict(state)
+        for (name, got), want in zip(fresh.state_dict().items(),
+                                     model.state_dict().values()):
+            assert torch.equal(got, want.cpu()), name
+    step_s = statistics.median(step_times)
+    report["estimator_fit"] = {
+        "losses": losses, "validation_loss": val_loss,
+        "launches": launches, "fit_s": fit_s, "step_times_s": step_times,
+        "step_s": step_s, "rows": len(df)}
+    log(f"[integrations] (a) TorchEstimator fit of the flagship on {dev}: "
+        f"{ESTIMATOR_STEPS} steps at batch {ESTIMATOR_BATCH}, losses "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}, validation loss "
+        f"{val_loss:.6f}; launches {launches} ({cfg.n_layers} a step of "
+        f"each, and {cfg.n_layers} forwards for the validation); host "
+        f"step {step_s * 1e3:.3f} ms (median of steps 2-{ESTIMATOR_STEPS},"
+        f" the loss read each step); fit {fit_s:.2f} s with the store's "
+        f"Parquet; checkpoint reloaded bit for bit; on {card}")
+
+    # (b) the example's Linear(4, 1), card against CPU.
+    spec = importlib.util.spec_from_file_location(
+        "spark_estimator_example",
+        os.path.join(ROOT, "examples", "torch_port", "spark_estimator.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    frame = example.synthetic_frame(512)
+    fits = {}
+    with tempfile.TemporaryDirectory(prefix="hvd_example_") as root:
+        for device in (None, "cpu"):
+            est = example.estimator(
+                spark.LocalStore(os.path.join(root, str(device))),
+                device=device)
+            est.verbose = 0
+            try:
+                fitted = est.fit(frame)
+            finally:
+                basics.shutdown()
+            fits[device] = (
+                {k: v.detach().cpu() for k, v in
+                 fitted.model.state_dict().items()},
+                fitted.transform(frame)["label__output"].values,
+                next(fitted.model.parameters()).device)
+    assert fits[None][2].type == "cuda" and fits["cpu"][2].type == "cpu"
+    w_err = max((fits[None][0][k] - fits["cpu"][0][k]).abs().max().item()
+                for k in fits["cpu"][0])
+    out_err = float(np.abs(fits[None][1] - fits["cpu"][1]).max())
+    assert w_err <= 1e-5 and out_err <= 1e-5, (w_err, out_err)
+    report["example_linear"] = {"weight_max_abs_err": w_err,
+                                "transform_max_abs_err": out_err}
+    log(f"[integrations] (b) examples/torch_port/spark_estimator.py's "
+        f"Linear(4, 1) on the card against the CPU: weights within "
+        f"{w_err:.3g}, transform within {out_err:.3g}")
+
+    # (c) RayExecutor with use_gpu over the in-process fake ray.
+    modules, record = fake_ray()
+    saved_env, saved_mods = dict(os.environ), {
+        k: sys.modules.get(k) for k in modules}
+    sys.modules.update(modules)
+    try:
+        from horovod_tpu_torch.ray import RayExecutor
+        ex = RayExecutor(num_workers=1, use_gpu=True,
+                         controller_port=free_port())
+        ex.start()
+        fa.reset_launches()
+        (actor,) = ex.run(ray_actor_steps, args=(cfg, RAY_STEPS))
+        ray_launches = dict(fa.launches)
+        ex.shutdown()
+    finally:
+        os.environ.clear()
+        os.environ.update(saved_env)
+        for k, m in saved_mods.items():
+            if m is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = m
+    assert record["pg"].bundles == [{"CPU": 1.0, "GPU": 1.0}], record
+    assert record["actor_opts"][0]["num_gpus"] == 1.0, record
+    assert (actor["device"], actor["device_index"], actor["visible"],
+            actor["partition"]) == ("cuda:0", 0, "0", "0/1"), actor
+    assert actor["world"][0] == "127.0.0.1" and actor["world"][1], actor
+    assert all(math.isfinite(x) for x in actor["losses"])
+    assert actor["losses"][-1] < actor["losses"][0], actor["losses"]
+    for n in KERNELS:
+        assert ray_launches[n] == cfg.n_layers * RAY_STEPS, ray_launches
+    report["ray_actor"] = dict(actor, launches=ray_launches)
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"[integrations] (c) RayExecutor(num_workers=1, use_gpu=True) over "
+        f"a fake ray: the actor on {actor['device']} "
+        f"(CUDA_VISIBLE_DEVICES={actor['visible']}, partition "
+        f"{actor['partition']}), {RAY_STEPS} flagship steps, losses "
+        f"{actor['losses'][0]:.6f} -> {actor['losses'][-1]:.6f}, launches "
+        f"{ray_launches}; phase 24 {report['phase_s']:.1f} s; on {card}")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5869,6 +6115,10 @@ def main() -> int:
     # launched example
     report["frontends"] = phase_frontends(torch, hvd, tfm, fa, cfg, par,
                                           tokens, labels, card)
+    # 24. the cluster integrations: the flagship through TorchEstimator,
+    # the example's estimator card against CPU, a Ray actor's steps
+    report["integrations"] = phase_integrations(torch, tfm, fa, cfg, par,
+                                                card)
 
     kernels = []
     flag = timing["flagship"]["kernels"]
@@ -5920,6 +6170,10 @@ def main() -> int:
             report["frontends"]["controller"]["frontend"]["launches"][name]
         by_path["frontend_torch_sum"] = \
             report["frontends"]["flat"]["frontend_sum"]["launches"][name]
+        by_path["estimator_fit"] = \
+            report["integrations"]["estimator_fit"]["launches"][name]
+        by_path["ray_actor"] = \
+            report["integrations"]["ray_actor"]["launches"][name]
         # The serving prefills are forwards: no backward kernel runs there.
         assert all(v for p, v in by_path.items()
                    if name == "flash_fwd" or p != "serving.prefill"), \

@@ -223,9 +223,12 @@ def init(device: DeviceLike = None, init_method: Optional[str] = None,
                     "runs (runner/bootstrap.py); a command it does not "
                     "wrap, such as a shell script, cannot form this "
                     "world: launch the python interpreter directly")
-            dist.init_process_group(backend,
-                                    init_method=init_method or "env://",
-                                    rank=rank, world_size=size, **kwargs)
+            if init_method is None:
+                _form_static_world(backend, rank, size, **kwargs)
+            else:
+                dist.init_process_group(backend, init_method=init_method,
+                                        rank=rank, world_size=size,
+                                        **kwargs)
         owns = True
 
     two_level = _is_grid(size, (local_rank, local_size, cross_rank,
@@ -303,6 +306,52 @@ def _start_observer() -> None:
         from ..utils import logging as log
         log.warning("metrics tree: cannot start host observer (%r); "
                     "sync degrades to local-only digests", e)
+
+
+# The launcher's store at MASTER_ADDR/MASTER_PORT, one a process, and
+# the number of static worlds formed on it: (addr, port, serves) ->
+# [TCPStore, worlds].
+_static_stores: dict = {}
+
+
+def _static_store(rank: int, size: int):
+    """The store of a static world at the launcher's ``MASTER_ADDR`` /
+    ``MASTER_PORT`` and the prefix the next world takes there:
+    ``([store, worlds formed], PrefixStore)``.  One process may form
+    several worlds one after the other (init, shutdown, init), and every
+    world writes the same keys: had each formed its own store at the one
+    port, a rank quick to re-init could read the previous world's gloo
+    addresses from rank 0's store before rank 0 took it down, and wait on
+    them forever.  So the store outlives its worlds (rank 0 serves it until
+    the process exits, whatever the size of its later worlds) and the
+    n-th world every rank forms reads and writes under ``world<n>/``:
+    ranks form their worlds in the same order, so they agree on n
+    (``_form_static_world`` counts a world once it formed)."""
+    import datetime
+    addr, port = os.environ.get("MASTER_ADDR"), os.environ.get("MASTER_PORT")
+    if not (addr and port):
+        raise RuntimeError(
+            f"a world of {size} processes rendezvouses at MASTER_ADDR/"
+            "MASTER_PORT, and they are not set: launch with hvdrun-torch "
+            "or pass init_method")
+    port = int(port)
+    key = (addr, port, rank == 0)
+    entry = _static_stores.get(key)
+    if entry is None:
+        store = dist.TCPStore(addr, port, size, is_master=rank == 0,
+                              timeout=datetime.timedelta(minutes=30))
+        entry = _static_stores[key] = [store, 0]
+    return entry, dist.PrefixStore(f"world{entry[1] + 1}/", entry[0])
+
+
+def _form_static_world(backend: str, rank: int, size: int, **kwargs) -> None:
+    """``init_process_group`` on the launcher's store under the next
+    world's prefix.  A world counts once it formed: a failed attempt's
+    retry takes the prefix its peers still wait under."""
+    entry, store = _static_store(rank, size)
+    dist.init_process_group(backend, rank=rank, world_size=size,
+                            store=store, **kwargs)
+    entry[1] += 1
 
 
 def _round_store(elastic: dict, rank: int, size: int):

@@ -60,14 +60,24 @@ class GlobalState:
     metrics_tree: bool = False
     # Elastic bookkeeping (HVD_TPU_ELASTIC). elastic_round survives
     # reset() so a re-init can demand a *newer* rendezvous round than the
-    # one that just failed.
+    # one that just failed (so does the topology above).
     elastic_enabled: bool = False
     elastic_round: int = -1
 
     def reset(self) -> None:
-        elastic_round = self.elastic_round
+        """Forget the world, keeping what outlives it: the elastic round
+        (a re-init demands a newer one) and the last world's topology,
+        which the reference's reset keeps too (a worker's main reads its
+        rank after the user's function shut its world down,
+        spark/elastic_exec.py).  ``rank()`` and the other queries still
+        refuse to answer until the next ``init()``."""
+        keep = {k: getattr(self, k) for k in _KEPT_BY_RESET}
         self.__init__()
-        self.elastic_round = elastic_round
+        self.__dict__.update(keep)
+
+
+_KEPT_BY_RESET = ("elastic_round", "rank", "size", "local_rank",
+                  "local_size", "cross_rank", "cross_size")
 
 
 global_state = GlobalState()

@@ -16,8 +16,8 @@ flagship model (port of horovod_tpu/parallel/):
 
 As in the reference, the ``ring_attention`` function is not bound on the
 package (it would shadow the submodule): reach it through the submodule.
-``note_bubble`` is exported and raises until the step-attribution engine
-it feeds is ported (ROADMAP.md queue 1 item 9).
+``note_bubble`` is exported: it credits a pipeline span's bubble share to
+the step-attribution engine (``metrics.attribution``).
 """
 
 from . import mesh

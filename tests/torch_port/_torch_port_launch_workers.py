@@ -12,6 +12,7 @@ device, so a slot pinned to the CPU runs gloo.
   an allreduce of ``rank + 1``, an allgather of ``rank + 1`` rows, a
   broadcast from rank 0, checked in the worker; one JSON file a rank
   with its topology, device and whether the launch secret arrived.
+* ``reinit`` — two static worlds one after the other in each worker.
 """
 
 import json
@@ -50,6 +51,38 @@ def static_worker(outfile):
     hvd.shutdown()
 
 
+def reinit_worker(outfile, delay_s):
+    """Two static worlds in one launched process: init, an allreduce,
+    shutdown, twice.  Rank 0 holds the first world's store ``delay_s``
+    longer before it takes it down, so rank 1 asks for the second world
+    while the first one's keys are still served."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+
+    torch.set_num_threads(1)
+    destroy = dist.destroy_process_group
+
+    def late_destroy(*a, **kw):
+        time.sleep(delay_s)
+        return destroy(*a, **kw)
+
+    sums = []
+    for world in range(2):
+        hvd.init()
+        rank = hvd.rank()
+        if rank == 0 and world == 0:
+            dist.destroy_process_group = late_destroy
+        out = hvd.allreduce(torch.full((4,), float(rank + 1)), op=hvd.Sum)
+        sums.append(float(out[0]))
+        hvd.shutdown()
+        dist.destroy_process_group = destroy
+    with open(f"{outfile}.{rank}", "w") as f:
+        json.dump({"rank": rank, "sums": sums}, f)
+
+
 def rank_sum_fn(base):
     """The reference's ``_rank_sum_fn`` (tests/test_runner.py:208-214)."""
     import torch
@@ -70,4 +103,4 @@ def failing_fn():
 
 if __name__ == "__main__":
     kind, args = sys.argv[1], json.loads(sys.argv[2])
-    {"static": static_worker}[kind](**args)
+    {"static": static_worker, "reinit": reinit_worker}[kind](**args)

@@ -1134,3 +1134,54 @@ def test_cuda_frontend_sparse_and_sync_batch_norm(cuda_device):
             fe.allreduce(torch.ones(3))
     finally:
         fe.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_torch_estimator_holds_its_batches_on_the_card(cuda_device,
+                                                            tmp_path):
+    """TorchEstimator with no device fits on cuda:0: the model moves to
+    the card, every batch the model sees and the validation batch are
+    CUDA tensors, the checkpoint holds host copies of the fitted weights,
+    and transform returns host numpy equal to the model's output."""
+    import pandas as pd
+    import horovod_tpu_torch.spark as spark
+    from horovod_tpu_torch.core import basics
+
+    seen = []
+
+    class Probe(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            torch.manual_seed(0)
+            self.lin = torch.nn.Linear(3, 1)
+
+        def forward(self, x):
+            seen.append(x.device)
+            return self.lin(x)
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(40, 3).astype(np.float32)
+    df = pd.DataFrame({"features": [r.tolist() for r in x],
+                       "label": x.sum(1).astype(np.float32)})
+    try:
+        est = spark.TorchEstimator(
+            model=Probe(), lr=0.1, epochs=1, batch_size=8, validation=0.2,
+            store=spark.LocalStore(str(tmp_path)), verbose=0,
+            feature_cols=["features"], label_cols=["label"])
+        fitted = est.fit(df)
+        assert basics.device().type == "cuda"
+    finally:
+        basics.shutdown()
+    assert len(seen) == 4 + 1 and all(d.type == "cuda" for d in seen), seen
+    assert all(p.is_cuda for p in fitted.model.parameters())
+    assert np.isfinite(fitted.validation_loss)
+    import io
+    state = torch.load(io.BytesIO(est.store.load_checkpoint(est.run_id)),
+                       weights_only=True)
+    for k, v in fitted.model.state_dict().items():
+        assert state[k].device.type == "cpu"
+        assert torch.equal(state[k], v.cpu())
+    out = fitted.transform(df)
+    with torch.no_grad():
+        want = fitted.model(torch.from_numpy(x).cuda()).cpu().numpy()[:, 0]
+    np.testing.assert_array_equal(out["label__output"].values, want)

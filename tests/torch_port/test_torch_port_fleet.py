@@ -839,9 +839,15 @@ def test_host_observer_pushes_to_the_gateway(tmp_path):
                 time.sleep(0.05)
         rounds = [s["round"] for s in gw.observe.series("jobP")]
         assert rounds == [1, 2], rounds
-        after = registry().counter(
+        # The push thread counts a push once push_observation has
+        # returned, which can be after the gateway holds its round.
+        pushes = registry().counter(
             "hvd_observe_pushes_total",
-            "Host digests pushed to the fleet gateway").value
+            "Host digests pushed to the fleet gateway")
+        deadline = time.time() + 5
+        while time.time() < deadline and pushes.value < before + 2:
+            time.sleep(0.05)
+        after = pushes.value
         assert after - before == 2
     finally:
         ob.stop()

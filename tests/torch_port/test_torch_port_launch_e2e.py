@@ -43,6 +43,56 @@ def test_static_launch_two_cpu_slots(tmp_path, capfd):
 
 
 @pytest.mark.timeout(120)
+def test_static_launch_forms_a_second_world_in_one_process(tmp_path):
+    """init, allreduce, shutdown, twice in each launched worker, rank 0
+    taking its first world's store down 2 s after rank 1 has left it: the
+    second world must not read the first one's addresses (it hung in
+    gloo's pair setup when both worlds shared the store's keys)."""
+    outfile = str(tmp_path / "result")
+    rc = main(["-np", "2", "--worker-platform", "cpu",
+               "--controller-port", str(_free_port()),
+               sys.executable, WORKERS, "reinit",
+               json.dumps({"outfile": outfile, "delay_s": 2.0})])
+    assert rc == 0
+    for r in range(2):
+        assert json.load(open(f"{outfile}.{r}")) == \
+            {"rank": r, "sums": [3.0, 3.0]}
+
+
+def test_static_world_counts_only_the_worlds_that_formed(monkeypatch):
+    """A world whose ``init_process_group`` failed is not counted: the
+    retry forms under the prefix its peers wait under (``world1/``), and
+    the next world after it under ``world2/``.  One store serves every
+    world of the process, whatever their sizes."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.core import basics
+    base, made, prefixes = dist.HashStore(), [], []
+    monkeypatch.setattr(basics, "_static_stores", {})
+    monkeypatch.setattr(dist, "TCPStore",
+                        lambda *a, **kw: made.append(a) or base)
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    fail = [True]
+
+    def init_process_group(backend, rank, world_size, store):
+        store.set("k", str(world_size))
+        seen = [p for p in ("world1/", "world2/")
+                if dist.PrefixStore(p, base).check(["k"])]
+        prefixes.append(seen[-1])
+        dist.PrefixStore(seen[-1], base).delete_key("k")
+        if fail.pop() if fail else False:
+            raise RuntimeError("store timeout")
+
+    monkeypatch.setattr(dist, "init_process_group", init_process_group)
+    with pytest.raises(RuntimeError, match="store timeout"):
+        basics._form_static_world("gloo", 0, 2)
+    basics._form_static_world("gloo", 0, 2)
+    basics._form_static_world("gloo", 0, 3)
+    assert prefixes == ["world1/", "world1/", "world2/"]
+    assert len(made) == 1
+
+
+@pytest.mark.timeout(120)
 def test_static_launch_failfast(tmp_path):
     script = tmp_path / "worker.py"
     script.write_text("import os, sys, time\n"

@@ -122,17 +122,22 @@ def test_source_names_no_jax_or_reference(path):
     "horovod_tpu_torch.fleet.gateway", "horovod_tpu_torch.fleet.client",
     "horovod_tpu_torch.fleet.observe", "horovod_tpu_torch.fleet.submit",
     "horovod_tpu_torch.torch", "horovod_tpu_torch.torch.elastic",
-    "horovod_tpu_torch.torch.sync_batch_norm", "horovod_tpu_torch.mxnet"])
+    "horovod_tpu_torch.torch.sync_batch_norm", "horovod_tpu_torch.mxnet",
+    "horovod_tpu_torch.spark", "horovod_tpu_torch.spark.store",
+    "horovod_tpu_torch.spark.estimator",
+    "horovod_tpu_torch.spark.elastic_exec", "horovod_tpu_torch.ray"])
 def test_mesh_gspmd_and_sequence_modules_import_without_jax(module):
     """Each module of the mesh, the GSPMD plane, sequence parallelism,
     the models, the serving plane, the telemetry plane, the wire fabric,
-    the recovery tier, elastic training, the tuner, the fleet service and
-    the torch and mxnet front ends, imported first in a fresh
-    interpreter where ``import jax`` fails (and, for the front ends,
-    ``import tensorflow`` too)."""
+    the recovery tier, elastic training, the tuner, the fleet service,
+    the torch and mxnet front ends and the cluster integrations,
+    imported first in a fresh interpreter where ``import jax`` fails (and
+    ``import tensorflow``, ``import pyspark`` and ``import ray``)."""
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['tensorflow'] = None\n"
+            "sys.modules['pyspark'] = None\n"
+            "sys.modules['ray'] = None\n"
             f"importlib.import_module({module!r})\n"
             "bad = [m for m in sys.modules if m == 'horovod_tpu' or "
             "m.startswith('horovod_tpu.') or m == 'jax']\n"

@@ -193,9 +193,11 @@ def test_prefetch_producer_pays_the_input_delay(monkeypatch):
     # long run of earlier tests in this process), its length stops
     # growing and a slice by position would be empty.
     seq0 = max((e["seq"] for e in flight.snapshot()), default=-1)
+    # The clock starts before the producer thread does: it pays the first
+    # item's delay as soon as it is constructed.
+    t0 = time.perf_counter()
     it = PrefetchIterator(iter(range(5)), depth=1, name="drill")
     try:
-        t0 = time.perf_counter()
         assert list(it) == list(range(5))
         assert time.perf_counter() - t0 >= 5 * 0.020
     finally:

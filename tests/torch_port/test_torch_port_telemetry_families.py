@@ -8,9 +8,9 @@ counters (ops, bytes, saves, restores, spans, requests, tokens) and the
 flight events' kinds.  Likewise for a KV migration on the int8 wire with
 the autoscaler's resizes (its bytes, migrations and resizes by
 direction), and for the tree sync's rounds through a host observer
-(late snapshots, a stale round; the gateway push, which the port
-refuses until ROADMAP queue 1 item 10b, moves in neither).  Timings are
-not compared."""
+(late snapshots, a stale round; the gateway push, which no gateway
+is configured for here, moves in neither: test_torch_port_fleet.py holds
+it).  Timings are not compared."""
 
 import importlib
 import time
